@@ -6,17 +6,24 @@
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit.  It
 
-1. builds the three CUDA kernels from `cineform_tpu_torch/csrc/`;
+1. builds the CUDA kernels from `cineform_tpu_torch/csrc/`, one nvcc per
+   source, all at once;
 2. holds each kernel against its plain PyTorch version, on the card, at
    the shapes of a batch-8 1080p encode (every forward DWT level of luma
    and chroma; every chunk_pack and merge_network call of the band
-   groups, one frame being seeded noise so that chunks overflow), and
-   times both with CUDA events;
+   groups, one frame being seeded noise so that chunks overflow) and of a
+   batch-8 1080p decode (the merge_network_tgt compaction and the
+   merge_network_highfirst spread of every band row class), and times
+   both with CUDA events;
 3. drives the main path through `IntraCodec`: the 1080p golden sample
-   (`tests/golden/samples/s_1920x1080_q6_p1`) encoded and decoded byte for
-   byte, then a batch of 8 1080p frames at quality 4 (the content of
-   `bench.py`) encoded and decoded, with the round-trip PSNR, the
-   compression ratio, the overflowed band count and the per-frame times;
+   (`tests/golden/samples/s_1920x1080_q6_p1`) encoded, decoded with host
+   entropy and decoded on the device (`decode_batch_device`), each byte
+   for byte; then a batch of 8 1080p frames at quality 4 (the content of
+   `bench.py`) encoded and decoded both ways, with the round-trip PSNR,
+   the compression ratio, the overflowed band count, the per-frame times
+   of each part and the device decode's peak device memory; the device
+   decode must equal the host-entropy decode for all 8 frames with no
+   frame falling back to the host;
 4. fails unless every kernel was launched by that main-path run;
 5. holds frames 0 and 7 of the batch, encoded and decoded, against the
    port's own plain path on the CPU (the plain PyTorch versions of the
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -119,11 +127,13 @@ def main() -> int:
 
     from cineform_tpu_torch import _build
     from cineform_tpu_torch.entropy import device as edev
+    from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
-    from cineform_tpu_torch.ops.merge_network import merge_network
+    from cineform_tpu_torch.ops.merge_network import (
+        merge_network, merge_network_highfirst, merge_network_tgt)
     from cineform_tpu_torch.testframes import yuy2_frame
 
     if torch.cuda.device_count() != 1:
@@ -135,6 +145,11 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # --- 1. build -------------------------------------------------------------
+    merge_src = "cineform_tpu_torch/csrc/merge_network.cu"
+    merge_tpu = "cineform_tpu/ops/pallas_merge.py:88"
+    encode_calls = f"every call of one batch-{BATCH} 1080p encode"
+    decode_calls = (f"every call of one batch-{BATCH} 1080p decode (6 band "
+                    "row classes)")
     kernels = {
         "dwt_forward_level": dict(
             wrapper=dwt_forward_level, route="cuda",
@@ -146,18 +161,31 @@ def main() -> int:
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
             replaces="cineform_tpu/ops/pallas_pack.py:135"),
         "merge_network": dict(
-            wrapper=merge_network, route="cuda",
-            source="cineform_tpu_torch/csrc/merge_network.cu",
-            replaces="cineform_tpu/ops/pallas_merge.py:88"),
+            wrapper=merge_network, route="cuda", source=merge_src,
+            replaces=merge_tpu, mode="low-bit-first (encoder concat)"),
+        "merge_network_tgt": dict(
+            wrapper=merge_network_tgt, route="cuda", source=merge_src,
+            replaces=merge_tpu,
+            also_replaces="cineform_tpu/entropy/device_decode.py:435",
+            mode="low-bit-first with tgt merged by max (decoder "
+                 "compact_rows)", ms_covers=decode_calls),
+        "merge_network_highfirst": dict(
+            wrapper=merge_network_highfirst, route="cuda", source=merge_src,
+            replaces=merge_tpu,
+            mode="high-bit-first (decoder spread_rows, on mirrored rows)",
+            ms_covers=decode_calls),
     }
     t0 = time.perf_counter()
-    for name, k in kernels.items():
-        src = os.path.splitext(os.path.basename(k["source"]))[0]
-        path = _build.library_path(src)
+    sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
+                      for k in kernels.values()})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(_build.library_path, sources)))
+    for src, path in paths.items():
         with open(path + ".log") as f:
             ptxas = " | ".join(line.strip() for line in f
-                               if "registers" in line or "spill" in line)
-        log(f"built {name}: {os.path.relpath(path, ROOT)}; ptxas: {ptxas}")
+                               if "registers" in line or "spill" in line
+                               or "smem" in line)
+        log(f"built {src}: {os.path.relpath(path, ROOT)}; ptxas: {ptxas}")
     log(f"build seconds: {time.perf_counter() - t0:.3f}")
 
     # --- 2. each kernel against its plain version at the main path's shapes -
@@ -228,6 +256,31 @@ def main() -> int:
                              "chunk_pack was not checked")
     del x, coeffs, bits, sizes, packed, val, rem
 
+    # decode shapes: the band row classes of the main path's batch
+    rows = codec._decode_rows_args(codec.encode_batch_device(frames))
+    if rows[-1]:
+        raise AssertionError(f"frames {sorted(rows[-1])} left the device "
+                             "route")
+    for ci, (lev, planes) in enumerate(codec._DECODE_CLASSES):
+        bh, _, pitch = codec._class_dims(lev, planes)
+        nout = bh * pitch
+        pay = rows[0][ci]
+        slots = ddec.band_slots(pay, rows[1][ci], rows[2][ci], rows[3][ci],
+                                nout)
+        val, rem, tgt = ddec.compact_inputs(*slots[:3])
+        what = (f"class {ci} (level {lev + 1}, planes {planes}), payload "
+                f"{tuple(pay.shape)}")
+        comp = compare("merge_network_tgt",
+                       lambda: merge_network_tgt(val, rem, tgt),
+                       lambda: edev._settle_network_tgt(val, rem, tgt),
+                       f"{what}, slots {tuple(val.shape)}")
+        varr, darr = ddec.spread_inputs(comp[2], comp[0], nout)
+        compare("merge_network_highfirst",
+                lambda: merge_network_highfirst(varr, darr),
+                lambda: edev._settle_network_highfirst(varr, darr),
+                f"{what}, spread rows {tuple(varr.shape)}")
+    del rows, slots, val, rem, tgt, comp, varr, darr
+
     # --- 3. the main path -------------------------------------------------------
     for k in kernels.values():
         k["wrapper"].launches = 0
@@ -244,6 +297,11 @@ def main() -> int:
         raise AssertionError(f"1080p decode differs from {GOLDEN}.yuy2")
     log(f"golden decode: byte-equal to {GOLDEN}.yuy2; PSNR vs the source "
         f"{psnr(out, base[None]):.4f} dB")
+    out, fallback = golden_codec.decode_batch_device([gold])
+    if fallback or out.tobytes() != golden("yuy2"):
+        raise AssertionError(f"1080p device decode differs from {GOLDEN}."
+                             f"yuy2 (host fallback frames {fallback})")
+    log(f"golden device decode: byte-equal to {GOLDEN}.yuy2")
 
     before = {n: k["wrapper"].launches for n, k in kernels.items()}
     enc_dev, enc_host, dec_host, dec_dev = [], [], [], []
@@ -263,6 +321,42 @@ def main() -> int:
         if it == 0:
             first = (packed, samples, decoded)
     packed, samples, decoded = first
+
+    parts = ("header walk and fill", "upload", "device entropy decode",
+             "inverse with pack", "download")
+    dev_parts = {p: [] for p in parts}
+    for it in range(4):
+        if it == 0:
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        host_rows = codec._decode_rows_host(samples)
+        dev_parts["header walk and fill"].append(
+            (time.perf_counter() - t0) * 1e3)
+        dev_rows, ms = host_ms(torch, lambda: codec._upload_rows(host_rows))
+        dev_parts["upload"].append(ms)
+        (co, ovf), ms = host_ms(torch, lambda: codec.decode_coefficients(
+            *dev_rows[:5]))
+        dev_parts["device entropy decode"].append(ms)
+        yuy2, ms = host_ms(torch, lambda: codec.inverse(co))
+        dev_parts["inverse with pack"].append(ms)
+        dev_decoded, ms = host_ms(torch, lambda: yuy2.cpu().numpy())
+        dev_parts["download"].append(ms)
+        if it == 0:
+            peak_bytes = torch.cuda.max_memory_allocated()
+        if dev_rows[-1] or bool(ovf.any()):
+            raise AssertionError(f"device decode left frames "
+                                 f"{sorted(dev_rows[-1])} to the host; "
+                                 f"overflow {ovf.tolist()}")
+        if dev_decoded.tobytes() != decoded.tobytes():
+            raise AssertionError("batch device decode differs from the "
+                                 "host-entropy decode")
+    del host_rows, dev_rows, co, ovf, yuy2
+    api_decoded, fallback = codec.decode_batch_device(samples)
+    if fallback or api_decoded.tobytes() != decoded.tobytes():
+        raise AssertionError(f"decode_batch_device: host fallback frames "
+                             f"{fallback}, or frames differing from the "
+                             "host-entropy decode")
     overflowed = sum(int(o.sum()) for _, levels in packed
                      for _, _, o in levels)
     nbands = BATCH * 3 * 9
@@ -316,6 +410,15 @@ def main() -> int:
         f"{med(dec_host) / BATCH:.4f} ms (parse + C++ entropy decode + "
         f"upload), decode device {med(dec_dev) / BATCH:.4f} ms (inverse "
         f"DWT + YUY2 pack + download)")
+    log(f"device decode, all {BATCH} frames byte-equal to the host-entropy "
+        f"decode, 0 fallback frames; per frame, medians of 4 batches: "
+        + ", ".join(f"{p} {med(v) / BATCH:.4f} ms" for p, v in
+                    dev_parts.items())
+        + f"; total {sum(med(v) for v in dev_parts.values()) / BATCH:.4f} "
+        f"ms; peak device memory {peak_bytes} bytes "
+        f"({peak_bytes / 2**30:.3f} GiB, max_memory_allocated over the "
+        f"batch's first device decode; {base_bytes} bytes were allocated "
+        "before it)")
     log(f"launches during the main path: {launches} (batch phase {rose})")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -325,11 +428,10 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],
-         **({"also_replaces": k["also_replaces"]}
-            if "also_replaces" in k else {}),
+         **{key: k[key] for key in ("also_replaces", "mode") if key in k},
          "launches": launches[n], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "ms_covers": f"every call of one batch-{BATCH} 1080p encode"}
+         "ms_covers": k.get("ms_covers", encode_calls)}
         for n, k in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -310,24 +310,56 @@ def tree_pack(bits: torch.Tensor, sizes: torch.Tensor,
 _CHUNK_CAP_BITS = 12
 
 
+def _network_level(val: torch.Tensor, rem: torch.Tensor, k: int,
+                   tgt: torch.Tensor | None = None):
+    """One level of the displacement network: slots whose displacement has
+    bit k set move 2^k to the left; a slot that stays merges with the one
+    that arrives, values by OR, displacements (and targets) by max."""
+    s = 1 << k
+    stay = ((rem >> k) & 1) == 0
+    mov_rem = _shift_last(rem, s)
+    come = ((mov_rem >> k) & 1) == 1
+    val = (torch.where(stay, val, 0)
+           | torch.where(come, _shift_last(val, s), 0))
+    rem = torch.maximum(torch.where(stay, rem, 0),
+                        torch.where(come, mov_rem - s, 0))
+    if tgt is not None:
+        tgt = torch.maximum(torch.where(stay, tgt, 0),
+                            torch.where(come, _shift_last(tgt, s), 0))
+    return val, rem, tgt
+
+
 def _settle_network(val: torch.Tensor, rem: torch.Tensor):
     """Settle the monotone-displacement compaction network (low-bit-first
     distance doubling with OR / max merge): the plain version of the
     merge_network kernel.  val: (…, N) int32 bit patterns, rem: (…, N)
     int32 displacements."""
+    val, rem, _ = _settle_network_tgt(val, rem, None)
+    return val, rem
+
+
+def _settle_network_tgt(val: torch.Tensor, rem: torch.Tensor,
+                        tgt: torch.Tensor | None):
+    """`_settle_network` carrying a third (…, N) int32 array `tgt`, merged
+    by max like `rem`: the decoder's slot compaction (the JAX
+    `device_decode._compact_level` network), the plain version of the
+    merge_network_tgt kernel.  Returns the settled (val, rem, tgt)."""
     n = val.shape[-1]
     k = 0
     while (1 << k) <= n:
-        s = 1 << k
-        bit = (rem >> k) & 1
-        mov_val = _shift_last(val, s)
-        mov_rem = _shift_last(rem, s)
-        mov_bit = (mov_rem >> k) & 1
-        val = (torch.where(bit == 0, val, 0)
-               | torch.where(mov_bit == 1, mov_val, 0))
-        rem = torch.maximum(torch.where(bit == 0, rem, 0),
-                            torch.where(mov_bit == 1, mov_rem - s, 0))
+        val, rem, tgt = _network_level(val, rem, k, tgt)
         k += 1
+    return val, rem, tgt
+
+
+def _settle_network_highfirst(val: torch.Tensor, rem: torch.Tensor):
+    """The high-bit-first network: levels k = L-1 down to 0, L =
+    max(1, bit_length(N - 1)), each as in `_settle_network`.  Equals the
+    JAX `ops.pallas_merge.merge_network(val, rem, lowfirst=False)`; the
+    plain version of the merge_network_highfirst kernel."""
+    n = val.shape[-1]
+    for k in range(max(1, (n - 1).bit_length()) - 1, -1, -1):
+        val, rem, _ = _network_level(val, rem, k)
     return val, rem
 
 

@@ -10,9 +10,18 @@ split between device and host is the JAX package's:
   appends band-end codes (`finish_band_bytes`) and writes the CFHD sample
   (`intra_host.write_sample`).  A band that overflows its device capacity
   is re-encoded on the host, byte-exactly.
-- decode: the host C++ entropy decoder (`entropy.native`, as the reference
-  decodes on the CPU), then on the device the inverse DWT with the
-  reference's glibc output dither and the YUY2 pack.
+- decode on the device (`decode_batch_device`): the host walks the sample
+  headers and copies the band payloads into pinned row buffers
+  (`bitstream.fastwalk`); on the device the band entropy decoder
+  (`entropy.device_decode.decode_band_rows`, kernels
+  `ops.merge_network.merge_network_tgt` and `merge_network_highfirst`),
+  then the inverse DWT with the reference's glibc output dither and the
+  YUY2 pack.  A frame the device route does not take (wrong dimensions,
+  a band with peaks or unaligned payload, a device overflow flag) is
+  decoded by `decode_batch`, per frame.
+- decode with host entropy (`decode_batch`): the host C++ entropy decoder
+  (`entropy.native`, as the reference decodes on the CPU), then the same
+  inverse on the device.
 
 The samples equal the reference SDK's byte for byte (tests/golden).  Each
 stage runs eagerly, once per call; there is no tracing or staging.
@@ -31,6 +40,7 @@ from cineform_tpu.models import intra_host
 from cineform_tpu.spec import tags
 from cineform_tpu.spec.production import IntraParams
 from cineform_tpu_torch.entropy import device as edev
+from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.ops import intra_transform as ops
 from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
 from cineform_tpu_torch.state import CodecTables, codec_tables
@@ -322,3 +332,180 @@ class IntraCodec:
         process's rand stream (a sequential decoder passes 0, 1, 2, ...)."""
         coeffs = self.host_entropy_decode(samples)
         return self.inverse(coeffs, frame_index).cpu().numpy()
+
+    # --- decode on the device: entropy + inverse transform -----------------
+
+    #: band row classes (wavelet index k, plane channels); k indexes band
+    #: dims plane >> (k + 1).  4:2:2 luma and chroma differ in width, so
+    #: they decode as separate classes.
+    _DECODE_CLASSES = tuple((k, planes) for k in range(3)
+                            for planes in ((0,), (1, 2)))
+
+    #: floor of a class's row capacity in 32-bit chunks; capacities double
+    #: from here to fit the class's longest band payload
+    MIN_ROW_CHUNKS = 256
+
+    def _class_dims(self, k: int, planes: tuple[int, ...]):
+        bh = self.height >> (k + 1)
+        bw = self.plane_width(planes[0]) >> (k + 1)
+        return bh, bw, intra_host.align16_pixels(bw)
+
+    def _class_reshape(self, co: torch.Tensor, ovf: torch.Tensor, ci: int,
+                       batch: int):
+        k, planes = self._DECODE_CLASSES[ci]
+        bh, bw, pitch = self._class_dims(k, planes)
+        co = co.reshape(batch, len(planes), 3, bh, pitch)[..., :bw]
+        return co, ovf.reshape(batch, -1).any(dim=1)
+
+    def _decode_class_program(self, pay, nch, qn, lin, ci: int):
+        """One band row class (pay (R, S*4) uint8, rows (frame, channel,
+        band)) -> ((B, planes, 3, bh, bw) int32 coefficients, (B,)
+        overflow flags)."""
+        k, planes = self._DECODE_CLASSES[ci]
+        bh, _, pitch = self._class_dims(k, planes)
+        co, ovf = ddec.decode_band_rows(pay, nch, qn, lin, nout=bh * pitch)
+        batch = pay.shape[0] // (len(planes) * 3)
+        return self._class_reshape(co, ovf, ci, batch)
+
+    def decode_coefficients(self, pays, nchs, qns, lins, lowpass):
+        """Per-class band payload rows on the device -> (per-channel
+        (lowpass, bands) as `inverse` takes them, (B,) overflow flags)."""
+        coeffs_by = {}
+        ovfs = []
+        for ci, (k, planes) in enumerate(self._DECODE_CLASSES):
+            co, ovf = self._decode_class_program(pays[ci], nchs[ci], qns[ci],
+                                                 lins[ci], ci)
+            for pi, ch in enumerate(planes):
+                coeffs_by[(ch, k)] = tuple(co[:, pi, b] for b in range(3))
+            ovfs.append(ovf)
+        coeffs = [(lowpass[ch], [coeffs_by[(ch, k)] for k in range(3)])
+                  for ch in range(3)]
+        return coeffs, torch.stack(ovfs).any(dim=0)
+
+    def _decode_device_program(self, pays, nchs, qns, lins, lowpass,
+                               frame_index: int = 0):
+        """Per-class band payload rows on the device -> ((B, H, 2W) uint8
+        YUY2 frames, (B,) overflow flags), all on the device: band entropy
+        decode feeding the inverse DWT with output dither and YUY2 pack
+        (`Codec/decoder.c:11584` DecodeSampleIntraFrame)."""
+        coeffs, ovf = self.decode_coefficients(pays, nchs, qns, lins, lowpass)
+        return self.inverse(coeffs, frame_index), ovf
+
+    def _decode_rows_host(self, samples: list[bytes]):
+        """Host header walk: samples -> per-class row tensors on the host
+        (pinned when the codec's device is CUDA).
+
+        Returns (pays, nchs, qns, lins, lowpass, fallback): 6-tuples of
+        (R, S*4) uint8 / (R,) int32 tensors, one per _DECODE_CLASSES class
+        (rows ordered frame, channel, band), the 3 lowpass planes (B, lh,
+        lw) int32 with the decoder's lowpass bias, and the set of frame
+        indices the device route does not take (wrong dimensions, a band
+        outside subbands 1-9, with peaks or with an unaligned payload);
+        those frames get empty rows.  The native walker finds the bands in
+        one C pass per sample and copies their payloads straight into the
+        row buffers."""
+        from cineform_tpu.bitstream import fastwalk
+
+        batch = len(samples)
+        pin = self.device.type == "cuda"
+        lh = self.height >> 3
+        lws = tuple(self.plane_width(ch) >> 3 for ch in range(3))
+        #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
+        parts: dict = {}
+        walks: list = [None] * batch
+        fallback = set()
+        for i, sample in enumerate(samples):
+            r = fastwalk.walk(sample)
+            if r is None or (r.width, r.height) != (self.width, self.height) \
+                    or r.nchannels != 3 or 0 in r.lowpass_off \
+                    or r.lowpass_h != (lh,) * 3 or r.lowpass_w != lws:
+                fallback.add(i)
+                continue
+            walks[i] = r
+            for (ch, bandno, subband), (off, ln, q, lin, fl) in \
+                    r.bands.items():
+                if not 1 <= subband <= 9 or fl & 1 or ln % 4:
+                    fallback.add(i)
+                    break
+                parts[(ch, 2 - (subband - 1) // 3, bandno, i)] = \
+                    (off, ln, q, lin)
+            if i not in fallback and any(
+                    (ch, k, band, i) not in parts for ch in range(3)
+                    for k in range(3) for band in (1, 2, 3)):
+                fallback.add(i)
+        live = [i for i in range(batch) if i not in fallback]
+
+        pays, nchs, qns, lins = [], [], [], []
+        for k, planes in self._DECODE_CLASSES:
+            rows = [(0, 0, 1, 0) if i in fallback else parts[(ch, k, band, i)]
+                    for i in range(batch) for ch in planes
+                    for band in (1, 2, 3)]
+            cap = self.MIN_ROW_CHUNKS
+            while cap < max(ln for _, ln, _, _ in rows) // 4:
+                cap *= 2
+            meta = torch.tensor([(ln // 4, q, lin) for _, ln, q, lin in rows],
+                                dtype=torch.int32).t().contiguous()
+            if pin:
+                meta = meta.pin_memory()
+            pay = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
+                              pin_memory=pin)
+            per_frame = len(rows) // batch
+            for i in live:
+                sl = rows[i * per_frame:(i + 1) * per_frame]
+                fastwalk.fill_rows(
+                    pay.numpy(), samples[i],
+                    np.asarray([o for o, _, _, _ in sl], np.int64),
+                    np.asarray([ln for _, ln, _, _ in sl], np.int64),
+                    np.arange(i * per_frame, (i + 1) * per_frame))
+            pays.append(pay)
+            nchs.append(meta[0])
+            qns.append(meta[1])
+            lins.append(meta[2])
+
+        lowpass = []
+        for ch in range(3):
+            w = lws[ch]
+            arr = torch.zeros((batch, lh, w), dtype=torch.int32,
+                              pin_memory=pin)
+            bias = intra_host.lowpass_channel_offset(w)
+            for i in live:
+                fastwalk.lowpass_i32(samples[i], walks[i].lowpass_off[ch],
+                                     lh, w, bias, arr[i].numpy())
+            lowpass.append(arr)
+        return (tuple(pays), tuple(nchs), tuple(qns), tuple(lins),
+                tuple(lowpass), fallback)
+
+    def _upload_rows(self, rows):
+        """`_decode_rows_host`'s tensors -> the device (asynchronous copies
+        from pinned memory on CUDA); the fallback set passes through."""
+        *groups, fallback = rows
+        return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
+                  for g in groups), fallback)
+
+    def _decode_rows_args(self, samples: list[bytes]):
+        """`_decode_rows_host` with its tensors uploaded to the device."""
+        return self._upload_rows(self._decode_rows_host(samples))
+
+    def decode_batch_device(self, samples: list[bytes], frame_index: int = 0):
+        """Decode CFHD samples to (B, H, 2W) uint8 YUY2 frames with the
+        band entropy decode, the inverse DWT and the YUY2 pack on the
+        device; the host only walks sample headers and copies payloads.
+
+        Returns (frames, fallback): fallback is the sorted tuple of the
+        frame indices that `decode_batch` decoded instead (streams the
+        device route does not take, or that overflow their device band
+        region), byte-identical by the codec's own semantics."""
+        batch = len(samples)
+        *rows, fallback = self._decode_rows_args(samples)
+        if len(fallback) == batch:
+            return self.decode_batch(samples, frame_index), tuple(range(batch))
+        out, ovf = self._decode_device_program(*rows, frame_index)
+        out = out.cpu().numpy()
+        fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+        fallback = tuple(sorted(fallback))
+        if fallback:
+            host = self.decode_batch([samples[i] for i in fallback],
+                                     frame_index)
+            for j, i in enumerate(fallback):
+                out[i] = host[j]
+        return out, fallback

@@ -1,4 +1,4 @@
-"""The port's three CUDA kernels and their wrappers.
+"""The port's CUDA kernels and their wrappers.
 
 On the CPU: each wrapper runs its plain PyTorch version for CPU tensors,
 counts no launch there, and raises (never falls back) on a wrong dtype or
@@ -20,15 +20,20 @@ import pytest
 import torch
 
 from cineform_tpu_torch.entropy import device as tdev
+from cineform_tpu_torch.entropy import device_decode as tdd
 from cineform_tpu_torch.ops import intra_transform
 from cineform_tpu_torch.ops.chunk_pack import chunk_pack
 from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
-from cineform_tpu_torch.ops.merge_network import merge_network
+from cineform_tpu_torch.ops.merge_network import (merge_network,
+                                                  merge_network_highfirst,
+                                                  merge_network_tgt)
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WRAPPERS = (dwt_forward_level, chunk_pack, merge_network)
+WRAPPERS = (dwt_forward_level, chunk_pack, merge_network,
+            merge_network_tgt, merge_network_highfirst)
+MERGES = ("merge", "merge_tgt", "merge_highfirst")
 
 
 @pytest.fixture
@@ -60,6 +65,33 @@ def _concat_inputs(seed, rows, chunks, density):
     return val, rem
 
 
+def _merge(which, val, rem, tgt=None):
+    """(wrapper output, plain version's output) of one merge form."""
+    if which == "merge":
+        return merge_network(val, rem), tdev._settle_network(
+            val.cpu(), rem.cpu())
+    if which == "merge_tgt":
+        return merge_network_tgt(val, rem, tgt), tdev._settle_network_tgt(
+            val.cpu(), rem.cpu(), tgt.cpu())
+    return merge_network_highfirst(val, rem), \
+        tdev._settle_network_highfirst(val.cpu(), rem.cpu())
+
+
+def _spread_inputs(seed, rows, chunks, nout):
+    """The decoder's spread rows, mirrored, as `spread_rows` hands them to
+    the high-bit-first network: slot targets strictly increasing per row."""
+    rng = np.random.default_rng(seed)
+    s = chunks * 12
+    nval = rng.integers(0, s // 2, rows)
+    val = np.zeros((rows, s), np.int32)
+    tgt = np.zeros((rows, s), np.int32)
+    for r in range(rows):
+        val[r, :nval[r]] = rng.integers(1, 65536, nval[r])
+        tgt[r, :nval[r]] = np.sort(rng.choice(nout, nval[r], replace=False))
+    return tdd.spread_inputs(torch.from_numpy(tgt), torch.from_numpy(val),
+                             nout)
+
+
 # ---------------------------------------------------------------------------
 # CPU: the wrappers' contract
 # ---------------------------------------------------------------------------
@@ -78,13 +110,13 @@ def test_wrappers_run_the_plain_versions_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
     val, rem = _concat_inputs(2, 2, 6, 0.3)
-    got = merge_network(val, rem)
-    want = tdev._settle_network(val, rem)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for which in MERGES:
+        got, want = _merge(which, val, rem, rem * 3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
     assert [w.launches for w in WRAPPERS] == counts
 
 
-@pytest.mark.parametrize("which", ["dwt", "pack", "merge"])
+@pytest.mark.parametrize("which", ["dwt", "pack", *MERGES])
 def test_wrappers_raise_on_wrong_dtype(which):
     with pytest.raises(TypeError):
         if which == "dwt":
@@ -93,11 +125,11 @@ def test_wrappers_raise_on_wrong_dtype(which):
             chunk_pack(torch.zeros((1, 256), dtype=torch.int64),
                        torch.zeros((1, 256), dtype=torch.int32))
         else:
-            merge_network(torch.zeros(64, dtype=torch.float32),
-                          torch.zeros(64, dtype=torch.int32))
+            z = torch.zeros(64, dtype=torch.int32)
+            _merge(which, torch.zeros(64, dtype=torch.float32), z, z)
 
 
-@pytest.mark.parametrize("which", ["dwt", "pack", "merge"])
+@pytest.mark.parametrize("which", ["dwt", "pack", *MERGES])
 def test_wrappers_do_not_fall_back_off_the_cpu(which):
     """A tensor on a device without a kernel raises instead of taking the
     plain version."""
@@ -111,7 +143,7 @@ def test_wrappers_do_not_fall_back_off_the_cpu(which):
             chunk_pack(z, z)
         else:
             z = torch.zeros(64, dtype=torch.int32, device=meta)
-            merge_network(z, z)
+            _merge(which, z, z, z)
 
 
 def test_wrappers_reject_bad_shapes():
@@ -120,9 +152,13 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         chunk_pack(torch.zeros((1, 128), dtype=torch.int32),
                    torch.zeros((1, 128), dtype=torch.int32))
+    z64, z32 = (torch.zeros(n, dtype=torch.int32) for n in (64, 32))
     with pytest.raises(ValueError):
-        merge_network(torch.zeros(64, dtype=torch.int32),
-                      torch.zeros(32, dtype=torch.int32))
+        merge_network(z64, z32)
+    with pytest.raises(ValueError):
+        merge_network_tgt(z64, z64, z32)
+    with pytest.raises(ValueError):
+        merge_network_highfirst(z32, z64)
 
 
 def test_package_imports_no_jax():
@@ -136,13 +172,17 @@ def test_package_imports_no_jax():
         "import cineform_tpu_torch.ops.dwt_forward\n"
         "import cineform_tpu_torch.ops.chunk_pack\n"
         "import cineform_tpu_torch.ops.merge_network\n"
+        "import cineform_tpu_torch.entropy.device_decode\n"
         "from cineform_tpu_torch.models.intra import IntraCodec\n"
         "from cineform_tpu_torch.testframes import yuy2_frame\n"
         "c = IntraCodec(64, 48, 4, device=torch.device('cpu'))\n"
         "f = np.frombuffer(yuy2_frame(64, 48, 1), np.uint8)"
         ".reshape(1, 48, 128)\n"
-        "out = c.decode_batch(c.encode_batch_device(f))\n"
+        "s = c.encode_batch_device(f)\n"
+        "out = c.decode_batch(s)\n"
         "assert out.shape == (1, 48, 128)\n"
+        "dev, fallback = c.decode_batch_device(s)\n"
+        "assert fallback == () and (dev == out).all()\n"
         "assert not any(m == 'jax' or m.startswith('jax.')"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -224,6 +264,65 @@ def test_merge_network_kernel_matches_plain(cuda, seed, rows, chunks,
     want_v, want_r = tdev._settle_network(val, rem)
     assert torch.equal(got_v.cpu(), want_v)
     assert torch.equal(got_r.cpu(), want_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,rows,chunks,density", [(0, 3, 40, 0.5),
+                                                      (1, 2, 9, 0.02),
+                                                      (2, 4, 64, 0.9)])
+def test_merge_network_tgt_kernel_matches_plain(cuda, seed, rows, chunks,
+                                                density):
+    """The tgt form on the encoder's concat slots (with overflowed chunks
+    at density 0.9, so displacements fall) and a third array in no
+    order."""
+    val, rem = _concat_inputs(seed, rows, chunks, density)
+    tgt = _rand(seed, tuple(val.shape), 0, 1 << 20)
+    got, want = _merge("merge_tgt", val.to(cuda), rem.to(cuda), tgt.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,rows,n", [(0, 3, 5000), (1, 2, 2048),
+                                         (2, 5, 3071), (3, 1, 1),
+                                         (4, 2, 70000)])
+def test_merge_network_highfirst_kernel_matches_plain(cuda, seed, rows, n):
+    """Rows not a multiple of the 2048-slot tile, and displacements in no
+    order (overlapping moves and collisions)."""
+    val = _rand(seed, (rows, n), -(1 << 31), 1 << 31)
+    rem = _rand(seed + 100, (rows, n), 0, n + 9)
+    got, want = _merge("merge_highfirst", val.to(cuda), rem.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,rows,chunks,nout", [(0, 3, 100, 3000),
+                                                   (1, 2, 700, 20000)])
+def test_merge_network_highfirst_kernel_on_spread_rows(cuda, seed, rows,
+                                                       chunks, nout):
+    val, rem = _spread_inputs(seed, rows, chunks, nout)
+    got, want = _merge("merge_highfirst", val.to(cuda), rem.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    assert not want[1].any()                          # settled
+
+
+@pytest.mark.gpu
+def test_device_decode_on_the_card_matches_golden(cuda):
+    from cineform_tpu_torch.models.intra import IntraCodec
+    from test_intra_host import _golden
+
+    launches = [merge_network_tgt.launches, merge_network_highfirst.launches]
+    out, fallback = IntraCodec(320, 240, 4, device=cuda).decode_batch_device(
+        [_golden("s_320x240_q4_p1", "cfhd")])
+    assert fallback == ()
+    assert out.tobytes() == _golden("s_320x240_q4_p1", "yuy2")
+    assert merge_network_tgt.launches == launches[0] + 6
+    assert merge_network_highfirst.launches == launches[1] + 6
 
 
 @pytest.mark.gpu

@@ -11,12 +11,18 @@ through `cineform_tpu_torch.models.intra.IntraCodec` and prints:
 - per stage, the wall ms per batch of 8 (median of 5, host clock, ended by
   a device synchronize): encode device (upload + `forward_packed`), encode
   host tail (`write_samples`), decode host tail (`host_entropy_decode`),
-  decode device (`inverse` + download);
+  decode device (`inverse` + download), and the parts of the device
+  decode route (`decode_batch_device`): header walk and fill, upload,
+  device entropy decode, inverse with pack, download;
 - within the host tails, the seconds spent in each host function they call
   (parsing, the C++ band decoder, the host re-encode of frames with an
   overflowed band, the C++ band encoder, the sample writer), over the same
   5 runs;
-- for the two device stages under torch.profiler (3 runs after a warm-up):
+- within the device entropy decode, the ms per batch of each decoder stage
+  (`entropy.device_decode`: classify, chunk_transfers, scan_entries_rows,
+  final_walk, emit_slots, compact_rows, spread_rows), each ended by a
+  device synchronize, over the same 5 runs;
+- for the device stages under torch.profiler (3 runs after a warm-up):
   the profiled wall ms per batch, the device's busy ms (the union of its
   kernel, copy and memset intervals) and its share of the wall, and the
   operators and kernels with the most device time.
@@ -52,19 +58,25 @@ def log(msg: str) -> None:
 
 class Timed:
     """Replaces `module.name` by a wrapper that sums its seconds and calls,
-    for the duration of a `with` block."""
+    for the duration of a `with` block.  With `sync`, each call is bounded
+    by device synchronizes, so a device stage's time is its own."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, sync=None):
+        self.module, self.name, self.sync = module, name, sync
         self.seconds, self.calls = 0.0, 0
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
 
         def wrapped(*args, **kwargs):
+            if self.sync:
+                self.sync()
             t0 = time.perf_counter()
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
+                if self.sync:
+                    self.sync()
+                return out
             finally:
                 self.seconds += time.perf_counter() - t0
                 self.calls += 1
@@ -108,6 +120,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cineform_tpu.entropy import native
     from cineform_tpu.models import intra_host
+    from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models import intra as port_intra
     from cineform_tpu_torch.testframes import yuy2_frame
 
@@ -129,6 +142,14 @@ def main() -> int:
     def dec_dev():
         return codec.inverse(co).cpu().numpy()
 
+    rows = codec._decode_rows_host(samples)
+    dev_rows = codec._upload_rows(rows)
+    dev_co = codec.decode_coefficients(*dev_rows[:5])[0]
+    dev_out = codec.inverse(dev_co)
+
+    def dec_route():
+        return codec.decode_batch_device(samples)[0]
+
     stages = {
         "encode device (upload + forward_packed)": enc_dev,
         "encode host tail (write_samples)":
@@ -136,6 +157,16 @@ def main() -> int:
         "decode host tail (host_entropy_decode)":
             lambda: codec.host_entropy_decode(samples),
         "decode device (inverse + download)": dec_dev,
+        "device decode route: header walk and fill (_decode_rows_host)":
+            lambda: codec._decode_rows_host(samples),
+        "device decode route: upload (_upload_rows)":
+            lambda: codec._upload_rows(rows),
+        "device decode route: entropy decode (decode_coefficients)":
+            lambda: codec.decode_coefficients(*dev_rows[:5]),
+        "device decode route: inverse with pack (inverse)":
+            lambda: codec.inverse(dev_co),
+        "device decode route: download": lambda: dev_out.cpu().numpy(),
+        "device decode route, whole (decode_batch_device)": dec_route,
     }
     host_fns = [
         (port_intra, "parse_sample", "decode: bitstream.parse_sample"),
@@ -152,19 +183,30 @@ def main() -> int:
         f"cap_bits 8: {overflowed} of {BATCH * 27} bands overflowed; "
         f"torch {torch.__version__}, {torch.cuda.get_device_name(0)}")
 
+    dec_stages = ("classify", "chunk_transfers", "scan_entries_rows",
+                  "final_walk", "emit_slots", "compact_rows", "spread_rows")
     timers = [Timed(m, n) for m, n, _ in host_fns]
+    stage_timers = [Timed(ddec, n, torch.cuda.synchronize)
+                    for n in dec_stages]
+    entropy_name = "device decode route: entropy decode (decode_coefficients)"
     for t in timers:
         t.__enter__()
     try:
         for name, fn in stages.items():
             fn()
             ms = []
+            if name == entropy_name:
+                for t in stage_timers:
+                    t.__enter__()
             for _ in range(REPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
+            if name == entropy_name:
+                for t in stage_timers:
+                    t.__exit__()
             log(f"{name}: median {statistics.median(ms)} ms per batch of "
                 f"{BATCH}, {statistics.median(ms) / BATCH} ms per frame "
                 f"(runs: {ms})")
@@ -176,9 +218,15 @@ def main() -> int:
     for t, (_, _, what) in zip(timers, host_fns):
         per_frame = t.seconds * 1e3 / ((REPS + 1) * BATCH)
         log(f"  {what}: {per_frame} ms per frame ({t.calls} calls)")
+    for t in stage_timers:
+        log(f"  device entropy decode stage {t.name}: "
+            f"{t.seconds * 1e3 / REPS} ms per batch, "
+            f"{t.seconds * 1e3 / (REPS * BATCH)} ms per frame "
+            f"({t.calls} calls, device-synchronized)")
 
     for name in ("encode device (upload + forward_packed)",
-                 "decode device (inverse + download)"):
+                 "decode device (inverse + download)",
+                 "device decode route, whole (decode_batch_device)"):
         fn = stages[name]
         fn()
         torch.cuda.synchronize()
