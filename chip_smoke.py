@@ -24,11 +24,20 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    of each part and the device decode's peak device memory; the device
    decode must equal the host-entropy decode for all 8 frames with no
    frame falling back to the host;
-4. fails unless every kernel was launched by that main-path run;
+   It also feeds the two decoder forms rows of the level-1 luma class
+   that break their guard, which must take the network branch and still
+   equal the plain network.  Each kernel's bound (the bytes it must move
+   over the card's memory rate, or its operations over the float32 rate,
+   whichever is larger) and, where one PyTorch call computes the same
+   function, that call's time, go beside its time;
+4. fails unless every kernel was launched by that main-path run, and, for
+   the decoder's two merge forms, unless both branches were launched and no
+   decoder row failed its guard;
 5. holds frames 0 and 7 of the batch, encoded and decoded, against the
    port's own plain path on the CPU (the plain PyTorch versions of the
    kernels), byte for byte, and the batch's overflow count, PSNR and ratio
-   against the content figures of BENCH_r05.json.
+   against the content figures of BENCH_r05.json;
+6. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -56,6 +65,10 @@ GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "samples")
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
 OVERFLOWED_BANDS, PSNR_DB, RATIO = 57, 47.26, 2.93
+# the card's published peaks (H100 SXM data sheet, at 700 W): memory, and
+# float32 outside the tensor cores, the nearest listed rate for the kernels'
+# 32-bit integer operations
+PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
 
 
 def log(msg: str) -> None:
@@ -91,6 +104,18 @@ def max_abs_err(torch, got, want) -> int:
             d = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
             err = max(err, int(d))
     return err
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(nbytes_moved: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take: (ms, what bounds it)."""
+    by_bytes = nbytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
 
 
 def host_ms(torch, fn):
@@ -132,6 +157,7 @@ def main() -> int:
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
+    from cineform_tpu_torch.ops import merge_network as merges
     from cineform_tpu_torch.ops.merge_network import (
         merge_network, merge_network_highfirst, merge_network_tgt)
     from cineform_tpu_torch.testframes import yuy2_frame
@@ -150,31 +176,43 @@ def main() -> int:
     encode_calls = f"every call of one batch-{BATCH} 1080p encode"
     decode_calls = (f"every call of one batch-{BATCH} 1080p decode (6 band "
                     "row classes)")
+    # ops: 32-bit integer operations per input element, counted from the
+    # plain versions' arithmetic (the DWT's two 2-6 filters, saturation and
+    # quantization; chunk_pack's 8 merge levels; one merge level, for the
+    # encoder's network, times its levels; one placement for the decoder's
+    # two forms)
     kernels = {
         "dwt_forward_level": dict(
             wrapper=dwt_forward_level, route="cuda",
             source="cineform_tpu_torch/csrc/dwt_forward.cu",
             replaces="cineform_tpu/ops/pallas_dwt2.py:99",
-            also_replaces="cineform_tpu/ops/pallas_dwt.py:151"),
+            also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
+            ops_per_elem=40),
         "chunk_pack": dict(
             wrapper=chunk_pack, route="cuda",
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
-            replaces="cineform_tpu/ops/pallas_pack.py:135"),
+            replaces="cineform_tpu/ops/pallas_pack.py:135",
+            ops_per_elem=8 * 16),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
-            replaces=merge_tpu, mode="low-bit-first (encoder concat)"),
+            replaces=merge_tpu, mode="low-bit-first (encoder concat)",
+            ops_per_elem=None),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
             also_replaces="cineform_tpu/entropy/device_decode.py:435",
             mode="low-bit-first with tgt merged by max (decoder "
-                 "compact_rows)", ms_covers=decode_calls),
+                 "compact_rows): guarded one-pass placement, network on "
+                 "flagged rows", ms_covers=decode_calls, ops_per_elem=16),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
-            mode="high-bit-first (decoder spread_rows, on mirrored rows)",
-            ms_covers=decode_calls),
+            mode="high-bit-first (decoder spread_rows, on mirrored rows): "
+                 "guarded one-pass placement, network on flagged rows",
+            ms_covers=decode_calls, ops_per_elem=12),
     }
+    #: ops per slot and level of a merge network level (level_step)
+    merge_level_ops = 12
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                       for k in kernels.values()})
@@ -198,19 +236,32 @@ def main() -> int:
                                                   dtype=np.uint8)
     tables = codec.tables()
     for k in kernels.values():
-        k.update(max_abs_err=0, ms=0.0, plain_ms=0.0)
+        k.update(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=None)
 
-    def compare(name, call, plain, what):
+    def compare(name, call, plain, what, inputs, ops=None, library=None):
+        """Kernel against plain version on `inputs`, both timed; the bound
+        counts each input read and each output written once, and `ops`
+        (default: the kernel's ops per input element)."""
         got, want = call(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         ms, plain_ms = cuda_ms(torch, call), cuda_ms(torch, plain)
         k = kernels[name]
+        if ops is None:
+            ops = k["ops_per_elem"] * inputs[0].numel()
+        bound, k["bound_by"] = bound_ms(nbytes(inputs) + nbytes(got), ops)
         k["max_abs_err"] = max(k["max_abs_err"], err)
         k["ms"] += ms
         k["plain_ms"] += plain_ms
+        k["bound_ms"] += bound
+        extra = ""
+        if library is not None:
+            lib_ms = cuda_ms(torch, library)
+            k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
+            extra = f", library call {lib_ms:.4f} ms"
         log(f"  {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms{extra}")
         if err:
             raise AssertionError(f"{name} {what}: kernel disagrees with its "
                                  f"plain version (max abs err {err})")
@@ -232,7 +283,7 @@ def main() -> int:
             out = compare("dwt_forward_level", lambda: level(dwt_forward_level),
                           lambda: level(ops.dwt2d_forward),
                           f"ch{ch} level {lev + 1} {tuple(ll.shape)} "
-                          f"prescale {ps} quant {q}")
+                          f"prescale {ps} quant {q}", (ll,))
             ll, bands = out[0], bands + [out[1:]]
         coeffs.append((ll, bands))
 
@@ -245,12 +296,15 @@ def main() -> int:
             packed = compare(
                 "chunk_pack", lambda: chunk_pack(bits, sizes),
                 lambda: edev.tree_pack(bits, sizes, cap_bits_per_elem=12),
-                f"level {lev + 1} channels {grp} {tuple(bits.shape)}")
+                f"level {lev + 1} channels {grp} {tuple(bits.shape)}",
+                (bits, sizes))
             any_chunk_ovf |= bool(packed[2].any())
             val, rem, _ = edev._concat_slots(packed[0], packed[1])
+            levels = val.shape[-1].bit_length()       # 2^k <= n
             compare("merge_network", lambda: merge_network(val, rem),
                     lambda: edev._settle_network(val, rem),
-                    f"level {lev + 1} channels {grp} {tuple(val.shape)}")
+                    f"level {lev + 1} channels {grp} {tuple(val.shape)}",
+                    (val, rem), ops=merge_level_ops * levels * val.numel())
     if not any_chunk_ovf:
         raise AssertionError("no chunk overflowed: the overflow path of "
                              "chunk_pack was not checked")
@@ -273,17 +327,62 @@ def main() -> int:
         comp = compare("merge_network_tgt",
                        lambda: merge_network_tgt(val, rem, tgt),
                        lambda: edev._settle_network_tgt(val, rem, tgt),
-                       f"{what}, slots {tuple(val.shape)}")
+                       f"{what}, slots {tuple(val.shape)}", (val, rem, tgt))
         varr, darr = ddec.spread_inputs(comp[2], comp[0], nout)
+        # the same function as one PyTorch call: a scatter into a zeroed
+        # row with a spare column for the slots that fall off, its index
+        # built here, outside the timed window
+        m = darr.shape[-1]
+        dest = torch.arange(m, dtype=torch.int32, device=dev) - darr
+        index = torch.where(dest >= 0, dest, m).long()
         compare("merge_network_highfirst",
                 lambda: merge_network_highfirst(varr, darr),
                 lambda: edev._settle_network_highfirst(varr, darr),
-                f"{what}, spread rows {tuple(varr.shape)}")
-    del rows, slots, val, rem, tgt, comp, varr, darr
+                f"{what}, spread rows {tuple(varr.shape)}", (varr, darr),
+                library=lambda: torch.zeros(
+                    (darr.shape[0], m + 1), dtype=torch.int32,
+                    device=dev).scatter_(-1, index, varr))
+        if ci == 0:
+            guard_rows = (val, rem, tgt, varr, darr)
+    del slots, val, rem, tgt, comp, varr, darr, dest, index
+
+    # the network branch: rows of the level-1 luma class that break the
+    # guards, among rows that keep them, in one call of each form
+    val, rem, tgt, varr, darr = (t.clone() for t in guard_rows)
+    bad = (0, 5, 11)
+    for r in bad:
+        i = rem.shape[-1] // 2 + r
+        rem[r, i:] += 2                  # a step of 2: not a compaction row
+        darr[r, i] = darr[r, i - 1] + 1  # an increase: not a spread row
+    for name, wrapper, call, plain, what in (
+            ("merge_network_tgt", merge_network_tgt,
+             lambda: merge_network_tgt(val, rem, tgt),
+             lambda: edev._settle_network_tgt(val, rem, tgt),
+             f"slots {tuple(val.shape)}"),
+            ("merge_network_highfirst", merge_network_highfirst,
+             lambda: merge_network_highfirst(varr, darr),
+             lambda: edev._settle_network_highfirst(varr, darr),
+             f"spread rows {tuple(varr.shape)}")):
+        merges.reset_counts()
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        flagged = int(wrapper.flagged[dev].item())
+        ms = cuda_ms(torch, call, reps=1)
+        log(f"  {name} guard-breaking rows {list(bad)} of level-1 luma "
+            f"{what}: max_abs_err {err}, flagged rows {flagged}, branch "
+            f"launches {wrapper.branch_launches}, kernel {ms:.4f} ms")
+        if err or flagged != len(bad):
+            raise AssertionError(f"{name}: on guard-breaking rows the "
+                                 f"network branch gave max abs err {err} "
+                                 f"and flagged {flagged} rows, not "
+                                 f"{len(bad)}")
+    del rows, guard_rows, val, rem, tgt, varr, darr, got, want
 
     # --- 3. the main path -------------------------------------------------------
     for k in kernels.values():
         k["wrapper"].launches = 0
+    merges.reset_counts()
 
     gold = golden("cfhd")
     golden_codec = IntraCodec(WIDTH, HEIGHT, GOLDEN_QUALITY, device=dev)
@@ -358,9 +457,10 @@ def main() -> int:
                              f"{fallback}, or frames differing from the "
                              "host-entropy decode")
     overflowed = sum(int(o.sum()) for _, levels in packed
-                     for _, _, o in levels)
+                     for _, _, o, _ in levels)
     nbands = BATCH * 3 * 9
-    nbits = sum(int(n.sum()) for _, levels in packed for _, n, _ in levels)
+    nbits = sum(int(n.sum()) for _, levels in packed
+                for _, n, _, _ in levels)
     lowpass_bytes = sum(2 * (HEIGHT >> 3) * ((WIDTH if c == 0 else WIDTH // 2)
                                              >> 3) for c in range(3))
     bench_ratio = (2 * WIDTH * HEIGHT) / (nbits / BATCH / 8 + lowpass_bytes
@@ -372,6 +472,15 @@ def main() -> int:
     if not all(rose.values()) or not all(launches.values()):
         raise AssertionError(f"a kernel was not launched by the main path: "
                              f"{launches} (batch phase {rose})")
+    guarded = {w.__name__: (dict(w.branch_launches),
+                            int(w.flagged[dev].item()))
+               for w in (merge_network_tgt, merge_network_highfirst)}
+    for name, (branches, flagged) in guarded.items():
+        if branches["placement"] != launches[name] \
+                or branches["network"] != launches[name] or flagged:
+            raise AssertionError(f"{name}: branch launches {branches} for "
+                                 f"{launches[name]} calls, {flagged} "
+                                 "decoder rows failed the guard")
 
     # --- 4. the batch against the plain path and BENCH_r05 ----------------------
     if decoded.shape != frames.shape or decoded.dtype != np.uint8:
@@ -420,6 +529,16 @@ def main() -> int:
         f"batch's first device decode; {base_bytes} bytes were allocated "
         "before it)")
     log(f"launches during the main path: {launches} (batch phase {rose})")
+    log("decoder merge forms during the main path: " + "; ".join(
+        f"{n} branch launches {b}, rows that failed the guard {f}"
+        for n, (b, f) in guarded.items()))
+
+    jax_modules = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("cineform_tpu", "jax"))
+    if jax_modules:
+        raise AssertionError(f"modules of the JAX package were imported: "
+                             f"{jax_modules[:10]}")
+    log("sys.modules holds no module of cineform_tpu or jax")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -431,6 +550,8 @@ def main() -> int:
          **{key: k[key] for key in ("also_replaces", "mode") if key in k},
          "launches": launches[n], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         "library_ms": k["library_ms"],
          "ms_covers": k.get("ms_covers", encode_calls)}
         for n, k in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {

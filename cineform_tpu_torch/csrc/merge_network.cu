@@ -17,31 +17,66 @@
 // (:141, :186-194).  Each form equals its plain PyTorch version bit for bit
 // on every input.
 //
-// A level k: every slot whose displacement has bit k set moves 2^k to the
-// left (falling off at 0), and a slot that stays is merged with the one that
-// arrives: values by OR, displacements (and targets) by max.  Low-bit-first
-// runs k = 0, 1, ... while 2^k <= n; high-bit-first runs k = L-1 down to 0
-// with L = max(1, bit_length(n - 1)), as the Pallas kernel's caller does.
-// On a band's inputs the low-bit-first displacements are nondecreasing with
-// steps in {0, 1}, and the high-bit-first ones (the decoder's, mirrored)
-// move strictly ordered slots that never collide; but a band with an
-// overflowed chunk breaks that order, and the kernels still have to give the
-// network's words, so they run the network itself rather than a scatter.
+// The network.  A level k: every slot whose displacement has bit k set moves
+// 2^k to the left (falling off at 0), and a slot that stays is merged with
+// the one that arrives: values by OR, displacements (and targets) by max.
+// Low-bit-first runs k = 0, 1, ... while 2^k <= n; high-bit-first runs
+// k = L-1 down to 0 with L = max(1, bit_length(n - 1)), as the Pallas
+// kernel's caller does.  Each level is a pass over the row, about 20 passes
+// at the decoder's 1080p rows (786,432 and 1,304,840 slots).
 //
-// What bounds it on this card: device memory.  Each level reads and writes
-// the 8 or 12 bytes of every slot, and there are about log2(n) levels (20 for
-// the decoder's 1080p slot rows of 786,432 and 1,304,840 slots).
+// The decoder's two forms place instead, where that provably gives the
+// network's output, and run the network only on the rows where it may not.
+// A slot i moves to d_i = i - rem_i.
 //
-// What the design does about it: the levels that move slots by less than
-// 2^10 run in one pass in shared memory: a block loads its tile of kTile
-// slots plus the kHalo = 2^10 - 1 slots to its right (a level pulls from
-// j + 2^k, so the stale right edge grows by 2^k per level and the halo
-// absorbs all of them, in either order of the levels), runs those levels
-// there, and writes its tile.  Each level above is one elementwise pass.
-// Low-bit-first runs the shared-memory pass first; high-bit-first runs its
-// global levels first and the shared-memory pass over levels 9..0 last.
-// With three arrays the tile and halo take 3 * 3071 * 4 = 36,852 bytes of
-// static shared memory; with two, 24,568.
+// - tgt form (low-bit-first).  Guard, per row, with rem[-1] = 0: every step
+//   rem[i] - rem[i-1] is 0 or 1; a slot whose step is 1 has val = tgt = 0; a
+//   slot whose step is 0 has tgt >= 0.  Then d is nondecreasing with steps
+//   in {0, 1}.  Two slots i < j that meet after levels 0..k-1 sit at
+//   i - (rem_i mod 2^k) = j - (rem_j mod 2^k); with rem_j - rem_i <= j - i
+//   that forces rem_j - rem_i = j - i and equal high bits, so slots that
+//   meet share their target and their remaining displacement, and every
+//   slot reaches its target with rem 0 (rem <= n < 2^L).  The slots landing
+//   on one target are one step-0 slot and step-1 slots, which carry zeros:
+//   OR and max (tgt >= 0) give the step-0 slot's val and tgt.  Every target
+//   0 .. d[n-1] has its step-0 slot, and nothing lands above d[n-1]; a
+//   step-1 slot at target -1 is empty.  So the settled row is: val and tgt
+//   of each step-0 slot at d_i, zeros at d[n-1] + 1 .. n-1, rem 0.  The
+//   decoder's `compact_inputs` builds such rows: displacement constant over
+//   a chunk's valid slots, +1 steps only on its empty tail slots.
+// - high-bit-first form.  Guard, per row: rem nonincreasing, rem[n-1] >= 0,
+//   rem[0] < 2^L.  Two slots i < j that meet after levels L-1..k would sit at
+//   i - rem_i + (rem_i mod 2^k) = j - rem_j + (rem_j mod 2^k), so
+//   j - i = (q_j - q_i) 2^k with q = rem >> k, and q_j > q_i contradicts
+//   rem_j <= rem_i: no two slots ever meet.  Each slot lands at d_i (or
+//   falls off when d_i < 0), d is strictly increasing, and a position no
+//   slot lands on holds zeros; rem settles to 0.  The decoder's
+//   `spread_inputs` builds such rows: a suffix minimum, clamped, mirrored,
+//   its padding given the first real slot's displacement.
+//
+// What bounds the placement on this card: device memory.  One read of each
+// slot (8 or 12 bytes; the tgt form reads rem[i-1] and rem[n-1] again, which
+// the caches serve) and one write of each output slot: 16 or 24 bytes a
+// slot in all.  The guard is evaluated in the same pass.  In the tgt form
+// each output slot is written once: by its step-0 slot, or, above d[n-1],
+// as a zero by its own thread.  In the high-bit-first form a block of 1024
+// slots owns the output positions d[i0] .. d[i1]-1 between its first slot's
+// target and the next block's: it zero-fills them, then stores its slots,
+// so no position is written by two blocks; a block whose own slots break
+// the guard writes nothing.
+//
+// Why the network stays.  The encoder's concat (`merge_network`) merges the
+// words of an overflowed chunk, whose displacements break the order; it runs
+// the network always, as before: a shared-memory pass over levels 0..9 (a
+// block loads a tile of kTile slots plus the kHalo = 2^10 - 1 slots to its
+// right: a level pulls from j + 2^k, so the stale right edge grows by 2^k per
+// level and the halo absorbs all of them, in either order of the levels),
+// then one elementwise pass per level above.  A decoder row that fails its
+// guard (no real decode row does) gets the same network from the guarded
+// network kernel: one block per row, which returns at once on a row whose
+// flag is clear, so the placement's output stands with no host
+// synchronisation, and otherwise counts the row and overwrites the row's
+// output with the network's.
 //
 // Entry points, plain C, launched on the caller's stream, each returning
 // cudaGetLastError(): cf_merge_network (low-bit-first), cf_merge_network_tgt
@@ -58,6 +93,9 @@ constexpr int kHalo = (1 << kLocalLevels) - 1;
 constexpr int kTile = 2048;
 constexpr int kSpan = kTile + kHalo;
 constexpr int kPer = (kSpan + kThreads - 1) / kThreads;
+// slots per block of the high-bit-first placement
+constexpr int kPlaceTile = 1024;
+constexpr int kPlacePer = kPlaceTile / kThreads;
 
 // One level at one slot: (v0, r0, t0) stays unless bit k of r0 is set;
 // (v1, r1, t1), the slot 2^k to the right, arrives if bit k of r1 is set.
@@ -74,25 +112,39 @@ __device__ __forceinline__ void level_step(uint32_t v0, int r0, int t0,
   if (kTgt) t = max(stay ? t0 : 0, come ? t1 : 0);
 }
 
-// Levels 0 .. levels-1 (levels <= kLocalLevels) of one tile of one row, in
-// ascending order, or descending when `desc`.
+// The arrays of one network: val as uint32, rem and (when kTgt) tgt.
+struct Slots {
+  uint32_t* v;
+  int* r;
+  int* t;
+};
+
+// The same arrays from slot `off` on.
+__device__ __forceinline__ Slots at(Slots s, size_t off) {
+  return Slots{s.v + off, s.r + off, s.t ? s.t + off : nullptr};
+}
+
 template <bool kTgt>
-__global__ void __launch_bounds__(kThreads)
-local_levels_kernel(const uint32_t* __restrict__ val,
-                    const int* __restrict__ rem, const int* __restrict__ tgt,
-                    uint32_t* __restrict__ oval, int* __restrict__ orem,
-                    int* __restrict__ otgt, int n, int levels, int desc) {
-  __shared__ uint32_t sv[kSpan];
-  __shared__ int sr[kSpan];
-  __shared__ int st[kTgt ? kSpan : 1];
-  const size_t base = (size_t)blockIdx.y * n;
-  const int t0 = blockIdx.x * kTile;
+struct TileSmem {
+  uint32_t v[kSpan];
+  int r[kSpan];
+  int t[kTgt ? kSpan : 1];
+};
+
+// Levels 0 .. levels-1 (levels <= kLocalLevels) of the tile at t0 of one row
+// (src and dst point at the row), in ascending order, or descending when
+// `desc`.  Ends with a barrier, so that a block may run tiles back to back
+// and read dst after them.
+template <bool kTgt>
+__device__ __forceinline__ void tile_levels(Slots src, Slots dst, int n,
+                                            int t0, int levels, bool desc,
+                                            TileSmem<kTgt>& sm) {
   for (int j = threadIdx.x; j < kSpan; j += kThreads) {
     const int i = t0 + j;
     // slots beyond the row are the network's zero fill
-    sv[j] = i < n ? val[base + i] : 0u;
-    sr[j] = i < n ? rem[base + i] : 0;
-    if (kTgt) st[j] = i < n ? tgt[base + i] : 0;
+    sm.v[j] = i < n ? src.v[i] : 0u;
+    sm.r[j] = i < n ? src.r[i] : 0;
+    if (kTgt) sm.t[j] = i < n ? src.t[i] : 0;
   }
   __syncthreads();
   for (int step = 0; step < levels; ++step) {
@@ -105,9 +157,10 @@ local_levels_kernel(const uint32_t* __restrict__ val,
       const int j = threadIdx.x + e * kThreads;
       const bool in = j + s < kSpan;  // beyond: stale, never reaches the tile
       if (j < kSpan) {
-        level_step<kTgt>(sv[j], sr[j], kTgt ? st[j] : 0, in ? sv[j + s] : 0u,
-                         in ? sr[j + s] : 0, (kTgt && in) ? st[j + s] : 0, k,
-                         s, nv[e], nr[e], nt[e]);
+        level_step<kTgt>(sm.v[j], sm.r[j], kTgt ? sm.t[j] : 0,
+                         in ? sm.v[j + s] : 0u, in ? sm.r[j + s] : 0,
+                         (kTgt && in) ? sm.t[j + s] : 0, k, s, nv[e], nr[e],
+                         nt[e]);
       }
     }
     __syncthreads();
@@ -115,9 +168,9 @@ local_levels_kernel(const uint32_t* __restrict__ val,
     for (int e = 0; e < kPer; ++e) {
       const int j = threadIdx.x + e * kThreads;
       if (j < kSpan) {
-        sv[j] = nv[e];
-        sr[j] = nr[e];
-        if (kTgt) st[j] = nt[e];
+        sm.v[j] = nv[e];
+        sm.r[j] = nr[e];
+        if (kTgt) sm.t[j] = nt[e];
       }
     }
     __syncthreads();
@@ -125,11 +178,22 @@ local_levels_kernel(const uint32_t* __restrict__ val,
   for (int j = threadIdx.x; j < kTile; j += kThreads) {
     const int i = t0 + j;
     if (i < n) {
-      oval[base + i] = sv[j];
-      orem[base + i] = sr[j];
-      if (kTgt) otgt[base + i] = st[j];
+      dst.v[i] = sm.v[j];
+      dst.r[i] = sm.r[j];
+      if (kTgt) dst.t[i] = sm.t[j];
     }
   }
+  __syncthreads();
+}
+
+// The local levels of every tile of every row: one block a tile.
+template <bool kTgt>
+__global__ void __launch_bounds__(kThreads)
+local_levels_kernel(Slots src, Slots dst, int n, int levels, int desc) {
+  __shared__ TileSmem<kTgt> sm;
+  const size_t base = (size_t)blockIdx.y * n;
+  tile_levels<kTgt>(at(src, base), at(dst, base), n, blockIdx.x * kTile,
+                    levels, desc != 0, sm);
 }
 
 // Level k of every row, one slot per thread.
@@ -151,66 +215,184 @@ global_level_kernel(const uint32_t* __restrict__ val,
   if (kTgt) otgt[u] = t;
 }
 
-// The arrays of one network: val as uint32, rem and (when kTgt) tgt.
-struct Slots {
-  uint32_t* v;
-  int* r;
-  int* t;
-};
-
-// Runs the settled network from `in` into `out`, with `tmp` as scratch of
-// the same size.  The input is only read.
+// Level k of one row (a and b point at it), by the whole block.
 template <bool kTgt>
-int run_network(Slots in, Slots out, Slots tmp, long long rows, int n,
-                bool highfirst, cudaStream_t st) {
-  if (rows < 1 || rows > 65535 || n < 1) return (int)cudaErrorInvalidValue;
-  const long long total = rows * n;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+__device__ __forceinline__ void row_level(Slots a, Slots b, int n, int k) {
+  const int s = 1 << k;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool in = (long long)i + s < n;
+    int t = 0;
+    level_step<kTgt>(a.v[i], a.r[i], kTgt ? a.t[i] : 0, in ? a.v[i + s] : 0u,
+                     in ? a.r[i + s] : 0, (kTgt && in) ? a.t[i + s] : 0, k, s,
+                     b.v[i], b.r[i], t);
+    if (kTgt) b.t[i] = t;
+  }
+}
 
+// The network's number of levels for rows of n slots.
+int network_levels(int n, bool highfirst) {
   int levels = 0;
   if (highfirst) {  // bit_length(n - 1), at least 1
     while (levels < 31 && (1LL << levels) <= (long long)n - 1) ++levels;
-    if (levels < 1) levels = 1;
-  } else {  // k = 0 .. levels-1 while 2^k <= n
-    while (levels < 31 && (1LL << levels) <= n) ++levels;
+    return levels < 1 ? 1 : levels;
   }
+  while (levels < 31 && (1LL << levels) <= n) ++levels;  // 2^k <= n
+  return levels;
+}
+
+// The network of each row whose flag is set, one block a row, from `in`
+// into `out` with `tmp` as scratch (the block ping-pongs between them; its
+// own writes are visible to it after each barrier).  Counts those rows in
+// `*flagged`.  Low-bit-first: the local levels tile by tile, then the levels
+// above; high-bit-first: the levels above, then the local ones.
+template <bool kTgt>
+__global__ void __launch_bounds__(kThreads)
+guarded_network_kernel(Slots in, Slots out, Slots tmp,
+                       const int* __restrict__ flags, int* flagged, int n,
+                       int levels, int highfirst) {
+  __shared__ TileSmem<kTgt> sm;
+  const int row = blockIdx.x;
+  if (flags[row] == 0) return;
+  if (threadIdx.x == 0) atomicAdd(flagged, 1);
+  const size_t base = (size_t)row * n;
+  in = at(in, base);
+  const Slots buf[2] = {at(out, base), at(tmp, base)};
   const int local = levels < kLocalLevels ? levels : kLocalLevels;
   const int global = levels - local;
-  Slots buf[2] = {out, tmp};
-  const dim3 grid((n + kTile - 1) / kTile, (unsigned)rows);
-  cudaError_t err;
-
   if (!highfirst) {
-    // local levels, then the global ones; ping-pong so that the last pass
-    // writes `out`
-    int cur = global % 2;
-    local_levels_kernel<kTgt><<<grid, kThreads, 0, st>>>(
-        in.v, in.r, in.t, buf[cur].v, buf[cur].r, buf[cur].t, n, local, 0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    int cur = global % 2;  // so that the last level writes `out`
+    for (int t0 = 0; t0 < n; t0 += kTile)
+      tile_levels<kTgt>(in, buf[cur], n, t0, local, false, sm);
     for (int k = local; k < levels; ++k) {
-      const Slots a = buf[cur], b = buf[cur ^ 1];
-      global_level_kernel<kTgt><<<(unsigned)blocks, kThreads, 0, st>>>(
-          a.v, a.r, a.t, b.v, b.r, b.t, total, n, k);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      row_level<kTgt>(buf[cur], buf[cur ^ 1], n, k);
+      __syncthreads();
       cur ^= 1;
     }
-    return (int)cudaSuccess;
+    return;
   }
-
-  // high-bit-first: global levels L-1 .. local, the last of them into
-  // `tmp`, then the local levels local-1 .. 0 from there into `out`
-  Slots src = in;
-  for (int i = 0; i < global; ++i) {
-    const Slots dst = buf[(global - i) % 2];
-    global_level_kernel<kTgt><<<(unsigned)blocks, kThreads, 0, st>>>(
-        src.v, src.r, src.t, dst.v, dst.r, dst.t, total, n, levels - 1 - i);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  Slots src = in;  // the last of the levels above lands in `tmp`
+  for (int g = 0; g < global; ++g) {
+    const Slots dst = buf[(global - g) % 2];
+    row_level<kTgt>(src, dst, n, levels - 1 - g);
+    __syncthreads();
     src = dst;
   }
-  local_levels_kernel<kTgt><<<grid, kThreads, 0, st>>>(
-      src.v, src.r, src.t, out.v, out.r, out.t, n, local, 1);
-  return (int)cudaGetLastError();
+  for (int t0 = 0; t0 < n; t0 += kTile)
+    tile_levels<kTgt>(src, buf[0], n, t0, local, true, sm);
+}
+
+// The tgt form's placement and guard, one slot per thread (see the note at
+// the top).  A row that breaks the guard sets its flag; its output is then
+// rewritten by the guarded network, so writes out of the row's range are
+// all that is skipped here.
+__global__ void __launch_bounds__(kThreads)
+place_tgt_kernel(const uint32_t* __restrict__ val,
+                 const int* __restrict__ rem, const int* __restrict__ tgt,
+                 uint32_t* __restrict__ oval, int* __restrict__ orem,
+                 int* __restrict__ otgt, int* __restrict__ flags, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t base = (size_t)blockIdx.y * n;
+  const int r = rem[base + i];
+  const long long step = (long long)r - (i ? rem[base + i - 1] : 0);
+  const uint32_t v = val[base + i];
+  const int t = tgt[base + i];
+  const long long d = (long long)i - r;
+  bool ok;
+  if (step == 0) {
+    ok = t >= 0 && d >= 0;  // d >= 0 follows from the steps; kept as a check
+    if (d >= 0 && d < n) {
+      oval[base + d] = v;
+      otgt[base + d] = t;
+    }
+  } else {
+    ok = step == 1 && v == 0u && t == 0;
+  }
+  // above the last slot's target nothing lands
+  if ((long long)i > (long long)(n - 1) - rem[base + n - 1]) {
+    oval[base + i] = 0u;
+    otgt[base + i] = 0;
+  }
+  orem[base + i] = 0;
+  if (!ok) flags[blockIdx.y] = 1;
+}
+
+// The high-bit-first form's placement and guard, kPlaceTile slots a block
+// (see the note at the top).
+__global__ void __launch_bounds__(kThreads)
+place_highfirst_kernel(const uint32_t* __restrict__ val,
+                       const int* __restrict__ rem,
+                       uint32_t* __restrict__ oval, int* __restrict__ orem,
+                       int* __restrict__ flags, int n, int levels) {
+  const size_t base = (size_t)blockIdx.y * n;
+  const int i0 = blockIdx.x * kPlaceTile;
+  const int i1 = min(i0 + kPlaceTile, n);
+  const long long lim = 1LL << levels;
+  uint32_t v[kPlacePer];
+  int r[kPlacePer];
+  bool ok = true;
+#pragma unroll
+  for (int e = 0; e < kPlacePer; ++e) {
+    const int i = i0 + threadIdx.x + e * kThreads;
+    if (i < i1) {
+      v[e] = val[base + i];
+      r[e] = rem[base + i];
+      const int rn = i + 1 < n ? rem[base + i + 1] : 0;
+      ok = ok && r[e] >= rn && r[e] >= 0 && r[e] < lim;
+    }
+  }
+  if (!__syncthreads_and(ok)) {
+    if (threadIdx.x == 0) flags[blockIdx.y] = 1;
+    return;
+  }
+  // the block's slots land in [lo, hi), which no other block writes
+  const long long lo = max(0LL, (long long)i0 - rem[base + i0]);
+  const long long hi =
+      min((long long)n, i1 < n ? (long long)i1 - rem[base + i1] : n);
+  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) oval[base + p] = 0u;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kPlacePer; ++e) {
+    const int i = i0 + threadIdx.x + e * kThreads;
+    if (i < i1) {
+      const int d = i - r[e];
+      if (d >= 0) oval[base + d] = v[e];
+      orem[base + i] = 0;
+    }
+  }
+}
+
+// Runs the settled low-bit-first network from `in` into `out`, with `tmp`
+// as scratch of the same size.  The input is only read.
+template <bool kTgt>
+int run_network(Slots in, Slots out, Slots tmp, long long rows, int n,
+                cudaStream_t st) {
+  const long long total = rows * n;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const int levels = network_levels(n, false);
+  const int local = levels < kLocalLevels ? levels : kLocalLevels;
+  const dim3 grid((n + kTile - 1) / kTile, (unsigned)rows);
+  const Slots buf[2] = {out, tmp};
+  cudaError_t err;
+  // local levels, then the global ones; ping-pong so that the last pass
+  // writes `out`
+  int cur = (levels - local) % 2;
+  local_levels_kernel<kTgt><<<grid, kThreads, 0, st>>>(in, buf[cur], n, local,
+                                                       0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int k = local; k < levels; ++k) {
+    const Slots a = buf[cur], b = buf[cur ^ 1];
+    global_level_kernel<kTgt><<<(unsigned)blocks, kThreads, 0, st>>>(
+        a.v, a.r, a.t, b.v, b.r, b.t, total, n, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    cur ^= 1;
+  }
+  return (int)cudaSuccess;
+}
+
+bool bad_shape(long long rows, int n) {
+  return rows < 1 || rows > 65535 || n < 1;
 }
 
 Slots slots(const void* v, const int* r, const int* t) {
@@ -226,30 +408,54 @@ extern "C" int cf_merge_network(const void* val, const int* rem,
                                 void* out_val, int* out_rem, void* tmp_val,
                                 int* tmp_rem, long long rows, int n,
                                 void* stream) {
+  if (bad_shape(rows, n)) return (int)cudaErrorInvalidValue;
   return run_network<false>(slots(val, rem, nullptr),
                             slots(out_val, out_rem, nullptr),
-                            slots(tmp_val, tmp_rem, nullptr), rows, n, false,
+                            slots(tmp_val, tmp_rem, nullptr), rows, n,
                             (cudaStream_t)stream);
 }
 
+// The decoder's two forms also take flags: (rows,) int32, zero on entry, set
+// for each row that fails its guard; and flagged: one int32 to which the
+// number of those rows is added.
 extern "C" int cf_merge_network_tgt(const void* val, const int* rem,
                                     const int* tgt, void* out_val,
                                     int* out_rem, int* out_tgt, void* tmp_val,
-                                    int* tmp_rem, int* tmp_tgt,
-                                    long long rows, int n, void* stream) {
-  return run_network<true>(slots(val, rem, tgt),
-                           slots(out_val, out_rem, out_tgt),
-                           slots(tmp_val, tmp_rem, tmp_tgt), rows, n, false,
-                           (cudaStream_t)stream);
+                                    int* tmp_rem, int* tmp_tgt, int* flags,
+                                    int* flagged, long long rows, int n,
+                                    void* stream) {
+  if (bad_shape(rows, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((n + kThreads - 1) / kThreads, (unsigned)rows);
+  place_tgt_kernel<<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)val, rem, tgt, (uint32_t*)out_val, out_rem, out_tgt,
+      flags, n);
+  cudaError_t err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  guarded_network_kernel<true><<<(unsigned)rows, kThreads, 0, st>>>(
+      slots(val, rem, tgt), slots(out_val, out_rem, out_tgt),
+      slots(tmp_val, tmp_rem, tmp_tgt), flags, flagged, n,
+      network_levels(n, false), 0);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int cf_merge_network_highfirst(const void* val, const int* rem,
                                           void* out_val, int* out_rem,
                                           void* tmp_val, int* tmp_rem,
+                                          int* flags, int* flagged,
                                           long long rows, int n,
                                           void* stream) {
-  return run_network<false>(slots(val, rem, nullptr),
-                            slots(out_val, out_rem, nullptr),
-                            slots(tmp_val, tmp_rem, nullptr), rows, n, true,
-                            (cudaStream_t)stream);
+  if (bad_shape(rows, n)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int levels = network_levels(n, true);
+  const dim3 grid((n + kPlaceTile - 1) / kPlaceTile, (unsigned)rows);
+  place_highfirst_kernel<<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)val, rem, (uint32_t*)out_val, out_rem, flags, n,
+      levels);
+  cudaError_t err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  guarded_network_kernel<false><<<(unsigned)rows, kThreads, 0, st>>>(
+      slots(val, rem, nullptr), slots(out_val, out_rem, nullptr),
+      slots(tmp_val, tmp_rem, nullptr), flags, flagged, n, levels, 1);
+  return (int)cudaGetLastError();
 }

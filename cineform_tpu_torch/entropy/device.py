@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cineform_tpu.spec import codebooks as cb
+from cineform_tpu_torch.spec import codebooks as cb
 from cineform_tpu_torch._int import MASK32, bits32, u32
 
 
@@ -361,6 +361,61 @@ def _settle_network_highfirst(val: torch.Tensor, rem: torch.Tensor):
     for k in range(max(1, (n - 1).bit_length()) - 1, -1, -1):
         val, rem, _ = _network_level(val, rem, k)
     return val, rem
+
+
+# The decoder's placements: on rows that pass a guard, each network above
+# settles to a placement, slot i at i - rem[i] (the argument is in
+# csrc/merge_network.cu).  The kernels evaluate the guard and place in one
+# pass and run the network on the other rows; these are the plain versions
+# of the guards and placements, for the tests.
+
+def _place(val: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor):
+    """val at dest where keep, zeros elsewhere, along the last axis."""
+    n = val.shape[-1]
+    idx = torch.where(keep, dest, n).long()
+    out = torch.zeros((*val.shape[:-1], n + 1), dtype=val.dtype,
+                      device=val.device)
+    return out.scatter_(-1, idx, torch.where(keep, val, 0))[..., :n]
+
+
+def _compact_guard(val: torch.Tensor, rem: torch.Tensor,
+                   tgt: torch.Tensor) -> torch.Tensor:
+    """(…,) bool: the rows on which `_settle_network_tgt` equals
+    `_place_compact`: with rem[-1] = 0, every step rem[i] - rem[i-1] is 0
+    or 1, slots whose step is 1 hold val = tgt = 0, and slots whose step is
+    0 have tgt >= 0."""
+    step = rem - F.pad(rem, (1, 0))[..., :-1]
+    ok = torch.where(step == 0, tgt >= 0,
+                     (step == 1) & (val == 0) & (tgt == 0))
+    return ok.all(dim=-1)
+
+
+def _place_compact(val: torch.Tensor, rem: torch.Tensor, tgt: torch.Tensor):
+    """The settled (val, rem, tgt) of a row that passes `_compact_guard`:
+    each slot whose step is 0 at i - rem[i], zeros elsewhere, rem 0."""
+    n = val.shape[-1]
+    dest = torch.arange(n, dtype=rem.dtype, device=rem.device) - rem
+    keep = (rem == F.pad(rem, (1, 0))[..., :-1]) & (dest >= 0) & (dest < n)
+    return (_place(val, dest, keep), torch.zeros_like(rem),
+            _place(tgt, dest, keep))
+
+
+def _spread_guard(rem: torch.Tensor) -> torch.Tensor:
+    """(…,) bool: the rows on which `_settle_network_highfirst` equals
+    `_place_spread`: rem nonincreasing, rem[-1] >= 0 and rem[0] < 2^L, L the
+    network's levels."""
+    n = rem.shape[-1]
+    levels = max(1, (n - 1).bit_length())
+    return ((rem[..., 1:] <= rem[..., :-1]).all(dim=-1)
+            & (rem[..., -1] >= 0) & (rem[..., 0] < (1 << levels)))
+
+
+def _place_spread(val: torch.Tensor, rem: torch.Tensor):
+    """The settled (val, rem) of a row that passes `_spread_guard`: slot i
+    at i - rem[i] (dropped below 0), zeros elsewhere, rem 0."""
+    n = val.shape[-1]
+    dest = torch.arange(n, dtype=rem.dtype, device=rem.device) - rem
+    return _place(val, dest, dest >= 0), torch.zeros_like(rem)
 
 
 def _concat_slots(bufs: torch.Tensor, lens: torch.Tensor):

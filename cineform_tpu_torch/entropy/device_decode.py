@@ -41,7 +41,7 @@ from functools import lru_cache
 import torch
 import torch.nn.functional as F
 
-from cineform_tpu.spec import codebooks as cb
+from cineform_tpu_torch.spec import codebooks as cb
 from cineform_tpu_torch.ops.merge_network import (merge_network_highfirst,
                                                   merge_network_tgt)
 
@@ -326,14 +326,21 @@ def spread_inputs(tgt, val, nout: int):
 
     Valid slots (val != 0) have strictly increasing targets >= their slot
     index, so their displacements are nonnegative and nondecreasing;
-    invalid slots take the suffix minimum, clamped to nout + 8."""
+    invalid slots take the suffix minimum, clamped to nout + 8.  The
+    mirrored displacements are nonincreasing, and the zero padding takes
+    the first real slot's, so that they stay nonincreasing over the whole
+    row: the condition under which the kernel places the slots in one pass
+    (`entropy.device._spread_guard`).  The padding holds zeros, so where it
+    lands changes no output."""
     s = tgt.shape[-1]
     arr = s + nout + 8
     sidx = torch.arange(s, dtype=torch.int32, device=tgt.device)
     d = torch.where(val != 0, tgt - sidx, arr)
     rem_m = torch.clamp(torch.cummin(d.flip(-1), dim=-1).values,
                         max=nout + 8)
-    return F.pad(val.flip(-1), (arr - s, 0)), F.pad(rem_m, (arr - s, 0))
+    pad = rem_m[..., :1].expand(*rem_m.shape[:-1], arr - s)
+    return (F.pad(val.flip(-1), (arr - s, 0)),
+            torch.cat([pad, rem_m], dim=-1))
 
 
 def spread_rows(tgt, val, nout: int):

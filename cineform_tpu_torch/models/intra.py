@@ -9,7 +9,8 @@ split between device and host is the JAX package's:
   `ops.chunk_pack` and `ops.merge_network`) on the device; the host
   appends band-end codes (`finish_band_bytes`) and writes the CFHD sample
   (`intra_host.write_sample`).  A band that overflows its device capacity
-  is re-encoded on the host, byte-exactly.
+  is re-encoded, byte-exactly, by the host C++ coder from the coefficients
+  the device computed.
 - decode on the device (`decode_batch_device`): the host walks the sample
   headers and copies the band payloads into pinned row buffers
   (`bitstream.fastwalk`); on the device the band entropy decoder
@@ -35,14 +36,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cineform_tpu.bitstream import parse_sample
-from cineform_tpu.models import intra_host
-from cineform_tpu.spec import tags
-from cineform_tpu.spec.production import IntraParams
+from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch.entropy import device as edev
 from cineform_tpu_torch.entropy import device_decode as ddec
+from cineform_tpu_torch.entropy import native as entropy_native
+from cineform_tpu_torch.models import intra_host
 from cineform_tpu_torch.ops import intra_transform as ops
 from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
+from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
 
 
@@ -92,10 +93,6 @@ class IntraCodec:
 
     def plane_width(self, ch: int) -> int:
         return self.width // 2 if ch > 0 else self.width
-
-    @property
-    def _write_sample_kwargs(self) -> dict:
-        return {"input_format": tags.COLOR_FORMAT_YUYV}
 
     def tables(self, frame_index: int = 0) -> CodecTables:
         return codec_tables(self.width, self.height, self.quality,
@@ -152,9 +149,11 @@ class IntraCodec:
 
     def forward_packed(self, frames: torch.Tensor, cap_bits: int = 8):
         """(B, H, 2W) uint8 YUY2 on the device -> per-channel (lowpass,
-        [(words, total_bits, overflow)] per level, each (B, 3, ...)): the
-        complete CFHD band bitstreams (without band-end codes) on the
-        device."""
+        [(words, total_bits, overflow, bands)] per level): the complete
+        CFHD band bitstreams (without band-end codes) on the device, words,
+        total_bits and overflow each (B, 3, ...), and the level's quantized
+        (LH, HL, HH) coefficients, each (B, h, w), which the host re-encodes
+        where a band overflowed."""
         coeffs = self.forward(frames)
         groups = self._band_groups(coeffs)
         packed_by_ch: list[list] = [[] for _ in coeffs]
@@ -165,7 +164,7 @@ class IntraCodec:
                     cap_bits_per_elem=cap_bits)
                 for gi, ch in enumerate(grp):
                     packed_by_ch[ch].append((words[:, gi], nbits[:, gi],
-                                             ovf[:, gi]))
+                                             ovf[:, gi], coeffs[ch][1][k]))
         return [(coeffs[ch][0], packed_by_ch[ch]) for ch in range(len(coeffs))]
 
     def _frame_meta(self, batch, first_frame_number, frame_numbers, metadata):
@@ -186,51 +185,42 @@ class IntraCodec:
                       first_frame_number: int = 1, metadata=None,
                       frame_numbers: list[int] | None = None) -> list[bytes]:
         """Host tail of the device encode: fetch `forward_packed`'s output,
-        finish each band's bytes and write the samples.  Frames with an
-        overflowed band have their coefficients recomputed on the host for
-        the C++ coder."""
-        from cineform_tpu.ref import intra as xf
-
+        finish each band's bytes and write the samples.  A band that
+        overflowed its device capacity is re-encoded on the host by the
+        C++ coder, from its coefficients as `forward_packed` computed them
+        on the device (only those bands are downloaded)."""
         p = self.params
         result = [(lowpass.cpu().numpy(),
-                   [(w.cpu().numpy(), n.cpu().numpy(), o.cpu().numpy())
-                    for w, n, o in levels])
+                   [(w.cpu().numpy(), n.cpu().numpy(), o.cpu().numpy(), bands)
+                    for w, n, o, bands in levels])
                   for lowpass, levels in packed]
         batch = frames.shape[0]
         frame_numbers, metadata = self._frame_meta(
             batch, first_frame_number, frame_numbers, metadata)
         samples = []
         for i in range(batch):
-            fallback = None
             channels = []
             for ch, (lowpass, levels) in enumerate(result):
-                payloads = []
-                for words, nbits, ovf in levels:
+                payloads, bands = [], []
+                for k, (words, nbits, ovf, coeffs) in enumerate(levels):
                     payloads.append(tuple(
-                        None if ovf[i, b]             # host re-encode below
+                        None if ovf[i, b]             # host re-encode
                         else edev.finish_band_bytes(words[i, b],
                                                     int(nbits[i, b]), 17)
                         for b in range(3)))
-                plane_w = self.plane_width(ch)
-                bands = [tuple(np.broadcast_to(
-                    np.int32(0), (p.height >> (k + 1), plane_w >> (k + 1)))
-                    for _ in range(3)) for k in range(len(levels))]
-                if any(t is None for tr in payloads for t in tr):
-                    # capacity overflow: recompute this frame's coefficients
-                    # on the host for the C++ fallback coder
-                    if fallback is None:
-                        planes = xf.unpack_yuy2(
-                            np.ascontiguousarray(frames[i]).tobytes(),
-                            self.width, self.height, p.precision)
-                        fallback = [intra_host.transform_channel(pl, p, c)
-                                    for c, pl in enumerate(planes)]
-                    bands = fallback[ch].bands
+                    # write_sample reads a band only for its shape, unless
+                    # its payload is None
+                    shape = (p.height >> (k + 1),
+                             self.plane_width(ch) >> (k + 1))
+                    bands.append(tuple(
+                        coeffs[b][i].cpu().numpy() if ovf[i, b]
+                        else np.broadcast_to(np.int32(0), shape)
+                        for b in range(3)))
                 channels.append(intra_host.EncodedChannel(
                     lowpass=lowpass[i], bands=bands,
                     quants=p.band_quant(ch), payloads=payloads))
             samples.append(intra_host.write_sample(
-                channels, p, frame_numbers[i], metadata[i],
-                **self._write_sample_kwargs))
+                channels, p, frame_numbers[i], metadata[i]))
         return samples
 
     def encode_batch_device(self, frames: np.ndarray,
@@ -265,8 +255,7 @@ class IntraCodec:
                 quants=p.band_quant(ch))
                 for ch, (lowpass, bands) in enumerate(coeffs)]
             samples.append(intra_host.write_sample(
-                channels, p, frame_numbers[i], metadata[i],
-                **self._write_sample_kwargs))
+                channels, p, frame_numbers[i], metadata[i]))
         return samples
 
     # --- decode ------------------------------------------------------------
@@ -289,8 +278,6 @@ class IntraCodec:
         """Parse the samples and entropy-decode every band on the host (C++
         decoder); returns the batched per-channel (lowpass, bands) int32
         tensors on the device."""
-        from cineform_tpu.entropy import native as entropy_native
-
         per_frame = []
         for sample in samples:
             s = parse_sample(sample)
@@ -404,8 +391,6 @@ class IntraCodec:
         those frames get empty rows.  The native walker finds the bands in
         one C pass per sample and copies their payloads straight into the
         row buffers."""
-        from cineform_tpu.bitstream import fastwalk
-
         batch = len(samples)
         pin = self.device.type == "cuda"
         lh = self.height >> 3

@@ -6,7 +6,7 @@ configuration: the prescale shifts and band quantizers of
 `spec.production.IntraParams`, the band entropy code tables of codeset 17
 (`spec.codebooks`), and the reference decoder's output dither draws for
 the n-th decoded frame (`ref.intra.decode_dither_rows`).  `codec_tables`
-builds them from the shared host layers and places the tensors on an
+builds them from the package's host modules and places the tensors on an
 explicit device.
 """
 
@@ -18,9 +18,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from cineform_tpu.spec.production import IntraParams
 from cineform_tpu_torch.entropy.device import (EncodeTables, encode_tables,
                                                magnitude_lut)
+from cineform_tpu_torch.ref.intra import decode_dither_rows
+from cineform_tpu_torch.spec.production import IntraParams
 
 
 @lru_cache(maxsize=64)
@@ -28,10 +29,8 @@ def dither_rows(height: int, frame_index: int = 0) -> np.ndarray:
     """Reference-exact (H, 16) output dither draws, uint8, for the n-th
     decoded frame of a decoder process (glibc rand stream; see
     ref/intra.decode_dither_rows)."""
-    from cineform_tpu.ref import intra as xf
-
     return np.ascontiguousarray(
-        xf.decode_dither_rows(height, frame_index).astype(np.uint8))
+        decode_dither_rows(height, frame_index).astype(np.uint8))
 
 
 @dataclass(frozen=True, eq=False)

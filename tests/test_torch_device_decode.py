@@ -27,6 +27,7 @@ from cineform_tpu_torch.entropy import device as tdev
 from cineform_tpu_torch.entropy import device_decode as tdd
 from cineform_tpu_torch.models.intra import IntraCodec
 from tests.test_intra_host import _golden
+from tests.test_torch_kernels import _guarded_rows
 
 torch.set_num_threads(1)
 
@@ -286,6 +287,65 @@ def test_tgt_plain_matches_compact_network(jax_stages, case):
     for g, w in zip(got, want, strict=True):
         _eq(g, w.astype(np.int64).astype(np.uint32).view(np.int32)
             if w.dtype == np.uint32 else w)
+
+
+# ---------------------------------------------------------------------------
+# The guards of the decoder's merge kernels: where a row passes, the network
+# settles to the one-pass placement
+# ---------------------------------------------------------------------------
+
+def _guard(form, arrays):
+    return (tdev._compact_guard(*arrays) if form == "tgt"
+            else tdev._spread_guard(arrays[1]))
+
+
+def _network_and_placement(form, arrays):
+    if form == "tgt":
+        return (tdev._settle_network_tgt(*arrays),
+                tdev._place_compact(*arrays))
+    return (tdev._settle_network_highfirst(*arrays),
+            tdev._place_spread(*arrays))
+
+
+@pytest.mark.parametrize("form", ["tgt", "highfirst"])
+@pytest.mark.parametrize("seed,rows,n", [(0, 4, 1), (1, 3, 2), (2, 5, 777),
+                                         (3, 2, 2048), (4, 3, 5001)])
+def test_network_equals_placement_where_the_guard_holds(form, seed, rows, n):
+    """Random values (not decoder rows) under the guard's condition: the
+    plain network's settled arrays are the placement's, rem all zero."""
+    arrays = _guarded_rows(seed, rows, n, form)
+    assert _guard(form, arrays).all()
+    net, placed = _network_and_placement(form, arrays)
+    for a, b in zip(net, placed, strict=True):
+        _eq(a, b.numpy())
+    assert not net[1].any()
+
+
+@pytest.mark.parametrize("form", ["tgt", "highfirst"])
+def test_guards_flag_violating_rows(form):
+    bad = (0, 1, 2, 4, 5, 7)
+    arrays = _guarded_rows(7, 9, 400, form, bad)
+    _eq(_guard(form, arrays), np.array([r not in bad for r in range(9)]))
+    # the network does not place those rows: that is why they are flagged
+    net, placed = _network_and_placement(form, arrays)
+    assert any(not torch.equal(a[r], b[r]) for r in bad
+               for a, b in zip(net, placed))
+
+
+def test_guards_hold_on_decoder_rows(jax_stages):
+    """The rows `compact_inputs` and `spread_inputs` build from the decoder's
+    slots pass their guards, and both placements equal the networks."""
+    ctgt, cval, nval, _ = (_t(a) for a in jax_stages["emit"])
+    comp = tdd.compact_inputs(ctgt, cval, nval)
+    assert tdev._compact_guard(*comp).all()
+    net, placed = _network_and_placement("tgt", comp)
+    for a, b in zip(net, placed, strict=True):
+        _eq(a, b.numpy())
+    spread = tdd.spread_inputs(net[2], net[0], NOUT)
+    assert tdev._spread_guard(spread[1]).all()
+    net, placed = _network_and_placement("highfirst", spread)
+    for a, b in zip(net, placed, strict=True):
+        _eq(a, b.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,11 @@ def test_encode_batch_device_matches_golden(name, w, h, q, p):
                          + ["s_1920x1080_q6_p1"])
 def test_sample_metadata_matches_the_golden_reader(name):
     gold = _golden(name, "cfhd")
-    assert sample_metadata(gold) == _metadata_from(gold)
+    got, want = sample_metadata(gold), _metadata_from(gold)
+    assert got.block() == want.block()
+    assert dataclasses.asdict(got) == {
+        k: v for k, v in dataclasses.asdict(want).items()
+        if k != "video_channels"}                   # stereo only: not ported
 
 
 @pytest.mark.parametrize("name,w,h,q,p", GOLDENS)
@@ -86,7 +90,8 @@ def test_forced_overflow_falls_back_byte_exact():
                                               dtype=np.uint8)
     codec = IntraCodec(w, h, 4, device=CPU)
     packed = codec.forward_packed(torch.from_numpy(noisy), cap_bits=2)
-    assert any(bool(o.any()) for _, levels in packed for _, _, o in levels)
+    assert any(bool(o.any()) for _, levels in packed
+               for _, _, o, _ in levels)
     got = codec.encode_batch_device(noisy, 7, cap_bits=2)
     want = intra_host.encode_sample(
         noisy[0].tobytes(), w, h, 4, frame_number=7,

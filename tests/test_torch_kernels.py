@@ -92,6 +92,47 @@ def _spread_inputs(seed, rows, chunks, nout):
                              nout)
 
 
+def _guarded_rows(seed, rows, n, form, bad=()):
+    """Rows for the decoder's merge forms, with random values, that pass the
+    form's guard (`tgt`: rem steps of 0 or 1 from 0, zeros on the +1 steps;
+    `highfirst`: rem nonincreasing, below 2^L), except the rows in `bad`,
+    each broken at one slot in one of three ways.  Returns int32 tensors
+    (val, rem, tgt) or (val, rem)."""
+    rng = np.random.default_rng(seed)
+    val = rng.integers(-(1 << 31), 1 << 31, (rows, n))
+    if form == "tgt":
+        steps = rng.random((rows, n)) < rng.random((rows, 1))
+        rem = np.cumsum(steps, axis=1)
+        tgt = rng.integers(0, 1 << 20, (rows, n))
+        val[steps], tgt[steps] = 0, 0
+        for r in bad:
+            i = rng.integers(n)
+            if r % 3 == 0:
+                rem[r, i:] += 2                 # a step of 2 or 3
+            elif r % 3 == 1:
+                rem[r, i:] += 1                 # a filled slot on a +1 step
+                val[r, i] = 1
+            else:
+                tgt[r, i] = -1 - rng.integers(5)   # a negative target
+                if steps[r, i]:
+                    val[r, i] = 1
+        arrays = (val, rem, tgt)
+    else:
+        levels = max(1, (n - 1).bit_length())
+        rem = -np.sort(-rng.integers(0, min(1 << levels, n + 9), (rows, n)),
+                       axis=1)
+        for r in bad:
+            if r % 3 == 0:
+                i = rng.integers(1, n)
+                rem[r, i] = rem[r, i - 1] + 1   # an increase
+            elif r % 3 == 1:
+                rem[r, -1] = -1                 # a negative displacement
+            else:
+                rem[r] += (1 << levels) - rem[r, 0]   # one beyond 2^L
+        arrays = (val, rem)
+    return tuple(torch.from_numpy(a.astype(np.int32)) for a in arrays)
+
+
 # ---------------------------------------------------------------------------
 # CPU: the wrappers' contract
 # ---------------------------------------------------------------------------
@@ -311,18 +352,54 @@ def test_merge_network_highfirst_kernel_on_spread_rows(cuda, seed, rows,
     assert not want[1].any()                          # settled
 
 
+def _flagged(wrapper, dev) -> int:
+    t = wrapper.flagged.get(dev)
+    return 0 if t is None else int(t.item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["tgt", "highfirst"])
+@pytest.mark.parametrize("seed,rows,n,bad", [
+    (0, 4, 5000, ()),                 # every row placed
+    (1, 3, 70001, (0, 1, 2)),         # every row through the network
+    (2, 6, 3071, (1, 3, 5)),          # both branches in one call
+    (3, 5, 2049, (0, 2)),
+    (4, 2, 1, ())])
+def test_guarded_merge_kernels_match_plain(cuda, form, seed, rows, n, bad):
+    """The decoder's two forms on rows that pass their guard, rows that do
+    not, and both in one call: each equals its plain network, and the
+    device counts exactly the rows that failed."""
+    arrays = _guarded_rows(seed, rows, n, form, bad)
+    on_card = [a.to(cuda) for a in arrays]
+    wrapper = merge_network_tgt if form == "tgt" else merge_network_highfirst
+    dev = on_card[0].device
+    flagged = _flagged(wrapper, dev)
+    branches = dict(wrapper.branch_launches)
+    got, want = _merge("merge_" + form, *on_card)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    assert _flagged(wrapper, dev) == flagged + len(bad)
+    assert wrapper.branch_launches == {b: c + 1 for b, c in branches.items()}
+
+
 @pytest.mark.gpu
 def test_device_decode_on_the_card_matches_golden(cuda):
     from cineform_tpu_torch.models.intra import IntraCodec
     from test_intra_host import _golden
 
     launches = [merge_network_tgt.launches, merge_network_highfirst.launches]
+    flagged = [_flagged(w, torch.device("cuda", 0))
+               for w in (merge_network_tgt, merge_network_highfirst)]
     out, fallback = IntraCodec(320, 240, 4, device=cuda).decode_batch_device(
         [_golden("s_320x240_q4_p1", "cfhd")])
     assert fallback == ()
     assert out.tobytes() == _golden("s_320x240_q4_p1", "yuy2")
     assert merge_network_tgt.launches == launches[0] + 6
     assert merge_network_highfirst.launches == launches[1] + 6
+    # every decoder row took the placement
+    assert flagged == [_flagged(w, torch.device("cuda", 0))
+                       for w in (merge_network_tgt, merge_network_highfirst)]
 
 
 @pytest.mark.gpu
@@ -334,8 +411,8 @@ def test_wrappers_reject_non_contiguous_cuda_tensors(cuda):
 
 @pytest.mark.gpu
 def test_codec_on_the_card_matches_golden(cuda):
-    from cineform_tpu.utils.testframes import yuy2_frame
     from cineform_tpu_torch.models.intra import IntraCodec
+    from cineform_tpu_torch.testframes import yuy2_frame
     # this directory is on sys.path under pytest; a `tests` package
     # installed elsewhere may shadow the repository's
     from test_intra_host import _golden, _metadata_from

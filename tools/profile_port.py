@@ -15,9 +15,8 @@ through `cineform_tpu_torch.models.intra.IntraCodec` and prints:
   decode route (`decode_batch_device`): header walk and fill, upload,
   device entropy decode, inverse with pack, download;
 - within the host tails, the seconds spent in each host function they call
-  (parsing, the C++ band decoder, the host re-encode of frames with an
-  overflowed band, the C++ band encoder, the sample writer), over the same
-  5 runs;
+  (parsing, the C++ band decoder, the C++ band encoder that re-encodes
+  the overflowed bands, the sample writer), over the same 5 runs;
 - within the device entropy decode, the ms per batch of each decoder stage
   (`entropy.device_decode`: classify, chunk_transfers, scan_entries_rows,
   final_walk, emit_slots, compact_rows, spread_rows), each ended by a
@@ -118,9 +117,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from cineform_tpu.entropy import native
-    from cineform_tpu.models import intra_host
     from cineform_tpu_torch.entropy import device_decode as ddec
+    from cineform_tpu_torch.entropy import native
+    from cineform_tpu_torch.models import intra_host
     from cineform_tpu_torch.models import intra as port_intra
     from cineform_tpu_torch.testframes import yuy2_frame
 
@@ -171,14 +170,12 @@ def main() -> int:
     host_fns = [
         (port_intra, "parse_sample", "decode: bitstream.parse_sample"),
         (native, "decode_band", "decode: entropy.native.decode_band (C++)"),
-        (intra_host, "transform_channel",
-         "encode: host re-encode transform (intra_host.transform_channel)"),
         (intra_host, "encode_band_payload",
          "encode: C++ band encoder (intra_host.encode_band_payload)"),
         (intra_host, "write_sample", "encode: intra_host.write_sample"),
     ]
     overflowed = sum(int(o.sum()) for _, levels in packed
-                     for _, _, o in levels)
+                     for _, _, o, _ in levels)
     log(f"{BATCH} frames of {WIDTH}x{HEIGHT} YUY2 at quality {QUALITY}, "
         f"cap_bits 8: {overflowed} of {BATCH * 27} bands overflowed; "
         f"torch {torch.__version__}, {torch.cuda.get_device_name(0)}")
