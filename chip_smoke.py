@@ -11,8 +11,11 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 2. holds each kernel against its plain PyTorch version, on the card, at
    the shapes of a batch-8 1080p encode (every forward DWT level of luma
    and chroma; every chunk_pack and merge_network call of the band
-   groups, one frame being seeded noise so that chunks overflow) and of a
-   batch-8 1080p decode (the merge_network_tgt compaction and the
+   groups, one frame being seeded noise so that chunks overflow, which
+   chunk_pack packs by its tree and whose rows merge_network sends
+   through its network: the counts of both must equal those of the plain
+   criteria `_pack_fits` and `_concat_guard`) and of a batch-8 1080p
+   decode (the merge_network_tgt compaction and the
    merge_network_highfirst spread of every band row class), and times
    both with CUDA events;
 3. drives the main path through `IntraCodec`: the 1080p golden sample
@@ -31,8 +34,9 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    whichever is larger) and, where one PyTorch call computes the same
    function, that call's time, go beside its time;
 4. fails unless every kernel was launched by that main-path run, and, for
-   the decoder's two merge forms, unless both branches were launched and no
-   decoder row failed its guard;
+   the three merge forms, unless both branches were launched, and no
+   decoder row failed its guard (encoder rows may: their count is
+   printed, as is the count of chunks chunk_pack packed by its tree);
 5. holds frames 0 and 7 of the batch, encoded and decoded, against the
    port's own plain path on the CPU (the plain PyTorch versions of the
    kernels), byte for byte, and the batch's overflow count, PSNR and ratio
@@ -178,9 +182,8 @@ def main() -> int:
                     "row classes)")
     # ops: 32-bit integer operations per input element, counted from the
     # plain versions' arithmetic (the DWT's two 2-6 filters, saturation and
-    # quantization; chunk_pack's 8 merge levels; one merge level, for the
-    # encoder's network, times its levels; one placement for the decoder's
-    # two forms)
+    # quantization; chunk_pack's 8 merge levels; one placement for each
+    # merge form, the encoder's with its segmented OR)
     kernels = {
         "dwt_forward_level": dict(
             wrapper=dwt_forward_level, route="cuda",
@@ -195,8 +198,9 @@ def main() -> int:
             ops_per_elem=8 * 16),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
-            replaces=merge_tpu, mode="low-bit-first (encoder concat)",
-            ops_per_elem=None),
+            replaces=merge_tpu,
+            mode="low-bit-first (encoder concat): guarded OR placement, "
+                 "network on flagged rows", ops_per_elem=20),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -211,8 +215,6 @@ def main() -> int:
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12),
     }
-    #: ops per slot and level of a merge network level (level_step)
-    merge_level_ops = 12
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                       for k in kernels.values()})
@@ -287,28 +289,79 @@ def main() -> int:
             ll, bands = out[0], bands + [out[1:]]
         coeffs.append((ll, bands))
 
+    def counted(counter, fn) -> int:
+        """What one call of `fn` adds to a device counter."""
+        counter.zero_()
+        fn()
+        return int(counter.item())
+
     codes = edev.encode_tables(17)
-    any_chunk_ovf = False
+    any_chunk_ovf, tree_total, flagged_total = False, 0, 0
     for lev in range(3):
         for grp in codec._band_groups(coeffs):
             bits, sizes = edev.chunk_codes(
                 codec.group_bands(coeffs, lev, grp), codes)
+            what = f"level {lev + 1} channels {grp}"
+            tree = counted(chunk_pack.tree_chunks.setdefault(
+                dev, torch.zeros(1, dtype=torch.int32, device=dev)),
+                lambda: chunk_pack(bits, sizes))
+            want_tree = int((~edev._pack_fits(
+                sizes, cap_bits_per_elem=12)).sum())
             packed = compare(
                 "chunk_pack", lambda: chunk_pack(bits, sizes),
                 lambda: edev.tree_pack(bits, sizes, cap_bits_per_elem=12),
-                f"level {lev + 1} channels {grp} {tuple(bits.shape)}",
-                (bits, sizes))
+                f"{what} {tuple(bits.shape)}", (bits, sizes))
+            log(f"  chunk_pack {what}: {tree} of {sizes.shape[:-1].numel()} "
+                f"chunks took the tree path ({want_tree} do not fit)")
+            if tree != want_tree:
+                raise AssertionError(f"chunk_pack {what}: {tree} chunks took "
+                                     f"the tree, {want_tree} do not fit")
             any_chunk_ovf |= bool(packed[2].any())
+            tree_total += tree
             val, rem, _ = edev._concat_slots(packed[0], packed[1])
-            levels = val.shape[-1].bit_length()       # 2^k <= n
-            compare("merge_network", lambda: merge_network(val, rem),
-                    lambda: edev._settle_network(val, rem),
-                    f"level {lev + 1} channels {grp} {tuple(val.shape)}",
-                    (val, rem), ops=merge_level_ops * levels * val.numel())
-    if not any_chunk_ovf:
-        raise AssertionError("no chunk overflowed: the overflow path of "
+            merges.reset_counts()
+            flagged = counted(merge_network.flagged.setdefault(
+                dev, torch.zeros(1, dtype=torch.int32, device=dev)),
+                lambda: merge_network(val, rem))
+            guard = edev._concat_guard(rem)
+            branches = dict(merge_network.branch_launches)
+            log(f"  merge_network {what}: {flagged} of {guard.numel()} rows "
+                f"flagged ({int((~guard).sum())} fail _concat_guard), "
+                f"branch launches {branches}")
+            if flagged != int((~guard).sum()) or set(branches.values()) \
+                    != {1}:
+                raise AssertionError(f"merge_network {what}: {flagged} rows "
+                                     f"flagged, branch launches {branches}")
+            flagged_total += flagged
+            # the same function as one PyTorch call on the rows that pass
+            # the guard, where the words' bits are disjoint and a sum is an
+            # OR: a scatter_add_ into a zeroed row with a spare column for
+            # the slots that fall off, its index built here, outside the
+            # timed window
+            n = val.shape[-1]
+            ok_val, ok_rem = val[guard], rem[guard]
+            dest = torch.arange(n, dtype=torch.int32, device=dev) - ok_rem
+            index = torch.where(dest >= 0, dest, n).long()
+
+            def library():
+                return torch.zeros((ok_val.shape[0], n + 1),
+                                   dtype=torch.int32, device=dev
+                                   ).scatter_add_(-1, index, ok_val)
+
+            got = compare("merge_network", lambda: merge_network(val, rem),
+                          lambda: edev._settle_network(val, rem),
+                          f"{what} {tuple(val.shape)}", (val, rem),
+                          library=library if guard.any() else None)
+            if not torch.equal(library()[:, :n], got[0][guard]):
+                raise AssertionError(f"merge_network {what}: the library "
+                                     "yardstick computes another function")
+    if not any_chunk_ovf or not tree_total:
+        raise AssertionError("no chunk overflowed: the tree path of "
                              "chunk_pack was not checked")
-    del x, coeffs, bits, sizes, packed, val, rem
+    if not flagged_total:
+        raise AssertionError("no encoder row failed the guard: the network "
+                             "branch of merge_network was not checked")
+    del x, coeffs, bits, sizes, packed, val, rem, ok_val, ok_rem, dest, index
 
     # decode shapes: the band row classes of the main path's batch
     rows = codec._decode_rows_args(codec.encode_batch_device(frames))
@@ -383,6 +436,7 @@ def main() -> int:
     for k in kernels.values():
         k["wrapper"].launches = 0
     merges.reset_counts()
+    chunk_pack.tree_chunks[dev].zero_()
 
     gold = golden("cfhd")
     golden_codec = IntraCodec(WIDTH, HEIGHT, GOLDEN_QUALITY, device=dev)
@@ -474,13 +528,16 @@ def main() -> int:
                              f"{launches} (batch phase {rose})")
     guarded = {w.__name__: (dict(w.branch_launches),
                             int(w.flagged[dev].item()))
-               for w in (merge_network_tgt, merge_network_highfirst)}
+               for w in (merge_network, merge_network_tgt,
+                         merge_network_highfirst)}
     for name, (branches, flagged) in guarded.items():
         if branches["placement"] != launches[name] \
-                or branches["network"] != launches[name] or flagged:
+                or branches["network"] != launches[name] \
+                or (flagged and name != "merge_network"):
             raise AssertionError(f"{name}: branch launches {branches} for "
                                  f"{launches[name]} calls, {flagged} "
                                  "decoder rows failed the guard")
+    tree_chunks = int(chunk_pack.tree_chunks[dev].item())
 
     # --- 4. the batch against the plain path and BENCH_r05 ----------------------
     if decoded.shape != frames.shape or decoded.dtype != np.uint8:
@@ -529,9 +586,11 @@ def main() -> int:
         f"batch's first device decode; {base_bytes} bytes were allocated "
         "before it)")
     log(f"launches during the main path: {launches} (batch phase {rose})")
-    log("decoder merge forms during the main path: " + "; ".join(
+    log("merge forms during the main path: " + "; ".join(
         f"{n} branch launches {b}, rows that failed the guard {f}"
         for n, (b, f) in guarded.items()))
+    log(f"chunk_pack during the main path: {tree_chunks} chunks took the "
+        "tree path")
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))

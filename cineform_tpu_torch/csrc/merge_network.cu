@@ -25,10 +25,27 @@
 // kernel's caller does.  Each level is a pass over the row, about 20 passes
 // at the decoder's 1080p rows (786,432 and 1,304,840 slots).
 //
-// The decoder's two forms place instead, where that provably gives the
-// network's output, and run the network only on the rows where it may not.
-// A slot i moves to d_i = i - rem_i.
+// Each form places instead, where that provably gives the network's output,
+// and runs the network only on the rows where it may not.  A slot i moves
+// to d_i = i - rem_i.
 //
+// - (val, rem) form (low-bit-first), the encoder's concat.  Guard, per row,
+//   with rem[-1] = 0: every step rem[i] - rem[i-1] is 0 or 1, whatever the
+//   values.  Then d is nondecreasing with steps in {0, 1}, d_0 >= -1, and
+//   every rem is below 2^L (rem_i <= i + 1 <= n).  Two slots i < j that
+//   meet after levels 0..k-1 sit at i - (rem_i mod 2^k) = j - (rem_j mod
+//   2^k); with 0 <= rem_j - rem_i <= j - i that forces rem_j - rem_i = j - i
+//   and equal high bits, so slots that meet share their target and their
+//   remaining displacement, and every slot reaches its target with rem 0 or
+//   falls off at 0 (d = -1).  So the settled row is the OR of all slots with
+//   d_i = p at each p >= 0, zeros above d[n-1], rem 0.  Unlike the
+//   decoder's compaction, several nonzero slots share a target: the last
+//   word of a chunk that does not end on a word boundary and the next
+//   chunk's first word, and the runs of one target can be long (the 98
+//   slots of each zero-length chunk of a sparse band land on the previous
+//   tail word).  `_concat_slots` builds rows that pass whenever no chunk of
+//   the band overflowed; an overflowed chunk longer than its M - 1 words
+//   makes the displacements fall, and the row fails.
 // - tgt form (low-bit-first).  Guard, per row, with rem[-1] = 0: every step
 //   rem[i] - rem[i-1] is 0 or 1; a slot whose step is 1 has val = tgt = 0; a
 //   slot whose step is 0 has tgt >= 0.  Then d is nondecreasing with steps
@@ -55,9 +72,14 @@
 //   its padding given the first real slot's displacement.
 //
 // What bounds the placement on this card: device memory.  One read of each
-// slot (8 or 12 bytes; the tgt form reads rem[i-1] and rem[n-1] again, which
-// the caches serve) and one write of each output slot: 16 or 24 bytes a
-// slot in all.  The guard is evaluated in the same pass.  In the tgt form
+// slot (8 or 12 bytes; rem[i-1] and rem[n-1] are read again, which the
+// caches serve) and one write of each output slot: 16 or 24 bytes a slot in
+// all.  The guard is evaluated in the same pass.  In the (val, rem) form the
+// output words are zeroed first (4 bytes a slot more), each warp ORs the
+// slots of each target among its 32 with shuffles, and the last slot of
+// each such run ORs a nonzero result into its target with atomicOr: OR
+// commutes, so the order of the blocks does not matter, and a target shared
+// with the next warp or block gets one atomic from each.  In the tgt form
 // each output slot is written once: by its step-0 slot, or, above d[n-1],
 // as a zero by its own thread.  In the high-bit-first form a block of 1024
 // slots owns the output positions d[i0] .. d[i1]-1 between its first slot's
@@ -65,22 +87,31 @@
 // so no position is written by two blocks; a block whose own slots break
 // the guard writes nothing.
 //
-// Why the network stays.  The encoder's concat (`merge_network`) merges the
-// words of an overflowed chunk, whose displacements break the order; it runs
-// the network always, as before: a shared-memory pass over levels 0..9 (a
-// block loads a tile of kTile slots plus the kHalo = 2^10 - 1 slots to its
-// right: a level pulls from j + 2^k, so the stale right edge grows by 2^k per
-// level and the halo absorbs all of them, in either order of the levels),
-// then one elementwise pass per level above.  A decoder row that fails its
-// guard (no real decode row does) gets the same network from the guarded
-// network kernel: one block per row, which returns at once on a row whose
-// flag is clear, so the placement's output stands with no host
-// synchronisation, and otherwise counts the row and overwrites the row's
-// output with the network's.
+// The network branch, for rows that fail a guard.  A failing row sets its
+// flag in the placement pass; the network then runs on the device with no
+// host synchronisation, returning at once where a row's flag is clear, and
+// overwrites each flagged row's output with the network's, counting the
+// row.  The encoder's concat has such rows (every band of noise content,
+// and the bands of real content with a badly overflowed chunk), so its
+// network spreads each flagged row over the whole card, in launches of as
+// many blocks as the card holds at once, which stride over the work and
+// skip the rows whose flag is clear: one shared-memory pass over levels
+// 0..9 on the flagged rows' tiles (a block loads a tile of kTile slots plus
+// the kHalo = 2^10 - 1 slots to its right: a level pulls from j + 2^k, so
+// the stale right edge grows by 2^k per level and the halo absorbs all of
+// them, in either order of the levels), then a pass per kFuse = 4 levels
+// above (a slot reads 16 slots, 2^k apart, mostly from L2, where the
+// flagged rows fit).  So the branch costs a pass per four levels over the
+// flagged rows only, and 1 + ceil((L - 10) / 4) launches.  Kernel
+// boundaries separate the passes: on the H100 a grid-wide barrier inside
+// one cooperative launch cost more.  The decoder's rows never fail (no real
+// decode row does), so their network is one block per row, which runs a
+// flagged row's levels itself.
 //
 // Entry points, plain C, launched on the caller's stream, each returning
-// cudaGetLastError(): cf_merge_network (low-bit-first), cf_merge_network_tgt
-// (low-bit-first, three arrays), cf_merge_network_highfirst.
+// cudaGetLastError(): cf_merge_network (low-bit-first, the encoder's
+// concat), cf_merge_network_tgt (low-bit-first, three arrays),
+// cf_merge_network_highfirst.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +127,12 @@ constexpr int kPer = (kSpan + kThreads - 1) / kThreads;
 // slots per block of the high-bit-first placement
 constexpr int kPlaceTile = 1024;
 constexpr int kPlacePer = kPlaceTile / kThreads;
+// slots per warp, and per block, of the (val, rem) placement
+constexpr int kConcatWarp = 128;
+constexpr int kConcatTile = kConcatWarp * (kThreads / 32);
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+// network levels a pass above the local ones, in the (val, rem) form
+constexpr int kFuse = 4;
 
 // One level at one slot: (v0, r0, t0) stays unless bit k of r0 is set;
 // (v1, r1, t1), the slot 2^k to the right, arrives if bit k of r1 is set.
@@ -184,35 +221,6 @@ __device__ __forceinline__ void tile_levels(Slots src, Slots dst, int n,
     }
   }
   __syncthreads();
-}
-
-// The local levels of every tile of every row: one block a tile.
-template <bool kTgt>
-__global__ void __launch_bounds__(kThreads)
-local_levels_kernel(Slots src, Slots dst, int n, int levels, int desc) {
-  __shared__ TileSmem<kTgt> sm;
-  const size_t base = (size_t)blockIdx.y * n;
-  tile_levels<kTgt>(at(src, base), at(dst, base), n, blockIdx.x * kTile,
-                    levels, desc != 0, sm);
-}
-
-// Level k of every row, one slot per thread.
-template <bool kTgt>
-__global__ void __launch_bounds__(kThreads)
-global_level_kernel(const uint32_t* __restrict__ val,
-                    const int* __restrict__ rem, const int* __restrict__ tgt,
-                    uint32_t* __restrict__ oval, int* __restrict__ orem,
-                    int* __restrict__ otgt, long long total, int n, int k) {
-  const long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (u >= total) return;
-  const int s = 1 << k;
-  const int i = (int)(u % n);
-  const bool in = (long long)i + s < n;
-  int t = 0;
-  level_step<kTgt>(val[u], rem[u], kTgt ? tgt[u] : 0, in ? val[u + s] : 0u,
-                   in ? rem[u + s] : 0, (kTgt && in) ? tgt[u + s] : 0, k, s,
-                   oval[u], orem[u], t);
-  if (kTgt) otgt[u] = t;
 }
 
 // Level k of one row (a and b point at it), by the whole block.
@@ -362,33 +370,156 @@ place_highfirst_kernel(const uint32_t* __restrict__ val,
   }
 }
 
-// Runs the settled low-bit-first network from `in` into `out`, with `tmp`
-// as scratch of the same size.  The input is only read.
-template <bool kTgt>
-int run_network(Slots in, Slots out, Slots tmp, long long rows, int n,
-                cudaStream_t st) {
-  const long long total = rows * n;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const int levels = network_levels(n, false);
-  const int local = levels < kLocalLevels ? levels : kLocalLevels;
-  const dim3 grid((n + kTile - 1) / kTile, (unsigned)rows);
-  const Slots buf[2] = {out, tmp};
-  cudaError_t err;
-  // local levels, then the global ones; ping-pong so that the last pass
-  // writes `out`
-  int cur = (levels - local) % 2;
-  local_levels_kernel<kTgt><<<grid, kThreads, 0, st>>>(in, buf[cur], n, local,
-                                                       0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int k = local; k < levels; ++k) {
-    const Slots a = buf[cur], b = buf[cur ^ 1];
-    global_level_kernel<kTgt><<<(unsigned)blocks, kThreads, 0, st>>>(
-        a.v, a.r, a.t, b.v, b.r, b.t, total, n, k);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    cur ^= 1;
+// The (val, rem) form's placement and guard into zeroed output words (see
+// the note at the top): a block of kConcatTile slots, each warp 32
+// consecutive slots at a time.  A row that breaks the guard sets its flag;
+// its output is then rewritten by the network, so writes out of the row's
+// range are all that is skipped here.
+__global__ void __launch_bounds__(kThreads)
+place_concat_kernel(const uint32_t* __restrict__ val,
+                    const int* __restrict__ rem, uint32_t* __restrict__ oval,
+                    int* __restrict__ orem, int* __restrict__ flags, int n) {
+  const size_t base = (size_t)blockIdx.y * n;
+  const int lane = threadIdx.x & 31;
+  const int w0 = blockIdx.x * kConcatTile + (threadIdx.x >> 5) * kConcatWarp;
+  bool ok = true;
+#pragma unroll
+  for (int e = 0; e < kConcatWarp / 32; ++e) {
+    const int i = w0 + e * 32 + lane;
+    const bool in = i < n;
+    uint32_t v = in ? val[base + i] : 0u;
+    const int r = in ? rem[base + i] : 0;
+    // the step from the slot before: the lane below's rem, or memory
+    int rp = __shfl_up_sync(kFullMask, r, 1);
+    if (lane == 0) rp = (i == 0 || !in) ? 0 : rem[base + i - 1];
+    const long long step = (long long)r - rp;
+    ok = ok && (!in || step == 0 || step == 1);
+    // the target; beyond the row, one that no slot of the row has (a row
+    // that breaks the guard may wrap here: it is rewritten)
+    const int d = in ? (int)((long long)i - r) : n;
+    // OR of the slots of each run of one target, up to this lane
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const uint32_t pv = __shfl_up_sync(kFullMask, v, s);
+      const int pd = __shfl_up_sync(kFullMask, d, s);
+      if (lane >= s && pd == d) v |= pv;
+    }
+    const int nd = __shfl_down_sync(kFullMask, d, 1);
+    if (in && (lane == 31 || nd != d) && v != 0u && d >= 0 && d < n) {
+      atomicOr(oval + base + d, v);
+    }
+    if (in) orem[base + i] = 0;
   }
-  return (int)cudaSuccess;
+  if (__any_sync(kFullMask, !ok) && lane == 0) flags[blockIdx.y] = 1;
+}
+
+// Levels k .. k + F - 1 of the network at slot i of the row at `base`,
+// from a into b: the 2^F slots i + j 2^k are read, through L2, each beyond
+// the row a zero, as in the network's fill; level k + m then merges, at
+// each j that is a multiple of 2^(m+1), the value at j with the one 2^m on.
+template <int F>
+__device__ __forceinline__ void fused_levels(Slots a, Slots b, size_t base,
+                                             int i, int n, int k) {
+  const int s = 1 << k;
+  uint32_t v[1 << F];
+  int r[1 << F];
+#pragma unroll
+  for (int j = 0; j < (1 << F); ++j) {
+    const long long p = (long long)i + (long long)j * s;
+    v[j] = p < n ? __ldcg(a.v + base + p) : 0u;
+    r[j] = p < n ? __ldcg(a.r + base + p) : 0;
+  }
+  int t = 0;
+#pragma unroll
+  for (int m = 0; m < F; ++m) {
+#pragma unroll
+    for (int j = 0; j < (1 << F); j += 2 << m) {
+      level_step<false>(v[j], r[j], 0, v[j + (1 << m)], r[j + (1 << m)], 0,
+                        k + m, s << m, v[j], r[j], t);
+    }
+  }
+  b.v[base + i] = v[0];
+  b.r[base + i] = r[0];
+}
+
+// Whether any row is flagged, the same answer in every block; block 0
+// adds the flagged rows to `*flagged` when `count`.
+__device__ __forceinline__ bool any_flagged(const int* __restrict__ flags,
+                                            int rows, int* flagged,
+                                            bool count) {
+  int mine = 0;
+  for (int r = threadIdx.x; r < rows; r += kThreads) mine += flags[r] != 0;
+  if (count && blockIdx.x == 0 && mine) atomicAdd(flagged, mine);
+  return __syncthreads_or(mine) != 0;
+}
+
+// The local levels of the (val, rem) form's network over the tiles of the
+// flagged rows, by resident blocks striding over (row, tile); counts the
+// flagged rows.
+__global__ void __launch_bounds__(kThreads)
+concat_local_kernel(Slots in, Slots out, const int* __restrict__ flags,
+                    int* flagged, int rows, int n, int levels) {
+  __shared__ TileSmem<false> sm;
+  if (!any_flagged(flags, rows, flagged, true)) return;
+  const int tiles = (n + kTile - 1) / kTile;
+  for (long long w = blockIdx.x; w < (long long)rows * tiles; w += gridDim.x) {
+    const int row = (int)(w / tiles);
+    if (flags[row] == 0) continue;
+    const size_t base = (size_t)row * n;
+    tile_levels<false>(at(in, base), at(out, base), n,
+                       (int)(w % tiles) * kTile, levels, false, sm);
+  }
+}
+
+// Levels k .. k + f - 1 (f <= kFuse) of the (val, rem) form's network over
+// the flagged rows, by resident threads striding over the slots of all
+// rows and skipping those of rows whose flag is clear.
+__global__ void __launch_bounds__(kThreads)
+concat_levels_kernel(Slots a, Slots b, const int* __restrict__ flags,
+                     int rows, int n, int k, int f) {
+  if (!any_flagged(flags, rows, nullptr, false)) return;
+  // gridDim.x * kThreads and n are below 2^31, so a step stays in 32 bits
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned u0 = blockIdx.x * kThreads + threadIdx.x;
+  int row = (int)(u0 / (unsigned)n), i = (int)(u0 % (unsigned)n);
+  while (row < rows) {
+    if (flags[row]) {
+      const size_t base = (size_t)row * n;
+      switch (f) {
+        case 1: fused_levels<1>(a, b, base, i, n, k); break;
+        case 2: fused_levels<2>(a, b, base, i, n, k); break;
+        case 3: fused_levels<3>(a, b, base, i, n, k); break;
+        default: fused_levels<kFuse>(a, b, base, i, n, k); break;
+      }
+    }
+    const unsigned next = (unsigned)i + stride;
+    row += (int)(next / (unsigned)n);
+    i = (int)(next % (unsigned)n);
+  }
+}
+
+// How many blocks of 256 threads with the local levels' shared memory the
+// current device holds at once; asked once per device.  Both network
+// kernels launch that many.
+cudaError_t resident_blocks(int* blocks) {
+  static int known[64];
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool cached = device >= 0 && device < 64;
+  if (cached && known[device]) {
+    *blocks = known[device];
+    return cudaSuccess;
+  }
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, concat_local_kernel, kThreads, 0)) != cudaSuccess) {
+    return err;
+  }
+  *blocks = sms * per_sm;
+  if (cached) known[device] = *blocks;
+  return cudaSuccess;
 }
 
 bool bad_shape(long long rows, int n) {
@@ -403,21 +534,45 @@ Slots slots(const void* v, const int* r, const int* t) {
 
 // val, out_val, tmp_val: (rows, n) int32 read and written as uint32; rem,
 // out_rem, tmp_rem (and tgt, out_tgt, tmp_tgt): (rows, n) int32.  tmp_* is
-// scratch of the same size.
+// scratch of the same size.  flags: (rows,) int32, zero on entry, set for
+// each row that fails its guard; flagged: one int32 to which the number of
+// those rows is added.
 extern "C" int cf_merge_network(const void* val, const int* rem,
                                 void* out_val, int* out_rem, void* tmp_val,
-                                int* tmp_rem, long long rows, int n,
-                                void* stream) {
+                                int* tmp_rem, int* flags, int* flagged,
+                                long long rows, int n, void* stream) {
   if (bad_shape(rows, n)) return (int)cudaErrorInvalidValue;
-  return run_network<false>(slots(val, rem, nullptr),
-                            slots(out_val, out_rem, nullptr),
-                            slots(tmp_val, tmp_rem, nullptr), rows, n,
-                            (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if ((err = cudaMemsetAsync(out_val, 0, (size_t)rows * n * sizeof(uint32_t),
+                             st)) != cudaSuccess) {
+    return (int)err;
+  }
+  const dim3 grid((n + kConcatTile - 1) / kConcatTile, (unsigned)rows);
+  place_concat_kernel<<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)val, rem, (uint32_t*)out_val, out_rem, flags, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // the network on the flagged rows: local levels, then up to kFuse levels
+  // a pass; ping-pong so that the last pass writes `out`
+  int blocks = 0;
+  if ((err = resident_blocks(&blocks)) != cudaSuccess) return (int)err;
+  const int levels = network_levels(n, false);
+  const int local = levels < kLocalLevels ? levels : kLocalLevels;
+  const Slots buf[2] = {slots(out_val, out_rem, nullptr),
+                        slots(tmp_val, tmp_rem, nullptr)};
+  int cur = ((levels - local + kFuse - 1) / kFuse) % 2;
+  concat_local_kernel<<<blocks, kThreads, 0, st>>>(
+      slots(val, rem, nullptr), buf[cur], flags, flagged, (int)rows, n, local);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int k = local; k < levels; k += kFuse) {
+    const int f = levels - k < kFuse ? levels - k : kFuse;
+    concat_levels_kernel<<<blocks, kThreads, 0, st>>>(
+        buf[cur], buf[cur ^ 1], flags, (int)rows, n, k, f);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    cur ^= 1;
+  }
+  return (int)cudaSuccess;
 }
-
-// The decoder's two forms also take flags: (rows,) int32, zero on entry, set
-// for each row that fails its guard; and flagged: one int32 to which the
-// number of those rows is added.
 extern "C" int cf_merge_network_tgt(const void* val, const int* rem,
                                     const int* tgt, void* out_val,
                                     int* out_rem, int* out_tgt, void* tmp_val,

@@ -301,6 +301,60 @@ def tree_pack(bits: torch.Tensor, sizes: torch.Tensor,
     return bits32(buf[..., 0, :]), lens[..., 0], overflow
 
 
+# Where no level of the tree truncates, its root is the codes laid end to
+# end (the argument is in csrc/chunk_pack.cu): the chunk_pack kernel packs
+# such chunks by a prefix sum.  These are the plain versions of that
+# criterion and that packing, for the tests.
+
+def _node_lengths(sizes: torch.Tensor):
+    """Per tree level, (…, N >> k) int64 node lengths: the sums of sizes
+    over aligned groups of 2^k elements, k = 1 .. log2(N)."""
+    *lead, n = sizes.shape
+    return [sizes.reshape(*lead, n >> k, 1 << k).sum(-1)
+            for k in range(1, n.bit_length())]
+
+
+def _pack_fits(sizes: torch.Tensor, max_code_bits: int = 27,
+               cap_bits_per_elem: int = 8) -> torch.Tensor:
+    """(…,) bool: the chunks on which `tree_pack` truncates nothing, so
+    that it equals `_pack_direct`: every size in [0, 32] and every node of
+    every level within its words."""
+    n = sizes.shape[-1]
+    fits = ((sizes >= 0) & (sizes <= 32)).all(dim=-1)
+    for (w, _, _), lens in zip(pack_schedule(max_code_bits, cap_bits_per_elem,
+                                             n), _node_lengths(sizes)):
+        fits &= (lens <= 32 * w).all(dim=-1)
+    return fits
+
+
+def _pack_direct(bits: torch.Tensor, sizes: torch.Tensor,
+                 max_code_bits: int = 27, cap_bits_per_elem: int = 8):
+    """`tree_pack` by a prefix sum: each left-aligned code ORed in at its
+    bit offset, the overflow flag from the node lengths.  Equal to
+    `tree_pack` on the chunks where `_pack_fits` holds (every chunk whose
+    flag is clear, at 27-bit codes); lengths and flags equal on every
+    chunk."""
+    *lead, n = bits.shape
+    schedule = pack_schedule(max_code_bits, cap_bits_per_elem, n)
+    w = schedule[-1][0]
+    size = sizes.to(torch.int64)
+    code = torch.where((size > 0) & (size <= 32),
+                       (u32(bits) << (32 - size).clamp(0, 31)) & MASK32, 0)
+    off = torch.cumsum(size, dim=-1) - size
+    word, sh = off >> 5, off & 31
+    spill = torch.where(sh > 0, (code << (32 - sh)) & MASK32, 0)
+    # disjoint bits, so a sum is an OR; words past the last fall in w
+    out = torch.zeros((*lead, w + 1), dtype=torch.int64, device=bits.device)
+    out.scatter_add_(-1, word.clamp(0, w), code >> sh)
+    out.scatter_add_(-1, (word + 1).clamp(0, w), spill)
+    overflow = torch.zeros(lead, dtype=torch.bool, device=bits.device)
+    for (_, cap_bits, check), lens in zip(schedule, _node_lengths(sizes)):
+        if check:
+            overflow |= (lens > cap_bits).any(dim=-1)
+    return (bits32(out[..., :w]), sizes.sum(dim=-1, dtype=torch.int32),
+            overflow)
+
+
 # ---------------------------------------------------------------------------
 # Stage 3b: across-chunk assembly by monotone-displacement compaction
 # ---------------------------------------------------------------------------
@@ -363,8 +417,8 @@ def _settle_network_highfirst(val: torch.Tensor, rem: torch.Tensor):
     return val, rem
 
 
-# The decoder's placements: on rows that pass a guard, each network above
-# settles to a placement, slot i at i - rem[i] (the argument is in
+# The placements: on rows that pass a guard, each network above settles to
+# a placement, slot i at i - rem[i] (the argument is in
 # csrc/merge_network.cu).  The kernels evaluate the guard and place in one
 # pass and run the network on the other rows; these are the plain versions
 # of the guards and placements, for the tests.
@@ -376,6 +430,31 @@ def _place(val: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor):
     out = torch.zeros((*val.shape[:-1], n + 1), dtype=val.dtype,
                       device=val.device)
     return out.scatter_(-1, idx, torch.where(keep, val, 0))[..., :n]
+
+
+def _concat_guard(rem: torch.Tensor) -> torch.Tensor:
+    """(…,) bool: the rows on which `_settle_network` equals
+    `_place_concat`: with rem[-1] = 0, every step rem[i] - rem[i-1] is 0 or
+    1, whatever the values."""
+    step = rem.to(torch.int64) - F.pad(rem.to(torch.int64), (1, 0))[..., :-1]
+    return ((step == 0) | (step == 1)).all(dim=-1)
+
+
+def _place_concat(val: torch.Tensor, rem: torch.Tensor):
+    """The settled (val, rem) of a row that passes `_concat_guard`: at each
+    target p >= 0 the OR of the slots with i - rem[i] = p, zeros elsewhere,
+    rem 0.  Such slots are contiguous, so a segmented OR scan over each run
+    of one target, then its last slot placed."""
+    n = val.shape[-1]
+    dest = torch.arange(n, dtype=rem.dtype, device=rem.device) - rem
+    k = 1
+    while k < n:   # the zero fill of the first k slots ORs in nothing
+        same = _shift_last(dest, -k) == dest
+        val = val | torch.where(same, _shift_last(val, -k), 0)
+        k <<= 1
+    last = F.pad(dest[..., 1:] != dest[..., :-1], (0, 1), value=True)
+    return (_place(val, dest, last & (dest >= 0) & (dest < n)),
+            torch.zeros_like(rem))
 
 
 def _compact_guard(val: torch.Tensor, rem: torch.Tensor,

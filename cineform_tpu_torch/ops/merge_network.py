@@ -14,14 +14,14 @@ Each returns its plain version's settled arrays bit for bit.  For tensors
 on the CPU it runs that plain version; for CUDA tensors it launches its
 kernel, or raises.  Each counts its own launches.
 
-The decoder's two forms run in two branches on the card, one launch each:
-a one-pass placement that also checks, per row, the condition under which
-the network equals it (plain versions: `entropy.device._compact_guard`
-with `_place_compact`, `_spread_guard` with `_place_spread`), and the
-network itself, which returns at once on the rows that passed.  The device
-counts the rows that failed in `<wrapper>.flagged[device]`, with no host
-synchronisation; `<wrapper>.branch_launches` counts each branch's
-launches.
+Each form runs in two branches on the card: a one-pass placement that
+also checks, per row, the condition under which the network equals it
+(plain versions: `entropy.device._concat_guard` with `_place_concat`,
+`_compact_guard` with `_place_compact`, `_spread_guard` with
+`_place_spread`), and the network itself, which returns at once on the
+rows that passed.  The device counts the rows that failed in
+`<wrapper>.flagged[device]`, with no host synchronisation;
+`<wrapper>.branch_launches` counts each branch's launches.
 """
 
 from __future__ import annotations
@@ -34,10 +34,8 @@ from cineform_tpu_torch import _build
 
 _P = ctypes.c_void_p
 _ROWS_N = (ctypes.c_longlong, ctypes.c_int)
-# val, rem, out_val, out_rem, tmp_val, tmp_rem; rows, n
-_ARGTYPES = (_P,) * 6 + _ROWS_N
 # val, rem, out_val, out_rem, tmp_val, tmp_rem, flags, flagged; rows, n
-_ARGTYPES_HIGHFIRST = (_P,) * 8 + _ROWS_N
+_ARGTYPES = (_P,) * 8 + _ROWS_N
 # val, rem, tgt, out_*, tmp_* (three each), flags, flagged; rows, n
 _ARGTYPES_TGT = (_P,) * 11 + _ROWS_N
 
@@ -53,27 +51,21 @@ def _check(name: str, *arrays: tuple[str, torch.Tensor]) -> None:
                          "empty")
 
 
-def _run(wrapper, symbol: str, argtypes: tuple, *arrays: torch.Tensor,
-         guarded: bool = False):
-    """Launch `symbol` on (arrays, outputs, scratch, [flags, flagged,]
-    rows, n)."""
+def _run(wrapper, symbol: str, argtypes: tuple, *arrays: torch.Tensor):
+    """Launch `symbol` on (arrays, outputs, scratch, flags, flagged, rows,
+    n)."""
     n = arrays[0].shape[-1]
     rows = arrays[0].numel() // n
     outs = [torch.empty_like(a) for a in arrays]
     tmps = [torch.empty_like(a) for a in arrays]
-    guard = ()
-    if guarded:
-        dev = arrays[0].device
-        if dev not in wrapper.flagged:
-            wrapper.flagged[dev] = torch.zeros(1, dtype=torch.int32,
-                                               device=dev)
-        guard = (torch.zeros(rows, dtype=torch.int32, device=dev),
-                 wrapper.flagged[dev])
+    dev = arrays[0].device
+    if dev not in wrapper.flagged:
+        wrapper.flagged[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    flags = torch.zeros(rows, dtype=torch.int32, device=dev)
     _build.launch(wrapper, "merge_network", symbol, argtypes, *arrays,
-                  *outs, *tmps, *guard, rows, n)
-    if guarded:
-        for branch in wrapper.branch_launches:
-            wrapper.branch_launches[branch] += 1
+                  *outs, *tmps, flags, wrapper.flagged[dev], rows, n)
+    for branch in wrapper.branch_launches:
+        wrapper.branch_launches[branch] += 1
     return tuple(outs)
 
 
@@ -99,7 +91,7 @@ def merge_network_tgt(val: torch.Tensor, rem: torch.Tensor,
     if not _build.uses_kernel("merge_network_tgt", val):
         return _settle_network_tgt(val, rem, tgt)
     return _run(merge_network_tgt, "cf_merge_network_tgt", _ARGTYPES_TGT,
-                val, rem, tgt, guarded=True)
+                val, rem, tgt)
 
 
 def merge_network_highfirst(val: torch.Tensor, rem: torch.Tensor):
@@ -111,14 +103,12 @@ def merge_network_highfirst(val: torch.Tensor, rem: torch.Tensor):
     if not _build.uses_kernel("merge_network_highfirst", val):
         return _settle_network_highfirst(val, rem)
     return _run(merge_network_highfirst, "cf_merge_network_highfirst",
-                _ARGTYPES_HIGHFIRST, val, rem, guarded=True)
+                _ARGTYPES, val, rem)
 
 
-#: kernel launches since the last reset (the CPU path does not count)
-merge_network.launches = 0
-merge_network_tgt.launches = 0
-merge_network_highfirst.launches = 0
-for _w in (merge_network_tgt, merge_network_highfirst):
+for _w in (merge_network, merge_network_tgt, merge_network_highfirst):
+    #: kernel launches since the last reset (the CPU path does not count)
+    _w.launches = 0
     #: launches of each branch since the last reset
     _w.branch_launches = {"placement": 0, "network": 0}
     #: per CUDA device, a (1,) int32 tensor: rows that failed the guard
@@ -130,7 +120,6 @@ def reset_counts() -> None:
     """Set every launch count and flagged-row count of the module to 0."""
     for w in (merge_network, merge_network_tgt, merge_network_highfirst):
         w.launches = 0
-    for w in (merge_network_tgt, merge_network_highfirst):
         w.branch_launches = dict.fromkeys(w.branch_launches, 0)
         for t in w.flagged.values():
             t.zero_()

@@ -9,6 +9,7 @@ JAX.  Every comparison is exact.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -119,6 +120,38 @@ def test_tree_pack_matches_jax_and_pallas(seed, density):
         assert o.any()
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_tree_pack(cap):
+    return jax.jit(functools.partial(jdev.tree_pack, cap_bits_per_elem=cap))
+
+
+@pytest.mark.parametrize("cap", [8, 12, 27])
+@pytest.mark.parametrize("density", [0.0, 0.2, 0.5, 0.9])
+def test_pack_direct_matches_tree_pack_and_jax(density, cap):
+    """The chunk_pack kernel's prefix-sum packing (csrc/chunk_pack.cu)
+    equals the tree, the port's and the JAX package's, on every chunk whose
+    flag is clear, and on every chunk where no level truncates; lengths and
+    flags equal everywhere.  The last chunk of each row ends exactly on a
+    word boundary."""
+    vals = _sparse(10 + cap, (2, 4 * 256), density)
+    bits, sizes = tdev.band_codes(_t(vals), tdev.encode_tables(17))
+    bits, sizes = bits.reshape(2, 4, 256), sizes.reshape(2, 4, 256)
+    sizes[:, -1] = torch.where(torch.arange(256) < 64, 8, 0)   # 512 bits
+    w, ln, o = tdev.tree_pack(bits, sizes, cap_bits_per_elem=cap)
+    jw, jl, jo = _jax_tree_pack(cap)(jnp.asarray(bits.numpy()),
+                                     jnp.asarray(sizes.numpy()))
+    dw, dl, do = tdev._pack_direct(bits, sizes, cap_bits_per_elem=cap)
+    fits = tdev._pack_fits(sizes, cap_bits_per_elem=cap)
+    assert torch.equal(dl, ln) and torch.equal(do, o)
+    np.testing.assert_array_equal(dl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(do.numpy(), np.asarray(jo))
+    assert fits[~o].all()
+    assert torch.equal(dw[fits], w[fits])
+    np.testing.assert_array_equal(_u32(dw[fits].numpy()),
+                                  _u32(np.asarray(jw)[fits.numpy()]))
+    assert (ln[:, -1] == 512).all() and fits[:, -1].all()
+
+
 def _monotone_case(rng, shape):
     """tests/test_pallas_merge.py's inputs: displacements nondecreasing
     with {0,1} steps, random words."""
@@ -196,6 +229,67 @@ def test_overflowed_chunks_break_monotone_displacements():
     np.testing.assert_array_equal(r.numpy(), np.asarray(pr))
     assert not np.array_equal(_u32(v.numpy()),
                               _direct_settle(_u32(val.numpy()), rem.numpy()))
+
+
+def _concat_case(seed, rows, chunks, density):
+    """The encoder's network inputs for a band group, and each chunk's
+    overflow flag."""
+    vals = _sparse(seed, (rows, chunks * 256), density)
+    bits, sizes = tdev.band_codes(_t(vals), tdev.encode_tables(17))
+    bufs, lens, ovf = tdev.tree_pack(bits.reshape(rows, chunks, 256),
+                                     sizes.reshape(rows, chunks, 256),
+                                     cap_bits_per_elem=12)
+    val, rem, _ = tdev._concat_slots(bufs, lens)
+    return val, rem, ovf
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.2])
+def test_concat_guard_holds_and_placement_matches_on_clear_rows(density):
+    """On the encoder's rows with no overflowed chunk the merge_network
+    kernel's guard holds, and its placement equals the network, the port's
+    and the Pallas kernel's in interpret mode."""
+    val, rem, ovf = _concat_case(3, 3, 40, density)
+    assert not ovf.any()
+    assert tdev._concat_guard(rem).all()
+    pv, pr = tdev._place_concat(val, rem)
+    v, r = tdev._settle_network(val, rem)
+    assert torch.equal(pv, v) and torch.equal(pr, r)
+    kv, kr = pallas_merge(jnp.asarray(_u32(val.numpy())),
+                          jnp.asarray(rem.numpy()), lowfirst=True,
+                          interpret=True)
+    np.testing.assert_array_equal(_u32(pv.numpy()), np.asarray(kv))
+    np.testing.assert_array_equal(pr.numpy(), np.asarray(kr))
+
+
+@pytest.mark.parametrize("seed,density", [(2, 0.9), (4, 0.5), (5, 0.7)])
+def test_concat_guard_fails_exactly_where_displacements_fall(seed, density):
+    """Seed 2 at density 0.9 is the input of
+    test_overflowed_chunks_break_monotone_displacements.  The guard fails
+    on the rows whose displacements fall and holds on the others, where
+    the placement equals the network though chunks overflowed."""
+    val, rem, ovf = _concat_case(seed, 3, 9, density)
+    assert ovf.any()
+    falls = (rem[..., 1:] < rem[..., :-1]).any(dim=-1)
+    guard = tdev._concat_guard(rem)
+    assert torch.equal(guard, ~falls)
+    v, r = tdev._settle_network(val, rem)
+    pv, pr = tdev._place_concat(val, rem)
+    for i in range(3):
+        assert (torch.equal(pv[i], v[i]) and torch.equal(pr[i], r[i])) \
+            == bool(guard[i])
+
+
+@pytest.mark.parametrize("n", [1, 4096, 65536 + 17])
+def test_place_concat_matches_network_on_monotone_rows(n):
+    """tests/test_pallas_merge.py's rows (random words, rem[0] in {0, 1})
+    pass the guard, and the placement ORs the slots of a target as the
+    network does."""
+    val, rem = _monotone_case(np.random.default_rng(n + 1), (2, n))
+    val, rem = _t(val.view(np.int32)), _t(rem)
+    assert tdev._concat_guard(rem).all()
+    pv, pr = tdev._place_concat(val, rem)
+    v, r = tdev._settle_network(val, rem)
+    assert torch.equal(pv, v) and torch.equal(pr, r)
 
 
 @pytest.mark.parametrize("cap", [2, 8, 27])

@@ -93,14 +93,26 @@ def _spread_inputs(seed, rows, chunks, nout):
 
 
 def _guarded_rows(seed, rows, n, form, bad=()):
-    """Rows for the decoder's merge forms, with random values, that pass the
-    form's guard (`tgt`: rem steps of 0 or 1 from 0, zeros on the +1 steps;
-    `highfirst`: rem nonincreasing, below 2^L), except the rows in `bad`,
-    each broken at one slot in one of three ways.  Returns int32 tensors
-    (val, rem, tgt) or (val, rem)."""
+    """Rows for the guarded merge forms, with random values, that pass the
+    form's guard (`concat`: rem steps of 0 or 1 from 0; `tgt`: the same,
+    with zeros on the +1 steps; `highfirst`: rem nonincreasing, below
+    2^L), except the rows in `bad`, each broken at one slot in one of three
+    ways.  Returns int32 tensors (val, rem, tgt) or (val, rem)."""
     rng = np.random.default_rng(seed)
     val = rng.integers(-(1 << 31), 1 << 31, (rows, n))
-    if form == "tgt":
+    if form == "concat":
+        steps = rng.random((rows, n)) < rng.random((rows, 1))
+        rem = np.cumsum(steps, axis=1)
+        for r in bad:
+            i = rng.integers(n)
+            if r % 3 == 0:
+                rem[r, i:] += 2                 # a step of 2 or 3
+            elif r % 3 == 1:                    # a fall of 1
+                rem[r, i:] -= rem[r, i] - (rem[r, i - 1] if i else 0) + 1
+            else:
+                rem[r, -1] += 3                 # a last step of 3 or 4
+        arrays = (val, rem)
+    elif form == "tgt":
         steps = rng.random((rows, n)) < rng.random((rows, 1))
         rem = np.cumsum(steps, axis=1)
         tgt = rng.integers(0, 1 << 20, (rows, n))
@@ -293,18 +305,78 @@ def test_chunk_pack_kernel_matches_plain(cuda, seed, density, cap):
         assert want[2].any()
 
 
+def _boundary_codes(seed, chunks):
+    """(bits, sizes) of chunks whose codes end exactly on a word boundary
+    (at 64, 512 and 3072 bits, the last a full chunk of 12-bit codes) and
+    of empty chunks, with random bits above each size."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(-(1 << 31), 1 << 31, (chunks, 256)).astype(np.int32)
+    sizes = np.zeros((chunks, 256), np.int32)
+    for c in range(chunks):
+        kind = c % 4
+        if kind == 0:
+            sizes[c, rng.choice(256, 4, replace=False)] = 16
+        elif kind == 1:
+            sizes[c, :64] = 8
+        elif kind == 2:
+            sizes[c] = 12
+    return torch.from_numpy(bits), torch.from_numpy(sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,cap", [("mixed", 12), ("mixed", 8),
+                                      ("boundary", 12), ("boundary", 27)])
+def test_chunk_pack_kernel_prefix_and_tree_chunks(cuda, case, cap):
+    """One call mixing chunks that fit (packed by the prefix sum) with
+    overflowed ones (packed by the tree), or chunks that end on a word
+    boundary: every chunk equals the tree, and the device counts exactly
+    the chunks that do not fit."""
+    if case == "mixed":
+        bits, sizes = _codes(5, (4, 9 * 256), 0.3)
+        noisy = _codes(6, (4, 9 * 256), 0.95)
+        keep = torch.rand((4, 9, 1), generator=torch.Generator().manual_seed(
+            cap)) < 0.5
+        bits = torch.where(keep, bits.reshape(4, 9, 256),
+                           noisy[0].reshape(4, 9, 256))
+        sizes = torch.where(keep, sizes.reshape(4, 9, 256),
+                            noisy[1].reshape(4, 9, 256))
+    else:
+        bits, sizes = _boundary_codes(cap, 37)
+    fits = tdev._pack_fits(sizes, cap_bits_per_elem=cap)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    before = chunk_pack.tree_chunks.get(dev)
+    before = 0 if before is None else int(before.item())
+    got = chunk_pack(bits.contiguous().to(cuda), sizes.contiguous().to(cuda),
+                     cap_bits_per_elem=cap)
+    torch.cuda.synchronize()
+    want = tdev.tree_pack(bits, sizes, cap_bits_per_elem=cap)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    assert int(chunk_pack.tree_chunks[dev].item()) == before + int(
+        (~fits).sum())
+    if case == "mixed":
+        assert want[2].any() and fits.any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,rows,chunks,density", [(0, 3, 40, 0.5),
                                                       (1, 2, 9, 0.02),
                                                       (2, 4, 64, 0.9)])
 def test_merge_network_kernel_matches_plain(cuda, seed, rows, chunks,
                                             density):
+    """The encoder's concat rows (at density 0.9 overflowed chunks make
+    the displacements fall): the rows that fail the guard, and only they,
+    go through the network."""
     val, rem = _concat_inputs(seed, rows, chunks, density)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flagged = _flagged(merge_network, dev)
     got_v, got_r = merge_network(val.to(cuda), rem.to(cuda))
     torch.cuda.synchronize()
     want_v, want_r = tdev._settle_network(val, rem)
     assert torch.equal(got_v.cpu(), want_v)
     assert torch.equal(got_r.cpu(), want_r)
+    assert _flagged(merge_network, dev) == flagged + int(
+        (~tdev._concat_guard(rem)).sum())
 
 
 @pytest.mark.gpu
@@ -357,8 +429,13 @@ def _flagged(wrapper, dev) -> int:
     return 0 if t is None else int(t.item())
 
 
+GUARDED = {"concat": (merge_network, "merge"),
+           "tgt": (merge_network_tgt, "merge_tgt"),
+           "highfirst": (merge_network_highfirst, "merge_highfirst")}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["tgt", "highfirst"])
+@pytest.mark.parametrize("form", list(GUARDED))
 @pytest.mark.parametrize("seed,rows,n,bad", [
     (0, 4, 5000, ()),                 # every row placed
     (1, 3, 70001, (0, 1, 2)),         # every row through the network
@@ -366,16 +443,16 @@ def _flagged(wrapper, dev) -> int:
     (3, 5, 2049, (0, 2)),
     (4, 2, 1, ())])
 def test_guarded_merge_kernels_match_plain(cuda, form, seed, rows, n, bad):
-    """The decoder's two forms on rows that pass their guard, rows that do
-    not, and both in one call: each equals its plain network, and the
-    device counts exactly the rows that failed."""
+    """Each merge form on rows that pass its guard, rows that do not, and
+    both in one call: each equals its plain network, and the device counts
+    exactly the rows that failed."""
     arrays = _guarded_rows(seed, rows, n, form, bad)
     on_card = [a.to(cuda) for a in arrays]
-    wrapper = merge_network_tgt if form == "tgt" else merge_network_highfirst
+    wrapper, which = GUARDED[form]
     dev = on_card[0].device
     flagged = _flagged(wrapper, dev)
     branches = dict(wrapper.branch_launches)
-    got, want = _merge("merge_" + form, *on_card)
+    got, want = _merge(which, *on_card)
     torch.cuda.synchronize()
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g.cpu(), w)
