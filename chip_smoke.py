@@ -9,15 +9,18 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 1. builds the CUDA kernels from `cineform_tpu_torch/csrc/`, one nvcc per
    source, all at once;
 2. holds each kernel against its plain PyTorch version, on the card, at
-   the shapes of a batch-8 1080p encode (every forward DWT level of luma
-   and chroma; every chunk_pack and merge_network call of the band
+   the shapes of a batch-8 1080p encode (the forward DWT's three launches:
+   level 1 from the YUY2 bytes and the two three-channel levels, on that
+   batch and on the 1080p golden's frame, and the single-plane level on
+   the batch's luma; every chunk_pack and merge_network call of the band
    groups, one frame being seeded noise so that chunks overflow, which
    chunk_pack packs by its tree and whose rows merge_network sends
    through its network: the counts of both must equal those of the plain
    criteria `_pack_fits` and `_concat_guard`) and of a batch-8 1080p
    decode (the merge_network_tgt compaction and the
    merge_network_highfirst spread of every band row class), and times
-   both with CUDA events;
+   both with CUDA events, the DWT's launches also by their device time
+   from torch.profiler, apart from the wrapper's host path;
 3. drives the main path through `IntraCodec`: the 1080p golden sample
    (`tests/golden/samples/s_1920x1080_q6_p1`) encoded, decoded with host
    entropy and decoded on the device (`decode_batch_device`), each byte
@@ -33,7 +36,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    over the card's memory rate, or its operations over the float32 rate,
    whichever is larger) and, where one PyTorch call computes the same
    function, that call's time, go beside its time;
-4. fails unless every kernel was launched by that main-path run, and, for
+4. fails unless every kernel was launched by that main-path run (the DWT
+   3 times a batch, the single-plane level never), and, for
    the three merge forms, unless both branches were launched, and no
    decoder row failed its guard (encoder rows may: their count is
    printed, as is the count of chunks chunk_pack packed by its tree);
@@ -57,6 +61,7 @@ from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,6 +99,34 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, tmp_dir: str, reps: int = 5) -> float:
+    """Mean device milliseconds of one call of `fn`: the durations of the
+    kernels, memsets and copies it ran, from torch.profiler over `reps`
+    calls after a warm-up, without the host path around them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=tmp_dir) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sum(e["dur"] for e in events if e.get("cat") in (
+        "kernel", "gpu_memset", "gpu_memcpy")) / 1e3 / reps
+
+
+def flat(tree) -> tuple:
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(t for part in tree for t in flat(part))
+    return (tree,)
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -160,7 +193,9 @@ def main() -> int:
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
-    from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
+    from cineform_tpu_torch.ops import dwt_forward as dwt
+    from cineform_tpu_torch.ops.dwt_forward import (
+        GROUPS, dwt_forward_groups, dwt_forward_level, dwt_forward_yuy2)
     from cineform_tpu_torch.ops import merge_network as merges
     from cineform_tpu_torch.ops.merge_network import (
         merge_network, merge_network_highfirst, merge_network_tgt)
@@ -184,13 +219,21 @@ def main() -> int:
     # plain versions' arithmetic (the DWT's two 2-6 filters, saturation and
     # quantization; chunk_pack's 8 merge levels; one placement for each
     # merge form, the encoder's with its segmented OR)
+    dwt_src = "cineform_tpu_torch/csrc/dwt_forward.cu"
     kernels = {
-        "dwt_forward_level": dict(
-            wrapper=dwt_forward_level, route="cuda",
-            source="cineform_tpu_torch/csrc/dwt_forward.cu",
+        "dwt_forward_yuy2": dict(
+            wrapper=dwt_forward_yuy2, route="cuda", source=dwt_src,
             replaces="cineform_tpu/ops/pallas_dwt2.py:99",
             also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
+            mode="level 1 from the YUY2 bytes (the unpack fused), Y, V, U "
+                 "in one launch, bands in the entropy coder's layout",
             ops_per_elem=40),
+        "dwt_forward_groups": dict(
+            wrapper=dwt_forward_groups, route="cuda", source=dwt_src,
+            replaces="cineform_tpu/ops/pallas_dwt2.py:99",
+            also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
+            mode="levels 2 and 3, Y, V, U in one launch a level, bands in "
+                 "the entropy coder's layout", ops_per_elem=40),
         "chunk_pack": dict(
             wrapper=chunk_pack, route="cuda",
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
@@ -240,24 +283,39 @@ def main() -> int:
     for k in kernels.values():
         k.update(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=None)
+    for name in ("dwt_forward_yuy2", "dwt_forward_groups"):
+        kernels[name].update(device_ms=0.0, bytes=0)
 
-    def compare(name, call, plain, what, inputs, ops=None, library=None):
+    def compare(name, call, plain, what, inputs, ops=None, library=None,
+                tally=True):
         """Kernel against plain version on `inputs`, both timed; the bound
         counts each input read and each output written once, and `ops`
-        (default: the kernel's ops per input element)."""
+        (default: the kernel's ops per input element).  With `tally`, the
+        times and the bound add to the kernel's line."""
         got, want = call(), plain()
         torch.cuda.synchronize()
+        got, want = flat(got), flat(want)
         err = max_abs_err(torch, got, want)
         ms, plain_ms = cuda_ms(torch, call), cuda_ms(torch, plain)
         k = kernels[name]
         if ops is None:
             ops = k["ops_per_elem"] * inputs[0].numel()
-        bound, k["bound_by"] = bound_ms(nbytes(inputs) + nbytes(got), ops)
+        moved = nbytes(inputs) + nbytes(got)
+        bound, by = bound_ms(moved, ops)
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["ms"] += ms
-        k["plain_ms"] += plain_ms
-        k["bound_ms"] += bound
         extra = ""
+        if tally:
+            k["bound_by"] = by
+            k["ms"] += ms
+            k["plain_ms"] += plain_ms
+            k["bound_ms"] += bound
+        if "device_ms" in k:
+            dms = device_ms(torch, call, _build.BUILD_DIR)
+            extra += (f", device {dms:.4f} ms (the bound is "
+                      f"{100 * bound / dms:.1f}% of it)")
+            if tally:
+                k["device_ms"] += dms
+                k["bytes"] += moved
         if library is not None:
             lib_ms = cuda_ms(torch, library)
             k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
@@ -270,24 +328,66 @@ def main() -> int:
         return got
 
     log(f"kernel checks, batch {BATCH} at {WIDTH}x{HEIGHT} q4 "
-        "(tolerance 0; times are CUDA-event medians of 5)")
+        "(tolerance 0; times are CUDA-event medians of 5, device times "
+        "torch.profiler means of 5)")
+
+    def dwt_levels(c, frames_dev, what, tally):
+        """The DWT's three launches on `frames_dev`, each against its plain
+        version; returns the kernels' levels."""
+        t = c.tables()
+        precision = c.params.precision
+
+        def quants(lev):
+            return [t.band_quant[ch][lev] for ch in range(3)]
+
+        levels = [compare(
+            "dwt_forward_yuy2",
+            lambda: dwt_forward_yuy2(frames_dev, precision, t.prescale[0],
+                                     quants(0)),
+            lambda: dwt.plain_groups(ops.unpack_yuy2(frames_dev, precision),
+                                     t.prescale[0], quants(0)),
+            f"{what} level 1 {tuple(frames_dev.shape)} quants {quants(0)}",
+            (frames_dev,), tally=tally)]
+        for lev in (1, 2):
+            y, c2 = levels[-1][:2]
+            ps = t.prescale[lev]
+            out = compare(
+                "dwt_forward_groups",
+                lambda: dwt_forward_groups((y, c2), ps, quants(lev)),
+                lambda: dwt.plain_groups((y[:, 0], c2[:, 0], c2[:, 1]), ps,
+                                         quants(lev)),
+                f"{what} level {lev + 1} {tuple(y.shape)} + "
+                f"{tuple(c2.shape)} prescale {ps} quants {quants(lev)}",
+                (y, c2), ops=40 * (y.numel() + c2.numel()), tally=tally)
+            levels.append(out)
+        return [(out[:2], out[2:]) for out in levels]
+
     x = codec._upload(check)
-    coeffs = []
-    for ch, plane in enumerate(ops.unpack_yuy2(x, codec.params.precision)):
-        ll, bands = plane.contiguous(), []
-        for lev in range(3):
-            ps, q = tables.prescale[lev], tables.band_quant[ch][lev]
-
-            def level(fn):
-                low, highs = fn(ll, ps, q)
-                return (low, *highs)
-
-            out = compare("dwt_forward_level", lambda: level(dwt_forward_level),
-                          lambda: level(ops.dwt2d_forward),
-                          f"ch{ch} level {lev + 1} {tuple(ll.shape)} "
-                          f"prescale {ps} quant {q}", (ll,))
-            ll, bands = out[0], bands + [out[1:]]
-        coeffs.append((ll, bands))
+    levels = dwt_levels(codec, x, f"batch {BATCH}", True)
+    gx = codec._upload(base[None])
+    dwt_levels(IntraCodec(WIDTH, HEIGHT, GOLDEN_QUALITY, device=dev), gx,
+               f"{GOLDEN} frame", False)
+    # the single-plane entry point (the same device code, off the main
+    # path) on the batch's luma
+    ll = ops.unpack_yuy2(x, codec.params.precision)[0].contiguous()
+    for lev in range(3):
+        ps, q = tables.prescale[lev], tables.band_quant[0][lev]
+        got = flat(dwt_forward_level(ll, ps, q))
+        err = max_abs_err(torch, got, flat(ops.dwt2d_forward(ll, ps, q)))
+        log(f"  dwt_forward_level luma level {lev + 1} {tuple(ll.shape)}: "
+            f"max_abs_err {err}")
+        if err:
+            raise AssertionError(f"dwt_forward_level luma level {lev + 1}: "
+                                 f"kernel disagrees with its plain version "
+                                 f"(max abs err {err})")
+        ll = got[0]
+    for name in ("dwt_forward_yuy2", "dwt_forward_groups"):
+        k = kernels[name]
+        log(f"  {name}, a batch: kernel {k['ms']:.4f} ms (CUDA events), "
+            f"device {k['device_ms']:.4f} ms (profiler), bound "
+            f"{k['bound_ms']:.4f} ms ({k['bytes']} bytes, "
+            f"{100 * k['bound_ms'] / k['device_ms']:.1f}% of the device "
+            f"time), {1 if name == 'dwt_forward_yuy2' else 2} launches")
 
     def counted(counter, fn) -> int:
         """What one call of `fn` adds to a device counter."""
@@ -298,9 +398,8 @@ def main() -> int:
     codes = edev.encode_tables(17)
     any_chunk_ovf, tree_total, flagged_total = False, 0, 0
     for lev in range(3):
-        for grp in codec._band_groups(coeffs):
-            bits, sizes = edev.chunk_codes(
-                codec.group_bands(coeffs, lev, grp), codes)
+        for grp, bands in zip(GROUPS, levels[lev][1]):
+            bits, sizes = edev.chunk_codes(codec.group_bands(bands), codes)
             what = f"level {lev + 1} channels {grp}"
             tree = counted(chunk_pack.tree_chunks.setdefault(
                 dev, torch.zeros(1, dtype=torch.int32, device=dev)),
@@ -361,7 +460,8 @@ def main() -> int:
     if not flagged_total:
         raise AssertionError("no encoder row failed the guard: the network "
                              "branch of merge_network was not checked")
-    del x, coeffs, bits, sizes, packed, val, rem, ok_val, ok_rem, dest, index
+    del x, gx, ll, levels, bits, sizes, packed, val, rem, ok_val, ok_rem
+    del dest, index
 
     # decode shapes: the band row classes of the main path's batch
     rows = codec._decode_rows_args(codec.encode_batch_device(frames))
@@ -435,6 +535,7 @@ def main() -> int:
     # --- 3. the main path -------------------------------------------------------
     for k in kernels.values():
         k["wrapper"].launches = 0
+    dwt_forward_level.launches = 0
     merges.reset_counts()
     chunk_pack.tree_chunks[dev].zero_()
 
@@ -526,6 +627,13 @@ def main() -> int:
     if not all(rose.values()) or not all(launches.values()):
         raise AssertionError(f"a kernel was not launched by the main path: "
                              f"{launches} (batch phase {rose})")
+    if (rose["dwt_forward_yuy2"], rose["dwt_forward_groups"],
+            dwt_forward_level.launches) != (4, 8, 0):
+        raise AssertionError(f"the 4 batches launched the DWT {rose} times "
+                             f"and the single-plane level "
+                             f"{dwt_forward_level.launches}: expected 3 "
+                             "launches a batch, none of the single-plane "
+                             "level")
     guarded = {w.__name__: (dict(w.branch_launches),
                             int(w.flagged[dev].item()))
                for w in (merge_network, merge_network_tgt,
@@ -606,7 +714,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],
-         **{key: k[key] for key in ("also_replaces", "mode") if key in k},
+         **{key: k[key] for key in ("also_replaces", "mode", "device_ms")
+            if key in k},
          "launches": launches[n], "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -3,9 +3,10 @@
 Port of `cineform_tpu.models.intra.IntraCodec` on its YUY2 path.  The
 split between device and host is the JAX package's:
 
-- encode: YUY2 unpack and the 3-level production DWT with quantization
-  (kernel `ops.dwt_forward`), then per (wavelet level, channel group) the
-  band entropy encoder (`entropy.device.encode_band_arrays`, kernels
+- encode: the 3-level production DWT with quantization, level 1 read from
+  the YUY2 bytes, one launch a level for all three channels, the bands
+  written in the entropy coder's layout (kernels `ops.dwt_forward`), then
+  per (wavelet level, channel group) the band entropy encoder (`entropy.device.encode_band_arrays`, kernels
   `ops.chunk_pack` and `ops.merge_network`) on the device; the host
   appends band-end codes (`finish_band_bytes`) and writes the CFHD sample
   (`intra_host.write_sample`).  A band that overflows its device capacity
@@ -34,7 +35,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch.entropy import device as edev
@@ -42,7 +42,8 @@ from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.entropy import native as entropy_native
 from cineform_tpu_torch.models import intra_host
 from cineform_tpu_torch.ops import intra_transform as ops
-from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
+from cineform_tpu_torch.ops.dwt_forward import (GROUPS, dwt_forward_groups,
+                                                dwt_forward_yuy2)
 from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
 
@@ -107,45 +108,49 @@ class IntraCodec:
 
     # --- encode ------------------------------------------------------------
 
+    def forward_levels(self, frames: torch.Tensor):
+        """(B, H, 2W) uint8 YUY2 on the device -> per level, finest first,
+        (lows, highs) by channel group (`GROUPS`): lows (B, G, h, w) the
+        lowpass planes, highs (B, G, 3, h, pitch) the quantized (LH, HL,
+        HH) bands in the entropy coder's layout.  On a card, one launch a
+        level: level 1 reads the frames' bytes."""
+        t = self.tables()
+
+        def quants(k):
+            return [t.band_quant[ch][k] for ch in range(3)]
+
+        levels = [dwt_forward_yuy2(frames, self.params.precision,
+                                   t.prescale[0], quants(0))]
+        for k in (1, 2):
+            levels.append(dwt_forward_groups(levels[-1][0], t.prescale[k],
+                                             quants(k)))
+        return levels
+
+    @staticmethod
+    def _channels(levels):
+        """`forward_levels`' buffers -> per-channel (lowpass, [(LH, HL, HH)]
+        finest first), views into them."""
+        out = [None] * 3
+        for g, grp in enumerate(GROUPS):
+            for i, ch in enumerate(grp):
+                bands = []
+                for lows, highs in levels:
+                    w = lows[g].shape[-1]
+                    bands.append(tuple(highs[g][:, i, b, :, :w]
+                                       for b in range(3)))
+                out[ch] = (levels[-1][0][g][:, i], bands)
+        return out
+
     def forward(self, frames: torch.Tensor):
         """(B, H, 2W) uint8 YUY2 on the device -> per-channel (lowpass,
         [(LH, HL, HH)] finest first), int32."""
-        t = self.tables()
-        out = []
-        for ch, plane in enumerate(ops.unpack_yuy2(frames,
-                                                   self.params.precision)):
-            ll = plane.contiguous()
-            bands = []
-            for k in range(3):
-                ll, highs = dwt_forward_level(ll, t.prescale[k],
-                                              t.band_quant[ch][k])
-                bands.append(highs)
-            out.append((ll, bands))
-        return out
-
-    def _band_groups(self, coeffs) -> list[list[int]]:
-        """Group channels of equal band shape (the chroma pair of 4:2:2) so
-        each distinct band shape runs the entropy coder once."""
-        groups: list[list[int]] = []
-        for ch in range(len(coeffs)):
-            shape = coeffs[ch][1][0][0].shape[-2:]
-            if groups and coeffs[groups[-1][0]][1][0][0].shape[-2:] == shape:
-                groups[-1].append(ch)
-            else:
-                groups.append([ch])
-        return groups
+        return self._channels(self.forward_levels(frames))
 
     @staticmethod
-    def group_bands(coeffs, k: int, grp: list[int]) -> torch.Tensor:
-        """The level-k bands of a channel group as the entropy coder's
-        input: (B, G, 3, h * pitch) int32, each band's rows zero-padded to
-        the band pitch the reference entropy-codes."""
-        h, w = coeffs[grp[0]][1][k][0].shape[-2:]
-        pitch = intra_host.align16_pixels(w)
-        trios = torch.stack([torch.stack(coeffs[ch][1][k], dim=1)
-                             for ch in grp], dim=1)
-        trios = F.pad(trios, (0, pitch - w))
-        return trios.reshape(trios.shape[0], len(grp), 3, h * pitch)
+    def group_bands(highs: torch.Tensor) -> torch.Tensor:
+        """A level's bands of a channel group, (B, G, 3, h, pitch), as the
+        entropy coder's input: (B, G, 3, h * pitch) int32."""
+        return highs.flatten(-2)
 
     def forward_packed(self, frames: torch.Tensor, cap_bits: int = 8):
         """(B, H, 2W) uint8 YUY2 on the device -> per-channel (lowpass,
@@ -154,13 +159,13 @@ class IntraCodec:
         total_bits and overflow each (B, 3, ...), and the level's quantized
         (LH, HL, HH) coefficients, each (B, h, w), which the host re-encodes
         where a band overflowed."""
-        coeffs = self.forward(frames)
-        groups = self._band_groups(coeffs)
+        levels = self.forward_levels(frames)
+        coeffs = self._channels(levels)
         packed_by_ch: list[list] = [[] for _ in coeffs]
-        for k in range(3):
-            for grp in groups:
+        for k, (_, highs) in enumerate(levels):
+            for grp, bands in zip(GROUPS, highs):
                 words, nbits, ovf = edev.encode_band_arrays(
-                    self.group_bands(coeffs, k, grp), codeset=17,
+                    self.group_bands(bands), codeset=17,
                     cap_bits_per_elem=cap_bits)
                 for gi, ch in enumerate(grp):
                     packed_by_ch[ch].append((words[:, gi], nbits[:, gi],
@@ -326,7 +331,7 @@ class IntraCodec:
     #: dims plane >> (k + 1).  4:2:2 luma and chroma differ in width, so
     #: they decode as separate classes.
     _DECODE_CLASSES = tuple((k, planes) for k in range(3)
-                            for planes in ((0,), (1, 2)))
+                            for planes in GROUPS)
 
     #: floor of a class's row capacity in 32-bit chunks; capacities double
     #: from here to fit the class's longest band payload

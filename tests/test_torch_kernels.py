@@ -23,7 +23,10 @@ from cineform_tpu_torch.entropy import device as tdev
 from cineform_tpu_torch.entropy import device_decode as tdd
 from cineform_tpu_torch.ops import intra_transform
 from cineform_tpu_torch.ops.chunk_pack import chunk_pack
-from cineform_tpu_torch.ops.dwt_forward import dwt_forward_level
+from cineform_tpu_torch.ops import dwt_forward as dwt
+from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
+                                                dwt_forward_level,
+                                                dwt_forward_yuy2)
 from cineform_tpu_torch.ops.merge_network import (merge_network,
                                                   merge_network_highfirst,
                                                   merge_network_tgt)
@@ -31,8 +34,15 @@ from cineform_tpu_torch.ops.merge_network import (merge_network,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WRAPPERS = (dwt_forward_level, chunk_pack, merge_network,
-            merge_network_tgt, merge_network_highfirst)
+WRAPPERS = (dwt_forward_yuy2, dwt_forward_groups, dwt_forward_level,
+            chunk_pack, merge_network, merge_network_tgt,
+            merge_network_highfirst)
+DWTS = ("dwt", "yuy2", "groups")
+#: (LH, HL, HH) quantizers of Y, V, U at each level (quality 4's, then
+#: others that reach q <= 1 and large q)
+LEVEL_QUANTS = ([(24, 24, 36), (12, 12, 6), (12, 12, 6)],
+                [(6, 6, 3), (1, 1, 1), (24, 24, 12)],
+                [(36, 24, 2), (3, 3, 3), (255, 2, 1)])
 MERGES = ("merge", "merge_tgt", "merge_highfirst")
 
 
@@ -157,6 +167,17 @@ def test_wrappers_run_the_plain_versions_on_cpu():
     assert torch.equal(ll, wll)
     assert all(torch.equal(a, b) for a, b in zip(highs, whighs))
 
+    frames = _frames(3, 2, 24, 48)
+    got = dwt_forward_yuy2(frames, 10, 0, LEVEL_QUANTS[0])
+    want = dwt.plain_groups(intra_transform.unpack_yuy2(frames, 10), 0,
+                            LEVEL_QUANTS[0])
+    assert _equal(got, want)
+    lows = want[0]
+    got = dwt_forward_groups(lows, 2, LEVEL_QUANTS[1])
+    want = dwt.plain_groups((lows[0][:, 0], lows[1][:, 0], lows[1][:, 1]),
+                            2, LEVEL_QUANTS[1])
+    assert _equal(got, want)
+
     bits, sizes = _codes(1, (2, 256), 0.9)
     got = chunk_pack(bits, sizes)
     want = tdev.tree_pack(bits, sizes, cap_bits_per_elem=12)
@@ -169,11 +190,38 @@ def test_wrappers_run_the_plain_versions_on_cpu():
     assert [w.launches for w in WRAPPERS] == counts
 
 
-@pytest.mark.parametrize("which", ["dwt", "pack", *MERGES])
+def _frames(seed, b, h, w) -> torch.Tensor:
+    """(b, h, 2w) uint8 YUY2 frames of seeded noise."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, h, 2 * w)).astype(np.uint8))
+
+
+def _equal(got, want) -> bool:
+    """Nested tuples of tensors, equal in shape, dtype and value (on the
+    CPU)."""
+    if isinstance(want, torch.Tensor):
+        return got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    return len(got) == len(want) and all(
+        _equal(g, w) for g, w in zip(got, want))
+
+
+def _lows(b, h, w, dtype=torch.int32, device=None):
+    """Zero group lowpass buffers of a (b, h, w) luma plane."""
+    return (torch.zeros((b, 1, h, w), dtype=dtype, device=device),
+            torch.zeros((b, 2, h, w // 2), dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES])
 def test_wrappers_raise_on_wrong_dtype(which):
     with pytest.raises(TypeError):
         if which == "dwt":
             dwt_forward_level(torch.zeros((8, 8), dtype=torch.int64))
+        elif which == "yuy2":
+            dwt_forward_yuy2(torch.zeros((1, 8, 32), dtype=torch.int32), 10,
+                             0, LEVEL_QUANTS[0])
+        elif which == "groups":
+            dwt_forward_groups(_lows(1, 8, 16, torch.int64), 0,
+                               LEVEL_QUANTS[0])
         elif which == "pack":
             chunk_pack(torch.zeros((1, 256), dtype=torch.int64),
                        torch.zeros((1, 256), dtype=torch.int32))
@@ -182,7 +230,7 @@ def test_wrappers_raise_on_wrong_dtype(which):
             _merge(which, torch.zeros(64, dtype=torch.float32), z, z)
 
 
-@pytest.mark.parametrize("which", ["dwt", "pack", *MERGES])
+@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES])
 def test_wrappers_do_not_fall_back_off_the_cpu(which):
     """A tensor on a device without a kernel raises instead of taking the
     plain version."""
@@ -191,6 +239,13 @@ def test_wrappers_do_not_fall_back_off_the_cpu(which):
         if which == "dwt":
             dwt_forward_level(torch.zeros((8, 8), dtype=torch.int32,
                                           device=meta))
+        elif which == "yuy2":
+            dwt_forward_yuy2(torch.zeros((1, 8, 32), dtype=torch.uint8,
+                                         device=meta), 10, 0,
+                             LEVEL_QUANTS[0])
+        elif which == "groups":
+            dwt_forward_groups(_lows(1, 8, 16, device=meta), 0,
+                               LEVEL_QUANTS[0])
         elif which == "pack":
             z = torch.zeros((1, 256), dtype=torch.int32, device=meta)
             chunk_pack(z, z)
@@ -202,6 +257,18 @@ def test_wrappers_do_not_fall_back_off_the_cpu(which):
 def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         dwt_forward_level(torch.zeros((7, 8), dtype=torch.int32))
+    q = LEVEL_QUANTS[0]
+    for shape in ((1, 8, 36), (1, 7, 32), (1, 4, 32), (1, 8, 16), (8, 32)):
+        with pytest.raises(ValueError):             # W % 4, H odd, small
+            dwt_forward_yuy2(torch.zeros(shape, dtype=torch.uint8), 10, 0, q)
+    with pytest.raises(ValueError):                 # a triple missing
+        dwt_forward_yuy2(torch.zeros((1, 8, 32), dtype=torch.uint8), 10, 0,
+                         q[:2])
+    y, c = _lows(1, 8, 16)
+    for lows in ((y, c[:, :1]), (y, c[..., :4]), _lows(1, 8, 10),
+                 _lows(1, 7, 16), (y,)):
+        with pytest.raises(ValueError):
+            dwt_forward_groups(lows, 0, q)
     with pytest.raises(ValueError):
         chunk_pack(torch.zeros((1, 128), dtype=torch.int32),
                    torch.zeros((1, 128), dtype=torch.int32))
@@ -287,6 +354,85 @@ def test_dwt_forward_kernel_matches_plain(cuda, b, h, w, prescale, quant):
     assert torch.equal(ll.cpu(), wll)
     for got, want in zip(highs, whighs):
         assert torch.equal(got.cpu(), want)
+
+
+#: (batch, H, W, levels) of YUY2 frames for the fused levels, covering the
+#: cases of DWT_CASES: a batch-2 1080p frame (band height 135 at level 3),
+#: narrow planes (the quirk, with W % 8 == 0 at level 1 chroma of W = 32
+#: and level 2 luma, without it at W = 12, 112 and 48), the minimum plane
+#: (6x6 chroma at level 3 of 48x24), ragged column tiles and band pitches
+#: (W = 600, 112), and rows that are not a multiple of 16 bytes (YUY2 at
+#: W = 100, int32 at level 2 chroma of W = 104)
+FRAME_CASES = [
+    (2, 1080, 1920, 3),
+    (1, 48, 64, 3),
+    (1, 48, 112, 3),
+    (3, 24, 48, 3),
+    (2, 24, 32, 2),
+    (1, 60, 600, 2),
+    (2, 30, 100, 1),
+    (1, 24, 104, 2),
+    (2, 270, 480, 1),
+    (1, 12, 12, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prescale", [0, 2])
+@pytest.mark.parametrize("b,h,w,levels", FRAME_CASES)
+def test_dwt_forward_fused_kernels_match_plain(cuda, b, h, w, levels,
+                                               prescale):
+    """Level 1 from the YUY2 bytes and the three-channel levels after it,
+    each against its plain version on the same input."""
+    frames = _frames(h * w + prescale, b, h, w)
+    launches = (dwt_forward_yuy2.launches, dwt_forward_groups.launches)
+    got = dwt_forward_yuy2(frames.to(cuda), 10, prescale, LEVEL_QUANTS[0])
+    torch.cuda.synchronize()
+    want = dwt.plain_groups(intra_transform.unpack_yuy2(frames, 10),
+                            prescale, LEVEL_QUANTS[0])
+    assert _equal(got, want)
+    for k in range(1, levels):
+        lows = want[0]
+        got = dwt_forward_groups(tuple(t.to(cuda) for t in lows),
+                                 2 - prescale, LEVEL_QUANTS[k])
+        torch.cuda.synchronize()
+        want = dwt.plain_groups((lows[0][:, 0], lows[1][:, 0],
+                                 lows[1][:, 1]), 2 - prescale,
+                                LEVEL_QUANTS[k])
+        assert _equal(got, want)
+    assert (dwt_forward_yuy2.launches, dwt_forward_groups.launches) == (
+        launches[0] + 1, launches[1] + levels - 1)
+
+
+@pytest.mark.gpu
+def test_forward_packed_on_the_card_takes_three_dwt_launches(cuda,
+                                                            monkeypatch):
+    """On the card `forward_packed` launches the DWT 3 times, reads the
+    YUY2 bytes (no unpack) and hands the entropy coder the kernels' band
+    buffers (no stack or pad), and equals the plain path."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+    from cineform_tpu_torch.testframes import yuy2_frame
+
+    w, h = 320, 240
+    frames = torch.from_numpy(np.stack([
+        np.frombuffer(yuy2_frame(w, h, p), np.uint8).reshape(h, 2 * w)
+        for p in (1, 2)]))
+    want = IntraCodec(w, h, 4, device=torch.device("cpu")).forward_packed(
+        frames)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain stage ran on the card's path")
+
+    monkeypatch.setattr(intra_transform, "unpack_yuy2", refuse)
+    monkeypatch.setattr(dwt, "plain_groups", refuse)
+    monkeypatch.setattr(dwt, "group_layout", refuse)
+    wrappers = (dwt_forward_yuy2, dwt_forward_groups, dwt_forward_level)
+    before = [f.launches for f in wrappers]
+    got = IntraCodec(w, h, 4, device=cuda).forward_packed(frames.to(cuda))
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [before[0] + 1, before[1] + 2,
+                                              before[2]]
+    assert _equal(got, want)
 
 
 @pytest.mark.gpu
@@ -484,6 +630,13 @@ def test_wrappers_reject_non_contiguous_cuda_tensors(cuda):
     x = torch.zeros((16, 16), dtype=torch.int32, device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         dwt_forward_level(x)
+
+
+@pytest.mark.gpu
+def test_dwt_forward_yuy2_rejects_misaligned_frames(cuda):
+    buf = torch.zeros(1 + 8 * 32, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="4-byte"):
+        dwt_forward_yuy2(buf[1:].view(1, 8, 32), 10, 0, LEVEL_QUANTS[0])
 
 
 @pytest.mark.gpu

@@ -53,6 +53,7 @@ def main() -> int:
     from cineform_tpu_torch.entropy import device as edev
     from cineform_tpu_torch.models.intra import IntraCodec
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
+    from cineform_tpu_torch.ops.dwt_forward import GROUPS
     from cineform_tpu_torch.ops.merge_network import merge_network
     from cineform_tpu_torch.testframes import yuy2_frame
 
@@ -72,7 +73,7 @@ def main() -> int:
     if args.noise:
         frames[-1] = np.random.default_rng(0).integers(0, 256, base.shape,
                                                        dtype=np.uint8)
-    coeffs = codec.forward(codec._upload(frames))
+    levels = codec.forward_levels(codec._upload(frames))
     codes = edev.encode_tables(17)
 
     def counter(wrapper, name):
@@ -113,9 +114,8 @@ def main() -> int:
 
     totals = collections.defaultdict(lambda: [0.0, 0.0])
     for lev in range(3):
-        for grp in codec._band_groups(coeffs):
-            bits, sizes = edev.chunk_codes(
-                codec.group_bands(coeffs, lev, grp), codes)
+        for grp, bands in zip(GROUPS, levels[lev][1]):
+            bits, sizes = edev.chunk_codes(codec.group_bands(bands), codes)
             what = f"level {lev + 1} channels {grp}"
             w, d = measure(f"chunk_pack {what} {tuple(bits.shape)}",
                            lambda: chunk_pack(bits, sizes), chunk_pack,
