@@ -5,14 +5,18 @@
 // Replaces the TPU kernels `dwt2d_forward_pallas2`
 // (cineform_tpu/ops/pallas_dwt2.py:99, kernel `_make_kernel` :37) and
 // `dwt2d_forward_pallas` (cineform_tpu/ops/pallas_dwt.py:151, kernel :83),
-// which compute one level of one int32 plane, and at level 1 also the YUY2
-// unpack in front of them (`unpack_yuy2`).  Each entry point equals its
-// plain PyTorch version in `ops/dwt_forward.py` bit for bit.
+// which compute one level of one int32 plane, and at level 1 of the YUY2
+// encode also the unpack in front of them (`unpack_yuy2`).  Each entry
+// point equals its plain PyTorch version in `ops/dwt_forward.py` bit for
+// bit.
 //
-// What bounds it on this card: device memory bytes.  Level 1 reads a byte
-// per pixel and writes 16 bytes per output quad; levels 2 and 3 read and
-// write an int32 per pixel; the ~40 integer operations per input pixel
-// stay far below the card's integer rate.
+// What bounds it on this card: device memory bytes.  YUY2 level 1 reads a
+// byte per pixel and writes 16 bytes per output quad; the int32 levels
+// (YUY2 levels 2 and 3, every level of RGB 4:4:4 and RGBA 4:4:4:4) read
+// and write an int32 per pixel; the ~40 integer operations per input
+// pixel stay far below the card's integer rate.  At a batch of 8 1080p
+// RG48 frames the three levels must move 522,547,200 bytes, 0.156 ms at
+// the H100 SXM's published 3.35 TB/s (700 W).
 //
 // What the design does about it:
 // - Level 1 reads the YUY2 bytes.  One block takes a tile of 128 luma and
@@ -20,11 +24,12 @@
 //   channels, so each byte is read from device memory once, and the
 //   channels are separated, shifted to the codec's precision and
 //   prescaled as the filter reads them.  No int32 plane is built.
-// - One launch per level for all three channels.  The planes' pointers,
-//   widths, band layout and quantizers go by value in one struct; at
-//   levels 2 and 3 the grid is (channel, frame, tile) flattened, with the
-//   tile's height chosen so that the smallest level still gives every SM
-//   several blocks.
+// - One launch per level for all the channels: Y, V, U, or the 3 or 4
+//   full-width planes of RGB and RGBA.  The planes' pointers, widths, band
+//   layout and quantizers go by value in one struct; on the int32 path
+//   the grid is (channel, frame, tile) flattened, with the tile's height
+//   chosen so that the smallest level still gives every SM several
+//   blocks.
 // - Staged 16-byte loads.  A block copies the input rows its tile needs
 //   (its output rows' six-row taps) into shared memory with cp.async, 16
 //   bytes a copy where the row is 16-byte aligned and 4 bytes otherwise
@@ -46,7 +51,9 @@
 // Entry points (plain C, launched on the caller's stream, returning
 // cudaGetLastError()): cf_dwt_forward_yuy2 (level 1 from YUY2 frames),
 // cf_dwt_forward_groups (one more level of Y, V, U held in their channel
-// groups' buffers), cf_dwt_forward_level (one level of one int32 plane).
+// groups' buffers), cf_dwt_forward_planes (one level of a group of up to
+// four equal int32 planes: RGB, RGBA), cf_dwt_forward_level (one level of
+// one int32 plane).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +61,7 @@
 namespace {
 
 constexpr int kCols = 128;                  // output columns of a plane a tile
+constexpr int kMaxPlanes = 4;               // planes a launch
 constexpr int kMaxRows = 16;                // output rows a tile, at most
 constexpr int kIntThreads = kCols;          // levels 2-3: one plane a block
 constexpr int kYuy2Threads = 2 * kCols;     // level 1: Y, then V, then U
@@ -78,7 +86,7 @@ struct Plane {
 };
 
 struct Level {
-  Plane p[3];
+  Plane p[kMaxPlanes];
   int nplanes;
   int h;                      // input height of every plane
   int ps;                     // prescale shift
@@ -388,31 +396,26 @@ int launch(Level& a, bool yuy2, int batch, int h, int ps, int shift,
   return (int)cudaGetLastError();
 }
 
-// The planes of a level held in channel groups (Y), (V, U): lowpass
-// (B, G, ho, wo) and bands (B, G, 3, ho, pitch); wy is the luma input
-// width, the chroma planes are half as wide.
-void set_group_outputs(Level& a, int* ll_y, int* ll_c, int* bands_y,
-                       int* bands_c, int h, int wy, int pitch_y,
-                       int pitch_c) {
-  const long long ho = h / 2, woy = wy / 2, woc = wy / 4;
-  a.p[0].ll = ll_y;
-  a.p[0].ll_bstride = ho * woy;
-  a.p[0].bands = bands_y;
-  a.p[0].band_stride = ho * pitch_y;
-  a.p[0].bands_bstride = 3 * ho * pitch_y;
-  a.p[0].pitch = pitch_y;
-  a.p[0].w = wy;
-  for (int g = 0; g < 2; ++g) {
-    Plane& p = a.p[1 + g];
-    p.ll = ll_c + g * ho * woc;
-    p.ll_bstride = 2 * ho * woc;
-    p.bands = bands_c + g * 3 * ho * pitch_c;
-    p.band_stride = ho * pitch_c;
-    p.bands_bstride = 2 * 3 * ho * pitch_c;
-    p.pitch = pitch_c;
-    p.w = wy / 2;
+// Planes first .. first + g - 1 of a level: one channel group, its input
+// (batch, g, h, w) int32 at x (null at YUY2 level 1, which reads the
+// frames), its lowpass (batch, g, h/2, w/2) and its bands
+// (batch, g, 3, h/2, pitch).
+void set_group(Level& a, int first, int g, const int* x, int* ll,
+               int* bands, int h, int w, int pitch) {
+  const long long ho = h / 2, wo = w / 2;
+  for (int i = 0; i < g; ++i) {
+    Plane& p = a.p[first + i];
+    p.src = x ? x + (long long)i * h * w : nullptr;
+    p.src_bstride = (long long)g * h * w;
+    p.ll = ll + i * ho * wo;
+    p.ll_bstride = g * ho * wo;
+    p.bands = bands + i * 3 * ho * pitch;
+    p.band_stride = ho * pitch;
+    p.bands_bstride = g * 3 * ho * pitch;
+    p.pitch = pitch;
+    p.w = w;
   }
-  a.nplanes = 3;
+  a.nplanes = first + g;
 }
 
 }  // namespace
@@ -428,7 +431,8 @@ extern "C" int cf_dwt_forward_yuy2(const uint8_t* frames, int* ll_y,
                                    int qu2, void* stream) {
   if (w % 4) return (int)cudaErrorInvalidValue;
   Level a = {};
-  set_group_outputs(a, ll_y, ll_c, bands_y, bands_c, h, w, pitch_y, pitch_c);
+  set_group(a, 0, 1, nullptr, ll_y, bands_y, h, w, pitch_y);
+  set_group(a, 1, 2, nullptr, ll_c, bands_c, h, w / 2, pitch_c);
   for (int i = 0; i < 3; ++i) {
     a.p[i].src = frames;
     a.p[i].src_bstride = (long long)h * 2 * w;
@@ -450,16 +454,33 @@ extern "C" int cf_dwt_forward_groups(const int* x_y, const int* x_c,
                                      int qu2, void* stream) {
   if (w % 4) return (int)cudaErrorInvalidValue;
   Level a = {};
-  set_group_outputs(a, ll_y, ll_c, bands_y, bands_c, h, w, pitch_y, pitch_c);
-  a.p[0].src = x_y;
-  a.p[0].src_bstride = (long long)h * w;
-  for (int g = 0; g < 2; ++g) {
-    a.p[1 + g].src = x_c + (long long)g * h * (w / 2);
-    a.p[1 + g].src_bstride = 2LL * h * (w / 2);
-  }
+  set_group(a, 0, 1, x_y, ll_y, bands_y, h, w, pitch_y);
+  set_group(a, 1, 2, x_c, ll_c, bands_c, h, w / 2, pitch_c);
   set_quant(a.p[0], qy0, qy1, qy2);
   set_quant(a.p[1], qv0, qv1, qv2);
   set_quant(a.p[2], qu0, qu1, qu2);
+  return launch(a, false, batch, h, prescale, 0, (cudaStream_t)stream);
+}
+
+// One level of a group of `planes` (1..4) equal int32 planes
+// (batch, planes, h, w), one quantizer triple each (q holds 12, the
+// unused ones ignored), into lowpass (batch, planes, h/2, w/2) and bands
+// (batch, planes, 3, h/2, pitch).
+extern "C" int cf_dwt_forward_planes(const int* x, int* ll, int* bands,
+                                     int batch, int planes, int h, int w,
+                                     int pitch, int prescale, int q00,
+                                     int q01, int q02, int q10, int q11,
+                                     int q12, int q20, int q21, int q22,
+                                     int q30, int q31, int q32,
+                                     void* stream) {
+  if (planes < 1 || planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  const int q[kMaxPlanes][3] = {
+      {q00, q01, q02}, {q10, q11, q12}, {q20, q21, q22}, {q30, q31, q32}};
+  Level a = {};
+  set_group(a, 0, planes, x, ll, bands, h, w, pitch);
+  for (int i = 0; i < planes; ++i) {
+    set_quant(a.p[i], q[i][0], q[i][1], q[i][2]);
+  }
   return launch(a, false, batch, h, prescale, 0, (cudaStream_t)stream);
 }
 

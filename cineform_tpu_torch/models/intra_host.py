@@ -1,11 +1,11 @@
 """Host (NumPy) side of the CFHD intra sample: its layout and writer.
 
 A copy of the parts of the JAX package's `models/intra_host.py` that the
-YUY2 intra codec uses: the band pitch, the encode-time metadata block, the
-sample writer for a 4:2:2 intra frame, the host band encoder (the C++
-coder, for bands that overflow the device's capacity) and the decoder's
-lowpass bias.  Its samples equal the reference SDK's byte for byte
-(tests/golden/samples).
+intra codec uses: the band pitch, the encode-time metadata block, the
+sample writer for a 4:2:2, RGB 4:4:4 or RGBA 4:4:4:4 intra frame, the host
+band encoder (the C++ coder, for bands that overflow the device's
+capacity) and the decoder's lowpass bias.  Its samples equal the reference
+SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
 intra branch) + `Codec/codec.c:1369-1584` (PutVideoIntraFrameHeader et al.).
@@ -107,9 +107,15 @@ def encode_band_payload(values: np.ndarray, codeset: int = 17) -> bytes:
 
 def write_sample(channels: list[EncodedChannel], params: IntraParams,
                  frame_number: int = 1,
-                 metadata: EncoderMetadata | None = None) -> bytes:
-    """Assemble a complete CFHD intra sample of a YUY2 frame (4:2:2, BT.709,
-    10-bit precision)."""
+                 metadata: EncoderMetadata | None = None,
+                 input_format: int = tags.COLOR_FORMAT_YUYV,
+                 encoded_format: int = tags.ENCODED_FORMAT_YUV_422,
+                 colorspace: int | None = tags.COLOR_SPACE_BT_709,
+                 quality_high: int = 0) -> bytes:
+    """Assemble a complete CFHD intra sample.  The defaults write a YUY2
+    frame (4:2:2, BT.709); `colorspace=None` writes no colourspace tag, as
+    the RGB formats do, and `quality_high` is ORed into the QUALITY_H tag
+    (0x2000 for RGBA)."""
     w = SampleWriter()
     num_channels = len(channels)
     num_wavelets = params.num_wavelets
@@ -121,9 +127,14 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     w.put_tag(tags.TRANSFORM_TYPE, tags.TRANSFORM_TYPE_SPATIAL)
     w.put_tag(tags.NUM_FRAMES, 1)
     w.put_tag(tags.NUM_CHANNELS, num_channels)
-    w.put_tag_optional(tags.INPUT_FORMAT, tags.COLOR_FORMAT_YUYV)
-    w.put_tag(tags.ENCODED_FORMAT, tags.ENCODED_FORMAT_YUV_422)
-    w.put_tag_optional(tags.ENCODED_COLORSPACE, tags.COLOR_SPACE_BT_709)
+    if input_format >= 100:
+        # formats >= COLOR_FORMAT_INPUT_FORMAT_TAG_REQUIRED (codec.c:1407)
+        w.put_tag(tags.INPUT_FORMAT, input_format)
+    else:
+        w.put_tag_optional(tags.INPUT_FORMAT, input_format)
+    w.put_tag(tags.ENCODED_FORMAT, encoded_format)
+    if colorspace:
+        w.put_tag_optional(tags.ENCODED_COLORSPACE, colorspace)
     w.put_tag(tags.NUM_WAVELETS, num_wavelets)
     w.put_tag(tags.NUM_SUBBANDS, 3 * num_wavelets + 1)
     w.put_tag(tags.NUM_SPATIAL, params.num_spatial)
@@ -135,9 +146,14 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     w.put_tag_optional(tags.FRAME_DISPLAY_HEIGHT, params.height)
     w.put_tag_optional(tags.VERSION, tags.FILE_VERSION_CODE)
     w.put_tag_optional(tags.QUALITY_L, params.quality & 0xFFFF)
-    w.put_tag_optional(tags.QUALITY_H, (params.quality >> 16) & 0xFFFF)
-    w.put_tag_optional(tags.PRESCALE_TABLE,
-                       pack_prescale_table(params.prescale))
+    w.put_tag_optional(tags.QUALITY_H,
+                       ((params.quality >> 16) | quality_high) & 0xFFFF)
+    if params.precision == tags.PRECISION_12BIT:
+        # 12-bit prescales fail TestTransformPrescaleMatch -> required tag
+        w.put_tag(tags.PRESCALE_TABLE, pack_prescale_table(params.prescale))
+    else:
+        w.put_tag_optional(tags.PRESCALE_TABLE,
+                           pack_prescale_table(params.prescale))
 
     # --- sample size chunk + metadata + extension (encoder.c:7559-7621) -----
     w.push_chunk(tags.SAMPLE_SIZE)

@@ -3,23 +3,27 @@
 - `dwt_forward_yuy2(frames, precision, prescale, quants)`: level 1 of the
   YUY2 encode, read from the frames' bytes, for all three channels in one
   launch.
-- `dwt_forward_groups(lows, prescale, quants)`: the next level of all
-  three channels, in one launch.
+- `dwt_forward_groups(lows, prescale, quants)`: the next level of the
+  three YUY2 channels, in one launch.
+- `dwt_forward_planes(x, prescale, quants)`: one level of a group of
+  equal-size int32 planes (the 3 or 4 channels of RGB 4:4:4 and RGBA
+  4:4:4:4), in one launch.
 - `dwt_forward_level(x, prescale, quant)`: one level of one int32 plane.
 
-The first two hold the channels in their groups, `GROUPS`: Y, then V and
-U, whose 4:2:2 planes share a shape.  They return `(lows, highs)`, one
-tensor per group each: lows (B, G, h, w) the lowpass planes, highs
-(B, G, 3, h, pitch) the quantized LH, HL and HH bands, each row padded
-with zeros to the band pitch (`intra_host.align16_pixels`), as the entropy
-coder reads them.  `quants` holds one (LH, HL, HH) quantizer triple per
-channel, in the order Y, V, U.
+The first three return `(lows, highs)` by channel group: lows (B, G, h, w)
+the lowpass planes, highs (B, G, 3, h, pitch) the quantized LH, HL and HH
+bands, each row padded with zeros to the band pitch
+(`intra_host.align16_pixels`), as the entropy coder reads them.  The YUY2
+pair holds 4:2:2's two groups, Y, then V and U, whose planes share a shape,
+as a tuple of two tensors each; `dwt_forward_planes` one group, as
+tensors.  `quants` holds one (LH, HL, HH) quantizer triple per channel, in
+the planes' order (YUY2: Y, V, U).
 
 Each wrapper equals its plain version bit for bit: `unpack_yuy2` and
-`plain_groups` for the first, `plain_groups` for the second,
-`intra_transform.dwt2d_forward` for the third.  For a tensor on the CPU
-it runs that plain version; for a CUDA tensor it launches its kernel, or
-raises.
+`plain_groups` for the first, `plain_groups` for the second, `plain_planes`
+for the third, `intra_transform.dwt2d_forward` for the fourth.  For a
+tensor on the CPU it runs that plain version; for a CUDA tensor it
+launches its kernel, or raises.
 """
 
 from __future__ import annotations
@@ -33,13 +37,15 @@ from cineform_tpu_torch import _build
 from cineform_tpu_torch.models.intra_host import align16_pixels
 from cineform_tpu_torch.ops import intra_transform
 
-#: channel groups of 4:2:2: Y, then V(Cr) and U(Cb)
-GROUPS = ((0,), (1, 2))
+#: the most planes `dwt_forward_planes` takes in one launch
+MAX_PLANES = 4
 
 # src (frames, or the Y and VU lowpass buffers), ll_y, ll_c, bands_y,
 # bands_c; batch, h, w, pitch_y, pitch_c, (shift,) prescale, 9 quantizers
 _YUY2_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 16
 _GROUPS_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 15
+# x, ll, bands; batch, planes, h, w, pitch, prescale, 12 quantizers
+_PLANES_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 18
 # x, ll, bands; batch, h, w, prescale, q0, q1, q2
 _LEVEL_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
 
@@ -53,35 +59,45 @@ def group_layout(trios) -> torch.Tensor:
     return F.pad(t, (0, align16_pixels(w) - w))
 
 
+def plain_planes(x: torch.Tensor, prescale: int, quants):
+    """The plain version of one level of a group of planes, (B, G, H, W)
+    int32: `dwt2d_forward` on each, then the group's layout."""
+    outs = [intra_transform.dwt2d_forward(x[:, g], prescale, tuple(q))
+            for g, q in enumerate(quants)]
+    return (torch.stack([ll for ll, _ in outs], dim=1),
+            group_layout([bands for _, bands in outs]))
+
+
 def plain_groups(planes, prescale: int, quants):
-    """The plain version of one level of the three channel planes (Y, V,
-    U), each (B, H, W) int32: `dwt2d_forward` on each, then the groups'
-    layout."""
-    lows, highs = [], []
-    for grp in GROUPS:
-        outs = [intra_transform.dwt2d_forward(planes[ch], prescale,
-                                              tuple(quants[ch]))
-                for ch in grp]
-        lows.append(torch.stack([ll for ll, _ in outs], dim=1))
-        highs.append(group_layout([bands for _, bands in outs]))
-    return tuple(lows), tuple(highs)
+    """The plain version of one level of the three 4:2:2 channel planes
+    (Y, V, U), each (B, H, W) int32: `plain_planes` of the Y group and of
+    the V, U group."""
+    y, v, u = planes
+    (ly, hy), (lc, hc) = (plain_planes(y[:, None], prescale, quants[:1]),
+                          plain_planes(torch.stack((v, u), dim=1), prescale,
+                                       quants[1:]))
+    return (ly, lc), (hy, hc)
 
 
-def _check_quants(name: str, quants):
-    if len(quants) != 3 or any(len(q) != 3 for q in quants):
+def _check_quants(name: str, quants, planes: int = 3):
+    if len(quants) != planes or any(len(q) != 3 for q in quants):
         raise ValueError(f"{name}: expected one quantizer triple for each "
-                         "of Y, V, U")
+                         f"of the {planes} planes")
+
+
+def _outputs(device, batch: int, planes: int, ho: int, wo: int):
+    """Empty (lows, highs) of a group of `planes` planes."""
+    return (torch.empty((batch, planes, ho, wo), dtype=torch.int32,
+                        device=device),
+            torch.empty((batch, planes, 3, ho, align16_pixels(wo)),
+                        dtype=torch.int32, device=device))
 
 
 def _group_outputs(device, batch: int, ho: int, wo: int):
-    """Empty (lows, highs) of the groups for luma output width wo."""
-    lows, highs = [], []
-    for grp, w in zip(GROUPS, (wo, wo // 2)):
-        lows.append(torch.empty((batch, len(grp), ho, w), dtype=torch.int32,
-                                device=device))
-        highs.append(torch.empty((batch, len(grp), 3, ho, align16_pixels(w)),
-                                 dtype=torch.int32, device=device))
-    return tuple(lows), tuple(highs)
+    """Empty (lows, highs) of the 4:2:2 groups for luma output width wo."""
+    (ly, hy), (lc, hc) = (_outputs(device, batch, 1, ho, wo),
+                          _outputs(device, batch, 2, ho, wo // 2))
+    return (ly, lc), (hy, hc)
 
 
 def dwt_forward_yuy2(frames: torch.Tensor, precision: int, prescale: int,
@@ -149,6 +165,33 @@ def dwt_forward_groups(lows, prescale: int, quants):
     return out_lows, highs
 
 
+def dwt_forward_planes(x: torch.Tensor, prescale: int, quants):
+    """One level of a group of G equal-size int32 planes, (B, G, H, W) with
+    G <= 4, each with its quantizer triple -> (lows (B, G, H/2, W/2), highs
+    (B, G, 3, H/2, pitch)).
+
+    H and W must be even and at least 6."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"dwt_forward_planes: expected int32, got {x.dtype}")
+    if x.dim() != 4 or not 1 <= x.shape[1] <= MAX_PLANES:
+        raise ValueError(f"dwt_forward_planes: expected (B, G, H, W) with "
+                         f"1 <= G <= {MAX_PLANES}, got {tuple(x.shape)}")
+    batch, planes, h, w = x.shape
+    _check_quants("dwt_forward_planes", quants, planes)
+    if h < 6 or w < 6 or h % 2 or w % 2:
+        raise ValueError(f"dwt_forward_planes: planes {h}x{w} must have "
+                         "even sides of at least 6")
+    if not _build.uses_kernel("dwt_forward_planes", x):
+        return plain_planes(x, prescale, quants)
+    lows, highs = _outputs(x.device, batch, planes, h // 2, w // 2)
+    qs = [q for qs in quants for q in qs]
+    _build.launch(dwt_forward_planes, "dwt_forward", "cf_dwt_forward_planes",
+                  _PLANES_ARGTYPES, x, lows, highs, batch, planes, h, w,
+                  highs.shape[-1], prescale,
+                  *qs, *[1] * (3 * MAX_PLANES - len(qs)))
+    return lows, highs
+
+
 def dwt_forward_level(x: torch.Tensor, prescale: int = 0,
                       quant: tuple[int, int, int] | None = None):
     """(..., H, W) int32 -> (LL, (LH, HL, HH)), each (..., H/2, W/2) int32.
@@ -182,4 +225,5 @@ def dwt_forward_level(x: torch.Tensor, prescale: int = 0,
 #: kernel launches since the last reset (the CPU path does not count)
 dwt_forward_yuy2.launches = 0
 dwt_forward_groups.launches = 0
+dwt_forward_planes.launches = 0
 dwt_forward_level.launches = 0

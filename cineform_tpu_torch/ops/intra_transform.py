@@ -1,9 +1,9 @@
 """Production CFHD intra transform as PyTorch tensor functions.
 
-Port of `cineform_tpu.ops.intra_transform` (YUY2 path), bit-exact against
-it and therefore against the NumPy oracle `cineform_tpu.ref.intra` and the
-reference SDK.  All arithmetic is int32 on tensors of any leading shape;
-planes are (..., H, W).
+Port of `cineform_tpu.ops.intra_transform` (the YUY2, RG48, B64A and RG64
+paths), bit-exact against it and therefore against the NumPy oracle
+`cineform_tpu.ref.intra` and the reference SDK.  All arithmetic is int32
+on tensors of any leading shape; planes are (..., H, W).
 
 These plain versions run on any device.  The forward level
 (`dwt2d_forward`) is also the reference that the hand-written CUDA level
@@ -258,20 +258,50 @@ def dwt2d_inverse(ll, lh, hl, hh, descale: int = 1) -> torch.Tensor:
     return h26_inverse(low, high, descale)
 
 
-def inverse_channel_to_8bit(lowpass, bands, prescale, dither=None):
-    """Full 3-level inverse producing the 8-bit output plane."""
+def inverse_channel_strips(lowpass, bands, prescale):
+    """Full 3-level inverse stopping at the final v26 vertical stage:
+    returns the (low, high) strips the output kernels consume
+    (`InvertHorizontalStrip*`)."""
     ll = lowpass
     for k in (2, 1):
         lh, hl, hh = bands[k]
         ll = dwt2d_inverse(ll, lh, hl, hh, 2 if prescale[k] == 2 else 1)
     lh, hl, hh = bands[0]
-    low = v26_inverse(ll, hl)
-    high = v26_inverse(lh, hh)
+    return v26_inverse(ll, hl), v26_inverse(lh, hh)
+
+
+def inverse_channel_to_8bit(lowpass, bands, prescale, dither=None):
+    """Full 3-level inverse producing the 8-bit output plane."""
+    low, high = inverse_channel_strips(lowpass, bands, prescale)
     return h26_inverse_to_output(low, high, dither=dither)
 
 
+def h26_inverse_to_row16u(low: torch.Tensor, high: torch.Tensor,
+                          precision: int = 10) -> torch.Tensor:
+    """Final horizontal 2-6 inverse for the deep (16-bit) output paths,
+    byte-exact vs `InvertHorizontalStrip16sToRow16u`
+    (`Codec/InvertHorizontalStrip16s.c:16571`): the SSE lanes clamp the
+    reconstruction to [0, 2*2^precision-1] before >>1<<shift; the scalar
+    tail (columns >= tail0, never column 0) shifts first and saturates the
+    16-bit store.  (..., H, half) strips -> (..., H, 2*half) int32 rows
+    holding uint16 values."""
+    even, odd = _h26_inverse_parts(low, high)
+    lim = (2 << precision) - 1
+    shift = 16 - precision
+    half = low.shape[-1]
+    tail0 = (half - (half % 8) - 9) if half >= 16 else 2
+    scalar = torch.arange(half, device=low.device) >= tail0
+    scalar[0] = False
+
+    def row16u(x):
+        return torch.where(scalar, ((x >> 1) << shift).clamp(0, 65535),
+                           (x.clamp(0, lim) >> 1) << shift)
+
+    return _interleave(row16u(even), row16u(odd))
+
+
 # ---------------------------------------------------------------------------
-# YUY2 unpack / pack
+# Input unpacks, and the YUY2 pack
 # ---------------------------------------------------------------------------
 
 def unpack_yuy2(frame: torch.Tensor, precision: int = 10):
@@ -293,3 +323,42 @@ def pack_yuy2(y: torch.Tensor, v: torch.Tensor, u: torch.Tensor) -> torch.Tensor
     *lead, h, w = y.shape
     quad = torch.stack([y[..., 0::2], u, y[..., 1::2], v], dim=-1)
     return quad.reshape(*lead, h, 2 * w).to(torch.uint8)
+
+
+def _le16(frame: torch.Tensor, last: int) -> torch.Tensor:
+    """(..., H, 2*N) uint8 -> (..., H, N/last, last) int32 little-endian
+    u16."""
+    *lead, h, n2 = frame.shape
+    b = frame.reshape(*lead, h, n2 // (2 * last), last, 2).to(torch.int32)
+    return b[..., 0] | (b[..., 1] << 8)
+
+
+def unpack_rg48(frame: torch.Tensor):
+    """(..., H, 6W) uint8 RG48 (16-bit RGB LE) -> 12-bit planes [G, R, B]
+    (`Codec/frame.c:5968` ConvertRGB48ToFrame16s)."""
+    px = _le16(frame, 3)                       # (..., H, W, 3)
+    return px[..., 1] >> 4, px[..., 0] >> 4, px[..., 2] >> 4
+
+
+def _alpha_companding(a12: torch.Tensor) -> torch.Tensor:
+    """Encode-side alpha step curve (`Codec/frame.c:6699-6706`)."""
+    return torch.where((a12 > 0) & (a12 < 4095),
+                       ((a12 * 223 + 128) >> 8) + 256, a12)
+
+
+def unpack_b64a(frame: torch.Tensor):
+    """(..., H, 8W) uint8 b64a (16-bit ARGB, read native little-endian
+    without the nominal byte swap) -> 12-bit planes [G, R, B, A] with the
+    alpha step curve (`ConvertBGRA64ToFrame_4444_16s`,
+    `Codec/frame.c:6569`)."""
+    px = _le16(frame, 4)                       # (..., H, W, 4)
+    return (px[..., 2] >> 4, px[..., 1] >> 4, px[..., 3] >> 4,
+            _alpha_companding(px[..., 0] >> 4))
+
+
+def unpack_rg64(frame: torch.Tensor):
+    """(..., H, 8W) uint8 RG64 (16-bit RGBA LE) -> 12-bit [G, R, B, A]
+    with the b64a alpha companding."""
+    px = _le16(frame, 4)
+    return (px[..., 1] >> 4, px[..., 0] >> 4, px[..., 2] >> 4,
+            _alpha_companding(px[..., 3] >> 4))

@@ -1,9 +1,10 @@
 """Production encoder parameters: quality -> per-band quantizers.
 
 A copy of the JAX package's `spec/production.py`, cut to what the intra
-codec's YUY2 path needs: the preset quality tables, no custom quantization
-and no RGB gains.  It mirrors the reference's quality system for the
-shipping encoder:
+codec's YUY2, RGB 4:4:4 and RGBA 4:4:4:4 paths need: the preset quality
+tables with the 12-bit RGB gains, no custom quantization and no FILMSCAN
+rate control.  It mirrors the reference's quality system for the shipping
+encoder:
 
 - base quality tables `LUMA_QUALITY_*` / `CHROMA_QUALITY_*`
   (`Codec/quantize.h:54-65`), indexed by the 17-subband FIELDPLUS layout;
@@ -41,12 +42,15 @@ CHROMA_QUALITY = [
 QUANT_SCALE_FACTOR = 2      # `Codec/quantize.h:52`
 
 
-def quality_tables(quality: int, precision: int) -> tuple[list[int],
-                                                          list[int]]:
+def quality_tables(quality: int, precision: int,
+                   chroma_full_res: bool = False,
+                   rgb_quality: int = 0) -> tuple[list[int], list[int]]:
     """17-entry (luma, chroma) quant tables after QuantizationSetQuality
-    for a progressive intra frame with 4:2:2 chroma on the first frame
-    (the FILMSCAN rate limiter at its first-frame value: 8 for FILMSCAN2,
-    4 for FILMSCAN3, `Codec/quantize.c:224-233`).
+    for a progressive intra frame on the first frame (the FILMSCAN rate
+    limiter at its first-frame value: 8 for FILMSCAN2, 4 for FILMSCAN3,
+    `Codec/quantize.c:224-233`).  `chroma_full_res` gives the chroma
+    channels the luma table (4:4:4 RGB); at 12-bit precision the RGB gains
+    of `rgb_quality` apply.
 
     quality: CFHD_ENCODING_QUALITY_* numeric (1=low .. 6=filmscan3).
     Mirrors `Codec/quantize.c:186-585` for the FixedQuality path with
@@ -60,7 +64,8 @@ def quality_tables(quality: int, precision: int) -> tuple[list[int],
         factor = 3
 
     luma = list(LUMA_QUALITY[factor])
-    chroma = list(CHROMA_QUALITY[factor])
+    chroma = list(LUMA_QUALITY[factor] if chroma_full_res
+                  else CHROMA_QUALITY[factor])
 
     lowfreqquant = 4
     if precision >= tags.PRECISION_10BIT:
@@ -84,6 +89,20 @@ def quality_tables(quality: int, precision: int) -> tuple[list[int],
         luma[7] = 4
         chroma[7] = 4
 
+    if precision == tags.PRECISION_12BIT:
+        if new_quality >= 4:
+            for i in range(1, 7):
+                luma[i] = lowfreqquant
+                chroma[i] = lowfreqquant
+        for i in range(4, 7):
+            luma[i] *= 4
+            chroma[i] *= 4
+        # chromagain by CFEncode_RGB_Quality bits (`quantize.c:1195-1200`)
+        chromagain = {0: 8, 1: 6, 2: 4, 3: 4}[rgb_quality & 3]
+        for i in range(11, 17):
+            luma[i] *= 4
+            chroma[i] *= chromagain
+
     # Intra: frame-wavelet subbands read table entries 11-13
     # (`Codec/quantize.c:548-565`)
     for t in (luma, chroma):
@@ -106,7 +125,8 @@ def spatial_band_scales(num_spatial: int = 2) -> list[list[int]]:
 
 
 def intra_band_quant(quality: int, precision: int, channel: int,
-                     num_spatial: int = 2) -> list[tuple[int, int, int]]:
+                     num_spatial: int = 2, chroma_full_res: bool = False,
+                     rgb_quality: int = 0) -> list[tuple[int, int, int]]:
     """Per-wavelet (q_lh, q_hl, q_hh) quantizers for the intra transform,
     wavelet index 0 (finest, the frame wavelet) first.
 
@@ -117,7 +137,8 @@ def intra_band_quant(quality: int, precision: int, channel: int,
       frame wavelet (subbands 3*num_spatial+1 ..):
           quant = table[subband]  (scale not applied)
     """
-    luma, chroma = quality_tables(quality, precision)
+    luma, chroma = quality_tables(quality, precision, chroma_full_res,
+                                  rgb_quality)
     table = chroma if channel > 0 else luma
     scales = spatial_band_scales(num_spatial)
 
@@ -158,13 +179,16 @@ def pack_prescale_table(prescale: list[int]) -> int:
 
 @dataclass(frozen=True)
 class IntraParams:
-    """Everything the intra-frame encoder needs for one YUY2 config (8-bit
-    input, encoded at the reference's 10-bit precision)."""
+    """Everything the intra-frame encoder needs for one channel config:
+    YUY2 is encoded at the reference's 10-bit precision, RGB and RGBA at
+    12 bits."""
 
     width: int
     height: int
     quality: int
-    precision: ClassVar[int] = tags.PRECISION_10BIT
+    precision: int = tags.PRECISION_10BIT
+    chroma_full_res: bool = False
+    rgb_quality: int = 0
     num_spatial: ClassVar[int] = 2
 
     @property
@@ -173,7 +197,8 @@ class IntraParams:
 
     def band_quant(self, channel: int) -> list[tuple[int, int, int]]:
         return intra_band_quant(self.quality, self.precision, channel,
-                                self.num_spatial)
+                                self.num_spatial, self.chroma_full_res,
+                                self.rgb_quality)
 
     @property
     def prescale(self) -> list[int]:

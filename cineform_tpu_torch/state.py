@@ -7,7 +7,9 @@ configuration: the prescale shifts and band quantizers of
 (`spec.codebooks`), and the reference decoder's output dither draws for
 the n-th decoded frame (`ref.intra.decode_dither_rows`).  `codec_tables`
 builds them from the package's host modules and places the tensors on an
-explicit device.
+explicit device.  What the input format decides (the precision, whether
+chroma takes the luma tables, the number of channels) comes in as
+keywords; the defaults are YUY2's.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from cineform_tpu_torch.entropy.device import (EncodeTables, encode_tables,
                                                magnitude_lut)
 from cineform_tpu_torch.ref.intra import decode_dither_rows
+from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
 
 
@@ -35,7 +38,8 @@ def dither_rows(height: int, frame_index: int = 0) -> np.ndarray:
 
 @dataclass(frozen=True, eq=False)
 class CodecTables:
-    """Tables of one (width, height, quality, frame index) YUY2 config."""
+    """Tables of one (width, height, quality, frame index, format)
+    config."""
 
     prescale: tuple[int, ...]                 # per wavelet level
     band_quant: tuple[tuple[tuple[int, int, int], ...], ...]  # [channel][level]
@@ -47,15 +51,19 @@ class CodecTables:
 
 @lru_cache(maxsize=64)
 def codec_tables(width: int, height: int, quality: int, frame_index: int = 0,
-                 *, device: torch.device | str) -> CodecTables:
+                 *, device: torch.device | str,
+                 precision: int = tags.PRECISION_10BIT,
+                 chroma_full_res: bool = False,
+                 num_channels: int = 3) -> CodecTables:
     device = torch.device(device)
-    p = IntraParams(width=width, height=height, quality=quality)
+    p = IntraParams(width=width, height=height, quality=quality,
+                    precision=precision, chroma_full_res=chroma_full_res)
     enc = encode_tables(17)
     mag_bits, mag_sizes = magnitude_lut(enc, device)
     return CodecTables(
         prescale=tuple(p.prescale),
         band_quant=tuple(tuple(tuple(q) for q in p.band_quant(ch))
-                         for ch in range(3)),
+                         for ch in range(num_channels)),
         encode=enc,
         mag_bits=mag_bits,
         mag_sizes=mag_sizes,

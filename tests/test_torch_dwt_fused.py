@@ -31,6 +31,8 @@ from cineform_tpu_torch.ops import intra_transform as tops
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
+#: 4:2:2's channel groups: Y, then V and U
+GROUPS = IntraCodec(64, 48, 4, device=CPU).groups
 
 #: (width, height, levels): the small goldens' sizes (112x48: band pitch
 #: above the width, e.g. chroma level 1 28 -> 32), 320x240, and the
@@ -72,7 +74,7 @@ def _grouped(per_channel):
     """Per-channel (ll, [lh, hl, hh]) -> (lows, highs) by group, as numpy:
     (B, G, h, w) and (B, G, 3, h, pitch) with zero pad columns."""
     lows, highs = [], []
-    for grp in dwt.GROUPS:
+    for grp in GROUPS:
         lows.append(np.stack([per_channel[ch][0] for ch in grp], 1))
         t = np.stack([np.stack(per_channel[ch][1], 1) for ch in grp], 1)
         w = t.shape[-1]
@@ -154,7 +156,7 @@ def test_group_buffers_equal_the_stack_pad_layout():
     assert any(highs[1].shape[-1] > lows[1].shape[-1]
                for lows, highs in levels)                  # a pad column
     for k, (_, highs) in enumerate(levels):
-        for grp, bands in zip(dwt.GROUPS, highs):
+        for grp, bands in zip(GROUPS, highs):
             got = codec.group_bands(bands)
             want = _stack_pad({ch: per_channel[ch][k] for ch in grp}, grp)
             assert torch.equal(got, want)
@@ -182,7 +184,7 @@ def test_intra_forward_and_forward_packed_match_jax(w, h):
     jax_bands = [[tuple(torch.from_numpy(np.array(b)) for b in bands)
                   for bands in want[ch][1]] for ch in range(3)]
     for k in range(3):
-        for grp in dwt.GROUPS:
+        for grp in GROUPS:
             words, nbits, ovf = edev.encode_band_arrays(
                 _stack_pad({ch: jax_bands[ch][k] for ch in grp}, grp),
                 codeset=17, cap_bits_per_elem=8)

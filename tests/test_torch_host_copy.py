@@ -1,4 +1,4 @@
-"""The port's own copy of the YUY2 host path (`cineform_tpu_torch.spec`,
+"""The port's own copy of the host path (`cineform_tpu_torch.spec`,
 `bitstream`, `entropy.native`, `native`, `models.intra_host`, `ref.intra`,
 `utils.glibc_random`, `testframes`), on the CPU.
 
@@ -191,6 +191,23 @@ def test_production_params_match(quality):
         jprod.pack_prescale_table(j.prescale)
 
 
+@pytest.mark.parametrize("quality", range(1, 7))
+@pytest.mark.parametrize("fmt", ["RG48", "B64A", "RG64"])
+def test_rgb_production_params_match(fmt, quality):
+    """The 12-bit params of the RGB formats (RG48 and RG64 with the luma
+    tables for chroma, B64A without), as each package's `IntraCodec`
+    makes them."""
+    t = IntraCodec(1920, 1080, quality, device=CPU, input_format=fmt).params
+    j = JaxIntraCodec(width=1920, height=1080, quality=quality,
+                      input_format=fmt).params
+    assert (t.precision, t.chroma_full_res, t.rgb_quality, t.prescale) == \
+        (j.precision, j.chroma_full_res, j.rgb_quality, j.prescale)
+    assert [t.band_quant(ch) for ch in range(4)] == \
+        [j.band_quant(ch) for ch in range(4)]
+    assert tprod.pack_prescale_table(t.prescale) == \
+        jprod.pack_prescale_table(j.prescale)
+
+
 @pytest.mark.parametrize("name", GOLDENS)
 def test_parser_and_walker_match_on_the_goldens(name):
     sample = _read(f"{name}.cfhd")
@@ -237,6 +254,31 @@ def test_write_sample_and_band_coder_match(w, h, quality):
     assert thost.write_sample(tchans, tp, 4, tmeta) == want
 
 
+@pytest.mark.parametrize("fmt", ["RG48", "B64A", "RG64"])
+def test_write_sample_of_rgb_formats_matches(fmt):
+    """The copy's sample writer with the RGB formats' keywords (a required
+    input-format tag for RG48 and RG64, no colourspace, QUALITY_H 0x2000
+    for RGBA, the required 12-bit prescale tag) against the original's, on
+    the original's host transform of a test frame."""
+    w, h = 64, 48
+    codec = IntraCodec(w, h, 4, device=CPU, input_format=fmt)
+    jcodec = JaxIntraCodec(width=w, height=h, quality=4, input_format=fmt)
+    kwargs = codec._write_sample_kwargs
+    assert kwargs == jcodec._write_sample_kwargs
+    raw = np.random.default_rng(len(fmt)).integers(
+        0, 256, h * codec.row_bytes).astype(np.uint8).tobytes()
+    planes = jcodec._unpack_host(raw)
+    chans = [jhost.transform_channel(p, jcodec.params, c)
+             for c, p in enumerate(planes)]
+    meta = jhost.EncoderMetadata().advanced(2)
+    want = jhost.write_sample(chans, jcodec.params, 3, meta, **kwargs)
+    tchans = [thost.EncodedChannel(lowpass=c.lowpass, bands=c.bands,
+                                   quants=c.quants) for c in chans]
+    assert thost.write_sample(tchans, codec.params, 3,
+                              thost.EncoderMetadata().advanced(2),
+                              **kwargs) == want
+
+
 @pytest.mark.parametrize("codeset,density,quant", [(17, 0.3, 1), (17, 0.9, 7),
                                                    (18, 0.5, 300), (9, 0.2, 2)])
 def test_native_band_coder_matches(codeset, density, quant):
@@ -264,8 +306,9 @@ def test_host_helpers_match():
             tref.decode_dither_rows(height, frame_index),
             jref.decode_dither_rows(height, frame_index))
     for pattern in (0, 1, 2):
-        assert tframes.yuy2_frame(112, 48, pattern) == \
-            jframes.yuy2_frame(112, 48, pattern)
+        for name in ("yuy2_frame", "rg48_frame", "b64a_frame"):
+            assert getattr(tframes, name)(112, 48, pattern) == \
+                getattr(jframes, name)(112, 48, pattern)
 
 
 # ---------------------------------------------------------------------------

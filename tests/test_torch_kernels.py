@@ -26,6 +26,7 @@ from cineform_tpu_torch.ops.chunk_pack import chunk_pack
 from cineform_tpu_torch.ops import dwt_forward as dwt
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_level,
+                                                dwt_forward_planes,
                                                 dwt_forward_yuy2)
 from cineform_tpu_torch.ops.merge_network import (merge_network,
                                                   merge_network_highfirst,
@@ -34,15 +35,18 @@ from cineform_tpu_torch.ops.merge_network import (merge_network,
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WRAPPERS = (dwt_forward_yuy2, dwt_forward_groups, dwt_forward_level,
-            chunk_pack, merge_network, merge_network_tgt,
+WRAPPERS = (dwt_forward_yuy2, dwt_forward_groups, dwt_forward_planes,
+            dwt_forward_level, chunk_pack, merge_network, merge_network_tgt,
             merge_network_highfirst)
-DWTS = ("dwt", "yuy2", "groups")
+DWTS = ("dwt", "yuy2", "groups", "planes")
 #: (LH, HL, HH) quantizers of Y, V, U at each level (quality 4's, then
 #: others that reach q <= 1 and large q)
 LEVEL_QUANTS = ([(24, 24, 36), (12, 12, 6), (12, 12, 6)],
                 [(6, 6, 3), (1, 1, 1), (24, 24, 12)],
                 [(36, 24, 2), (3, 3, 3), (255, 2, 1)])
+#: (LH, HL, HH) quantizers of four planes (G, R, B, A): RG48's at quality
+#: 4, level 1, then others
+PLANE_QUANTS = [(12, 12, 32), (12, 12, 64), (1, 1, 1), (255, 2, 7)]
 MERGES = ("merge", "merge_tgt", "merge_highfirst")
 
 
@@ -177,6 +181,9 @@ def test_wrappers_run_the_plain_versions_on_cpu():
     want = dwt.plain_groups((lows[0][:, 0], lows[1][:, 0], lows[1][:, 1]),
                             2, LEVEL_QUANTS[1])
     assert _equal(got, want)
+    x = _rand(4, (2, 4, 12, 20), 0, 4096)
+    assert _equal(dwt_forward_planes(x, 2, PLANE_QUANTS),
+                  dwt.plain_planes(x, 2, PLANE_QUANTS))
 
     bits, sizes = _codes(1, (2, 256), 0.9)
     got = chunk_pack(bits, sizes)
@@ -222,6 +229,9 @@ def test_wrappers_raise_on_wrong_dtype(which):
         elif which == "groups":
             dwt_forward_groups(_lows(1, 8, 16, torch.int64), 0,
                                LEVEL_QUANTS[0])
+        elif which == "planes":
+            dwt_forward_planes(torch.zeros((1, 3, 8, 16), dtype=torch.int64),
+                               0, PLANE_QUANTS[:3])
         elif which == "pack":
             chunk_pack(torch.zeros((1, 256), dtype=torch.int64),
                        torch.zeros((1, 256), dtype=torch.int32))
@@ -246,6 +256,9 @@ def test_wrappers_do_not_fall_back_off_the_cpu(which):
         elif which == "groups":
             dwt_forward_groups(_lows(1, 8, 16, device=meta), 0,
                                LEVEL_QUANTS[0])
+        elif which == "planes":
+            dwt_forward_planes(torch.zeros((1, 4, 8, 16), dtype=torch.int32,
+                                           device=meta), 0, PLANE_QUANTS)
         elif which == "pack":
             z = torch.zeros((1, 256), dtype=torch.int32, device=meta)
             chunk_pack(z, z)
@@ -269,6 +282,13 @@ def test_wrappers_reject_bad_shapes():
                  _lows(1, 7, 16), (y,)):
         with pytest.raises(ValueError):
             dwt_forward_groups(lows, 0, q)
+    for shape, planes in (((1, 5, 8, 16), 5), ((1, 3, 7, 16), 3),
+                          ((1, 3, 8, 9), 3), ((1, 3, 4, 16), 3),
+                          ((3, 8, 16), 3), ((1, 3, 8, 16), 2)):
+        with pytest.raises(ValueError):             # G, H odd, W odd, small
+            dwt_forward_planes(torch.zeros(shape, dtype=torch.int32), 0,
+                               PLANE_QUANTS[:planes] + [(1, 1, 1)] * (
+                                   planes - len(PLANE_QUANTS)))
     with pytest.raises(ValueError):
         chunk_pack(torch.zeros((1, 128), dtype=torch.int32),
                    torch.zeros((1, 128), dtype=torch.int32))
@@ -433,6 +453,92 @@ def test_forward_packed_on_the_card_takes_three_dwt_launches(cuda,
     assert [f.launches for f in wrappers] == [before[0] + 1, before[1] + 2,
                                               before[2]]
     assert _equal(got, want)
+
+
+#: (batch, planes, H, W) of int32 plane groups: the RG48 and RGBA 1080p
+#: levels at batch 2 (level 3: 135 output rows), narrow planes (the
+#: narrow-row quirk with W % 8 == 0 at 16, without it at 14), the minimum
+#: plane, ragged column tiles and band pitches (W = 300, 76), rows that are
+#: not a multiple of 16 bytes (W = 38) and groups of one and two planes
+PLANE_CASES = [
+    (2, 3, 1080, 1920),
+    (2, 4, 540, 960),
+    (2, 4, 270, 480),
+    (3, 3, 12, 16),
+    (3, 4, 12, 14),
+    (2, 3, 6, 6),
+    (1, 4, 30, 300),
+    (2, 3, 20, 76),
+    (1, 2, 24, 38),
+    (2, 1, 64, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prescale", [0, 2])
+@pytest.mark.parametrize("b,g,h,w", PLANE_CASES)
+def test_dwt_forward_planes_kernel_matches_plain(cuda, b, g, h, w, prescale):
+    """One launch for the group, equal to `plain_planes` on the same
+    12-bit planes, pad columns included."""
+    x = _rand(b * g * h * w + prescale, (b, g, h, w), 0, 4096)
+    before = dwt_forward_planes.launches
+    got = dwt_forward_planes(x.to(cuda), prescale, PLANE_QUANTS[:g])
+    torch.cuda.synchronize()
+    assert dwt_forward_planes.launches == before + 1
+    assert _equal(got, dwt.plain_planes(x, prescale, PLANE_QUANTS[:g]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["RG48", "B64A", "RG64"])
+def test_rgb_forward_packed_on_the_card_takes_three_planes_launches(cuda,
+                                                                   fmt):
+    """On the card a 4:4:4 `forward_packed` launches `dwt_forward_planes`
+    3 times and neither YUY2 entry point, and equals the plain path."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+
+    w, h = 320, 240
+    codec = IntraCodec(w, h, 4, device=torch.device("cpu"), input_format=fmt)
+    frames = torch.from_numpy(np.random.default_rng(len(fmt)).integers(
+        0, 256, (2, h, codec.row_bytes)).astype(np.uint8))
+    want = codec.forward_packed(frames)
+    wrappers = (dwt_forward_planes, dwt_forward_yuy2, dwt_forward_groups,
+                dwt_forward_level)
+    before = [f.launches for f in wrappers]
+    got = IntraCodec(w, h, 4, device=cuda, input_format=fmt).forward_packed(
+        frames.to(cuda))
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [before[0] + 3, *before[1:]]
+    assert _equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,gold,src", [
+    ("RG48", "rg48_320x240_q4_p1", "rgb444_320x240_q4"),
+    ("B64A", "b64a_320x240_q4_p1", "rgba4444_320x240_q4")])
+def test_rgb_codec_on_the_card_matches_golden(cuda, fmt, gold, src):
+    """The 320x240 RG48 and B64A goldens encoded on the card, and the RGB
+    and RGBA decode goldens decoded on both routes to both outputs."""
+    from cineform_tpu_torch import testframes
+    from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
+
+    def golden(name):
+        with open(os.path.join(REPO, "tests", "golden", "samples", name),
+                  "rb") as f:
+            return f.read()
+
+    codec = IntraCodec(320, 240, 4, device=cuda, input_format=fmt)
+    make = {"RG48": testframes.rg48_frame, "B64A": testframes.b64a_frame}
+    frames = np.frombuffer(make[fmt](320, 240, 1), np.uint8).reshape(
+        1, 240, codec.row_bytes)
+    want = golden(f"{gold}.cfhd")
+    assert codec.encode_batch_device(frames, 1, sample_metadata(want))[0] \
+        == want
+    sample = golden(f"{src}.cfhd")
+    for output, ext in (("RG48", "rg48out"), ("b64a", "b64aout")):
+        want = golden(f"{src}.{ext}")
+        assert codec.decode_batch([sample], output=output).tobytes() == want
+        out, fallback = codec.decode_batch_device([sample], output=output)
+        assert fallback == () and out.tobytes() == want
 
 
 @pytest.mark.gpu

@@ -53,7 +53,6 @@ def main() -> int:
     from cineform_tpu_torch.entropy import device as edev
     from cineform_tpu_torch.models.intra import IntraCodec
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
-    from cineform_tpu_torch.ops.dwt_forward import GROUPS
     from cineform_tpu_torch.ops.merge_network import merge_network
     from cineform_tpu_torch.testframes import yuy2_frame
 
@@ -114,7 +113,7 @@ def main() -> int:
 
     totals = collections.defaultdict(lambda: [0.0, 0.0])
     for lev in range(3):
-        for grp, bands in zip(GROUPS, levels[lev][1]):
+        for grp, bands in zip(codec.groups, levels[lev][1]):
             bits, sizes = edev.chunk_codes(codec.group_bands(bands), codes)
             what = f"level {lev + 1} channels {grp}"
             w, d = measure(f"chunk_pack {what} {tuple(bits.shape)}",
