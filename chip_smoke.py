@@ -20,7 +20,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    decode (the merge_network_tgt compaction and the
    merge_network_highfirst spread of every band row class), and times
    both with CUDA events, the DWT's launches also by their device time
-   from torch.profiler, apart from the wrapper's host path;
+   apart from the wrapper's host path (`device_ms`: CUDA events around a
+   call queued behind a spin kernel);
 3. drives the main path through `IntraCodec`: the 1080p golden sample
    (`tests/golden/samples/s_1920x1080_q6_p1`) encoded, decoded with host
    entropy and decoded on the device (`decode_batch_device`), each byte
@@ -58,7 +59,24 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    the overflowed bands, the per-frame times and the peak device memory;
    it fails unless `dwt_forward_planes` was launched 3 times an encode,
    the YUY2 DWT entry points never, and every other kernel of the path;
-7. fails if a module of the JAX package was imported.
+7. runs the 4:2:2 10-bit and Bayer path: first each kernel against its
+   plain version at the shapes of batch-8 encodes of 1080p V210, UYVY and
+   YU64 (`dwt_forward_groups`' level 1 from the group buffers the plain
+   unpack builds, and levels 2-3) and of a 4K UHD BYR4 mosaic (four
+   1920x1080 planes through `dwt_forward_planes`), with every chunk_pack
+   and merge call of the V210 and BYR4 encodes and decodes, the plain
+   unpacks' and the level-1 launches' device times against their bounds;
+   then, with the launch counts set to 0, the main path of each family:
+   the 320x240 UYVY, V210 and YU64 encode goldens (both routes), the BGRA
+   decode golden (both routes), the V210 batch encoded both ways (equal)
+   and decoded both ways to YUY2 and to BGRA (equal, no frame falling
+   back), its transform round trip `inverse(dequantize(forward))` equal to
+   `decode_batch`, the UYVY and YU64 batches encoded both ways (equal); it
+   fails unless that launched `dwt_forward_groups` 3 times an encode and
+   no other DWT entry point; then the BYR4 and BYR5 encode goldens, the
+   BYR4 decode golden and the BYR4 batch the same way (decoded to BYR4),
+   which must launch `dwt_forward_planes` 3 times an encode;
+8. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -74,7 +92,6 @@ from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -90,6 +107,18 @@ RGB_ENCODE_GOLDENS = (("RG48", "rg48_320x240_q4_p1"),
 RGB_DECODE_GOLDENS = (("RG48", "rgb444_320x240_q4"),
                       ("B64A", "rgba4444_320x240_q4"))
 RGB_OUTPUTS = (("RG48", "rg48out"), ("b64a", "b64aout"))
+# the 4:2:2 10-bit and Bayer phase's 320x240 quality-4 encode goldens (each
+# input format's pattern 1 of its test frame, BYR5 the raw fill), and its
+# decode goldens: (source format, sample, output, extension)
+NEW_ENCODE_GOLDENS = (("UYVY", "uyvy_320x240_q4_p1"),
+                      ("V210", "v210_320x240_q4_p1"),
+                      ("YU64", "yu64_320x240_q4_p1"),
+                      ("BYR4", "byr4_320x240_q4_p1"), ("BYR5", "raw_BYR5"))
+NEW_DECODE_GOLDENS = (("YUY2", "s_320x240_q4_p1", "BGRA", "bgraout"),
+                      ("BYR4", "byr4_320x240_q4_p1", "BYR4", "byr4out"))
+# the Bayer batch: a 4K UHD mosaic, four 1920x1080 planes
+BAYER_WIDTH, BAYER_HEIGHT = 3840, 2160
+ALL_PATHS = ("yuy2", "rgb", "yuv10", "bayer")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "samples")
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
@@ -98,6 +127,9 @@ OVERFLOWED_BANDS, PSNR_DB, RATIO = 57, 47.26, 2.93
 # float32 outside the tensor cores, the nearest listed rate for the kernels'
 # 32-bit integer operations
 PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
+# the spin kernel in front of a call that `device_ms` times: 10^7 cycles,
+# about 5 ms at the card's clock, far longer than any timed call's host path
+SPIN_CYCLES = 10_000_000
 
 
 def log(msg: str) -> None:
@@ -121,25 +153,34 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, tmp_dir: str, reps: int = 5) -> float:
-    """Mean device milliseconds of one call of `fn`: the durations of the
-    kernels, memsets and copies it ran, from torch.profiler over `reps`
-    calls after a warm-up, without the host path around them."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Median device milliseconds of one call of `fn`, without the host
+    path around it: CUDA events around the call, queued behind a spin
+    kernel that keeps the card busy until the host has queued the whole
+    call, so that the card runs the call's work back to back.
+    (torch.profiler's traces of such calls lost kernel records on the
+    H100, more of them the later in a long run.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=tmp_dir) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return sum(e["dur"] for e in events if e.get("cat") in (
-        "kernel", "gpu_memset", "gpu_memcpy")) / 1e3 / reps
+    times = []
+    cycles = SPIN_CYCLES
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            times.append(start.elapsed_time(end))
+        elif cycles >= 64 * SPIN_CYCLES:
+            raise AssertionError("device_ms: the host queues the call more "
+                                 "slowly than the card spins")
+        else:
+            cycles *= 2
+    return statistics.median(times)
 
 
 def flat(tree) -> tuple:
@@ -194,19 +235,6 @@ def golden(ext: str, name: str = GOLDEN) -> bytes:
         return f.read()
 
 
-def raw_fill(nbytes: int, pattern: int) -> bytes:
-    """The reference probe's xorshift32 fill of a raw frame
-    (tools/probe_sample.c do_encode_raw), the content of raw_RG64.cfhd."""
-    out = np.empty(nbytes // 4, dtype="<u4")
-    x = 0x77777 + pattern
-    for i in range(len(out)):
-        x ^= (x << 13) & 0xFFFFFFFF
-        x ^= x >> 17
-        x ^= (x << 5) & 0xFFFFFFFF
-        out[i] = x
-    return out.tobytes()
-
-
 def main() -> int:
     # one card: the first of those visible, before torch initialises CUDA
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -233,8 +261,10 @@ def main() -> int:
     from cineform_tpu_torch.ops import merge_network as merges
     from cineform_tpu_torch.ops.merge_network import (
         merge_network, merge_network_highfirst, merge_network_tgt)
-    from cineform_tpu_torch.testframes import (b64a_frame, rg48_frame,
-                                               yuy2_frame)
+    from cineform_tpu_torch.testframes import (b64a_frame, byr4_frame,
+                                               raw_fill, rg48_frame,
+                                               uyvy_frame, v210_frame,
+                                               yu64_frame, yuy2_frame)
 
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"expected one visible card, found "
@@ -258,8 +288,8 @@ def main() -> int:
     dwt_library = ("none: no PyTorch call does the 2-6 filter pair with "
                    "prescale rounding, int16 saturation and dead-zone "
                    "quantization")
-    # paths: the main paths that launch the kernel, YUY2 and the RGB
-    # formats'
+    # paths: the main paths that launch the kernel: YUY2, the RGB formats,
+    # the 10-bit 4:2:2 formats (UYVY, YU64, V210) and Bayer (BYR4, BYR5)
     kernels = {
         "dwt_forward_yuy2": dict(
             wrapper=dwt_forward_yuy2, route="cuda", source=dwt_src,
@@ -272,17 +302,22 @@ def main() -> int:
             wrapper=dwt_forward_groups, route="cuda", source=dwt_src,
             replaces="cineform_tpu/ops/pallas_dwt2.py:99",
             also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
-            mode="levels 2 and 3, Y, V, U in one launch a level, bands in "
-                 "the entropy coder's layout", ops_per_elem=40,
-            paths=("yuy2",), library_note=dwt_library),
+            mode="Y, V, U in one launch a level, bands in the entropy "
+                 "coder's layout: levels 2 and 3 of every 4:2:2 format, "
+                 "level 1 of UYVY, YU64 and V210 from the group buffers the "
+                 "plain unpack builds", ops_per_elem=40,
+            paths=("yuy2", "yuv10"), library_note=dwt_library,
+            ms_covers=f"levels 2 and 3 of one batch-{BATCH} 1080p YUY2 "
+                      "encode"),
         "dwt_forward_planes": dict(
             wrapper=dwt_forward_planes, route="cuda", source=dwt_src,
             replaces="cineform_tpu/ops/pallas_dwt2.py:99",
             also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
-            mode="every level of the RGB formats: the 3 (RGB) or 4 (RGBA) "
-                 "full-width int32 planes in one launch a level, level 1 "
-                 "from the planes the plain unpack builds, bands in the "
-                 "entropy coder's layout", ops_per_elem=40, paths=("rgb",),
+            mode="every level of the RGB and Bayer formats: the 3 (RGB) or "
+                 "4 (RGBA, Bayer) equal-size int32 planes in one launch a "
+                 "level, level 1 from the planes the plain unpack builds, "
+                 "bands in the entropy coder's layout", ops_per_elem=40,
+            paths=("rgb", "bayer"),
             library_note=dwt_library,
             ms_covers=f"the 3 levels of one batch-{BATCH} 1080p RG48 "
                       "encode"),
@@ -290,13 +325,13 @@ def main() -> int:
             wrapper=chunk_pack, route="cuda",
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
             replaces="cineform_tpu/ops/pallas_pack.py:135",
-            ops_per_elem=8 * 16, paths=("yuy2", "rgb")),
+            ops_per_elem=8 * 16, paths=ALL_PATHS),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="low-bit-first (encoder concat): guarded OR placement, "
                  "network on flagged rows", ops_per_elem=20,
-            paths=("yuy2", "rgb")),
+            paths=ALL_PATHS),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -304,13 +339,13 @@ def main() -> int:
             mode="low-bit-first with tgt merged by max (decoder "
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
-            paths=("yuy2", "rgb")),
+            paths=ALL_PATHS),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="high-bit-first (decoder spread_rows, on mirrored rows): "
                  "guarded one-pass placement, network on flagged rows",
-            ms_covers=decode_calls, ops_per_elem=12, paths=("yuy2", "rgb")),
+            ms_covers=decode_calls, ops_per_elem=12, paths=ALL_PATHS),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -345,9 +380,11 @@ def main() -> int:
                 tally=True, timed=True, device=False):
         """Kernel against plain version on `inputs`, both timed unless not
         `timed`; the bound counts each input read and each output written
-        once, and `ops` (default: the kernel's ops per input element).
+        once (chunk_pack writes every chunk's whole capacity of words, the
+        zeros past its bit length included), and `ops` (default: the
+        kernel's ops per input element).
         With `tally`, the times and the bound add to the kernel's line.
-        The device time (torch.profiler) is taken for the kernels that
+        The device time (`device_ms`) is taken for the kernels that
         report one, and for any with `device`."""
         got, want = call(), plain()
         torch.cuda.synchronize()
@@ -374,7 +411,7 @@ def main() -> int:
             k["plain_ms"] += plain_ms
             k["bound_ms"] += bound
         if "device_ms" in k or device:
-            dms = device_ms(torch, call, _build.BUILD_DIR)
+            dms = device_ms(torch, call)
             extra += (f", device {dms:.4f} ms (the bound is "
                       f"{100 * bound / dms:.1f}% of it)")
             if tally and "device_ms" in k:
@@ -382,7 +419,8 @@ def main() -> int:
                 k["bytes"] += moved
         if library is not None:
             lib_ms = cuda_ms(torch, library)
-            k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
+            if tally:
+                k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
             extra += f", library call {lib_ms:.4f} ms"
         log(f"  {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms{extra}")
@@ -393,7 +431,7 @@ def main() -> int:
 
     log(f"kernel checks, batch {BATCH} at {WIDTH}x{HEIGHT} q4 "
         "(tolerance 0; times are CUDA-event medians of 5, device times "
-        "torch.profiler means of 5)")
+        "`device_ms` medians of 5)")
 
     def dwt_levels(c, frames_dev, what, tally):
         """The DWT's three launches on `frames_dev`, each against its plain
@@ -448,7 +486,7 @@ def main() -> int:
     for name in ("dwt_forward_yuy2", "dwt_forward_groups"):
         k = kernels[name]
         log(f"  {name}, a batch: kernel {k['ms']:.4f} ms (CUDA events), "
-            f"device {k['device_ms']:.4f} ms (profiler), bound "
+            f"device {k['device_ms']:.4f} ms (device_ms), bound "
             f"{k['bound_ms']:.4f} ms ({k['bytes']} bytes, "
             f"{100 * k['bound_ms'] / k['device_ms']:.1f}% of the device "
             f"time), {1 if name == 'dwt_forward_yuy2' else 2} launches")
@@ -620,11 +658,32 @@ def main() -> int:
     del guard_rows, val, rem, tgt, varr, darr, got, want
 
     # --- 3. the main path -------------------------------------------------------
-    for k in kernels.values():
-        k["wrapper"].launches = 0
-    dwt_forward_level.launches = 0
-    merges.reset_counts()
-    chunk_pack.tree_chunks[dev].zero_()
+    def reset_counts():
+        """Every launch count and device counter to 0."""
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        dwt_forward_level.launches = 0
+        merges.reset_counts()
+        chunk_pack.tree_chunks[dev].zero_()
+
+    def path_launches(path, encodes, dwt_name):
+        """The launch counts since `reset_counts`; fails unless every
+        kernel of `path` was launched, the DWT entry point `dwt_name` 3
+        times for each of the `encodes`, and no other DWT entry point."""
+        got = {n: k["wrapper"].launches for n, k in kernels.items()}
+        dwts = {n: got[n] for n in ("dwt_forward_yuy2", "dwt_forward_groups",
+                                    "dwt_forward_planes")}
+        want = {n: 3 * encodes if n == dwt_name else 0 for n in dwts}
+        if not all(got[n] for n, k in kernels.items() if path in k["paths"]) \
+                or dwts != want or dwt_forward_level.launches:
+            raise AssertionError(
+                f"the {path} path's {encodes} encodes launched {got} and the "
+                f"single-plane level {dwt_forward_level.launches}: expected "
+                f"every kernel of the path, {dwt_name} 3 times an encode and "
+                "no other DWT entry point")
+        return got
+
+    reset_counts()
 
     gold = golden("cfhd")
     golden_codec = IntraCodec(WIDTH, HEIGHT, GOLDEN_QUALITY, device=dev)
@@ -791,34 +850,42 @@ def main() -> int:
         "tree path")
 
     # --- 5. the RGB formats: kernels at the 1080p batch's shapes -------------
+    def rolled(make, c):
+        """BATCH frames of `make` pattern 1 at the codec's size, rolled one
+        row a frame."""
+        one = np.frombuffer(make(c.width, c.height, 1), np.uint8).reshape(
+            c.height, c.row_bytes)
+        return np.stack([np.roll(one, i, axis=0) for i in range(BATCH)])
+
+    def unpack_timed(fmt, c, up):
+        """The plain unpack that builds level 1's input, its device time
+        against its bound; returns that input."""
+        x = c.level1_input(up)
+        moved = nbytes((up, *flat(x)))
+        dms = device_ms(torch, lambda: c.level1_input(up))
+        bound = bound_ms(moved, 0)[0]
+        log(f"  plain unpack {fmt} {tuple(up.shape)} -> "
+            + " + ".join(str(tuple(t.shape)) for t in flat(x))
+            + f": device {dms:.4f} ms (device_ms), events "
+            f"{cuda_ms(torch, lambda: c.level1_input(up)):.4f} ms; {moved} "
+            f"bytes read and written, bound {bound:.4f} ms "
+            f"({100 * bound / dms:.1f}% of the device time)")
+        return x
+
     rgb = {}
     for fmt, make in (("RG48", rg48_frame), ("B64A", b64a_frame)):
         t0 = time.perf_counter()
         c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format=fmt)
-        rgb_base = np.frombuffer(make(WIDTH, HEIGHT, 1), np.uint8).reshape(
-            HEIGHT, c.row_bytes)
-        rgb[fmt] = (c, np.stack([np.roll(rgb_base, i, axis=0)
-                                 for i in range(BATCH)]))
+        rgb[fmt] = (c, rolled(make, c))
         log(f"{fmt} batch: {BATCH} frames of {make.__name__} pattern 1 "
             f"rolled one row a frame ({time.perf_counter() - t0:.3f} s)")
-    del rgb_base
     log(f"kernel checks, RGB formats, batch {BATCH} at {WIDTH}x{HEIGHT} q4 "
         "(tolerance 0; RG48 timed as above, B64A checked only)")
     for fmt, (c, rgb_frames) in rgb.items():
         timed = fmt == "RG48"
         t = c.tables()
         up = c._upload(rgb_frames)
-        x = torch.stack(c._unpack(up), dim=1)
-        if timed:
-            def unpack():
-                return torch.stack(c._unpack(up), dim=1)
-
-            unpack_bytes = nbytes((up, x))
-            log(f"  plain unpack {fmt} {tuple(up.shape)} -> {tuple(x.shape)}: "
-                f"device {device_ms(torch, unpack, _build.BUILD_DIR):.4f} "
-                f"ms (torch.profiler), events {cuda_ms(torch, unpack):.4f} "
-                f"ms; {unpack_bytes} bytes read and written, bound "
-                f"{bound_ms(unpack_bytes, 0)[0]:.4f} ms")
+        x = unpack_timed(fmt, c, up) if timed else c.level1_input(up)
         levels = []
         for lev in range(3):
             q = [t.band_quant[ch][lev] for ch in range(c.num_channels)]
@@ -834,7 +901,7 @@ def main() -> int:
             k = kernels["dwt_forward_planes"]
             log(f"  dwt_forward_planes, a batch: kernel {k['ms']:.4f} ms "
                 f"(CUDA events), device {k['device_ms']:.4f} ms "
-                f"(profiler), bound {k['bound_ms']:.4f} ms ({k['bytes']} "
+                f"(device_ms), bound {k['bound_ms']:.4f} ms ({k['bytes']} "
                 f"bytes, {100 * k['bound_ms'] / k['device_ms']:.1f}% of the "
                 "device time), 3 launches")
         encode_checks(c, levels, tally=False, timed=timed, device=timed)
@@ -843,129 +910,267 @@ def main() -> int:
                       timed=timed, device=timed)
 
     # --- 5. the RGB formats: the main path ----------------------------------
-    for k in kernels.values():
-        k["wrapper"].launches = 0
-    dwt_forward_level.launches = 0
-    merges.reset_counts()
-    chunk_pack.tree_chunks[dev].zero_()
-    encodes = 0
-    small = {"RG48": lambda: rg48_frame(320, 240, 1),
-             "B64A": lambda: b64a_frame(320, 240, 1),
-             "RG64": lambda: raw_fill(320 * 240 * 8, 1)}
-    for fmt, name in RGB_ENCODE_GOLDENS:
-        gold = golden("cfhd", name)
-        c = IntraCodec(320, 240, 4, device=dev, input_format=fmt)
-        small_frames = np.frombuffer(small[fmt](), np.uint8).reshape(
-            1, 240, c.row_bytes)
-        for route in (c.encode_batch_device, c.encode_batch):
-            if route(small_frames, 1, sample_metadata(gold))[0] != gold:
-                raise AssertionError(f"{fmt} encode ({route.__name__}) "
-                                     f"differs from {name}.cfhd")
-            encodes += 1
-        log(f"golden encode {fmt}: encode_batch_device and encode_batch "
-            f"byte-equal to {name}.cfhd ({len(gold)} bytes)")
-    for fmt, name in RGB_DECODE_GOLDENS:
-        sample = golden("cfhd", name)
-        c = IntraCodec(320, 240, 4, device=dev, input_format=fmt)
-        for output, ext in RGB_OUTPUTS:
-            want = golden(ext, name)
-            out = c.decode_batch([sample], output=output)
-            dev_out, fallback = c.decode_batch_device([sample], output=output)
-            if out.tobytes() != want or fallback \
-                    or dev_out.tobytes() != want:
-                raise AssertionError(f"{name} decoded to {output} differs "
-                                     f"from {name}.{ext} (host fallback "
-                                     f"frames of the device route "
-                                     f"{fallback})")
-        log(f"golden decode {name}: decode_batch and decode_batch_device "
-            f"byte-equal to {name}.rg48out and {name}.b64aout")
+    # the 320x240 goldens' frames: each format's test frame, the raw
+    # formats the probe's raw fill
+    small = {"RG48": rg48_frame, "B64A": b64a_frame,
+             "RG64": lambda w, h, p: raw_fill(w * h * 8, p),
+             "UYVY": uyvy_frame, "V210": v210_frame, "YU64": yu64_frame,
+             "BYR4": byr4_frame,
+             "BYR5": lambda w, h, p: raw_fill(w * h * 3 // 2, p)}
 
-    rgb_lines = []
-    for fmt, (c, rgb_frames) in rgb.items():
-        enc_dev, enc_host, dec_host, dec_dev = [], [], [], []
+    def golden_encodes(goldens) -> int:
+        """The 320x240 encode goldens (input format, name), both routes,
+        byte for byte; returns the encodes run."""
+        n = 0
+        for fmt, name in goldens:
+            gold = golden("cfhd", name)
+            c = IntraCodec(320, 240, 4, device=dev, input_format=fmt)
+            one = np.frombuffer(small[fmt](320, 240, 1), np.uint8).reshape(
+                1, 240, c.row_bytes)
+            for route in (c.encode_batch_device, c.encode_batch):
+                if route(one, 1, sample_metadata(gold))[0] != gold:
+                    raise AssertionError(f"{fmt} encode ({route.__name__}) "
+                                         f"differs from {name}.cfhd")
+                n += 1
+            log(f"golden encode {fmt}: encode_batch_device and encode_batch "
+                f"byte-equal to {name}.cfhd ({len(gold)} bytes)")
+        return n
+
+    def golden_decode(fmt, name, output, ext):
+        """A 320x240 decode golden of a `fmt` source to `output`, both
+        routes, byte for byte, no frame falling back."""
+        sample, want = golden("cfhd", name), golden(ext, name)
+        c = IntraCodec(320, 240, 4, device=dev, input_format=fmt)
+        out = c.decode_batch([sample], output=output)
+        dev_out, fallback = c.decode_batch_device([sample], output=output)
+        if out.tobytes() != want or fallback or dev_out.tobytes() != want:
+            raise AssertionError(f"{name} decoded to {output} differs from "
+                                 f"{name}.{ext} (host fallback frames of "
+                                 f"the device route {fallback})")
+        log(f"golden decode {name} to {output}: decode_batch and "
+            f"decode_batch_device byte-equal to {name}.{ext}")
+
+    def timed_batch(c, frames_, outputs):
+        """The batch encoded both ways (the device route 4 times, timed)
+        and decoded both ways to each of `outputs` (4 times each, timed);
+        fails unless the routes agree with no frame falling back.  Returns
+        (samples, the decodes by output, a figures line, encodes run)."""
+        enc_dev, enc_host = [], []
         for it in range(4):
             packed, ms = host_ms(torch, lambda: c.forward_packed(
-                c._upload(rgb_frames)))
+                c._upload(frames_)))
             enc_dev.append(ms)
             t0 = time.perf_counter()
-            samples = c.write_samples(rgb_frames, packed)
+            samples = c.write_samples(frames_, packed)
             enc_host.append((time.perf_counter() - t0) * 1e3)
-            encodes += 1
             if it == 0:
                 first = (packed, samples)
         packed, samples = first
-        host_samples = c.encode_batch(rgb_frames)
-        encodes += 1
-        if host_samples != samples:
-            raise AssertionError(f"{fmt} batch: encode_batch_device differs "
-                                 "from encode_batch")
+        if c.encode_batch(frames_) != samples:
+            raise AssertionError(f"{c.input_format} batch: "
+                                 "encode_batch_device differs from "
+                                 "encode_batch")
+        overflowed = sum(int(o.sum()) for _, levels in packed
+                         for _, _, o, _ in levels)
+        del first, packed
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
-        for it in range(4):
-            decoded, ms = host_ms(torch, lambda: c.decode_batch(samples))
-            dec_host.append(ms)
-            (dev_decoded, fallback), ms = host_ms(
-                torch, lambda: c.decode_batch_device(samples))
-            dec_dev.append(ms)
-            if fallback or dev_decoded.tobytes() != decoded.tobytes():
-                raise AssertionError(f"{fmt} batch: decode_batch_device "
-                                     f"differs from decode_batch (host "
-                                     f"fallback frames {fallback})")
+        decoded, dec_ms = {}, []
+        for output in outputs:
+            host_t, dev_t = [], []
+            for it in range(4):
+                out, ms = host_ms(torch, lambda: c.decode_batch(
+                    samples, output=output))
+                host_t.append(ms)
+                (dev_out, fallback), ms = host_ms(
+                    torch, lambda: c.decode_batch_device(samples,
+                                                         output=output))
+                dev_t.append(ms)
+                if fallback or dev_out.tobytes() != out.tobytes():
+                    raise AssertionError(
+                        f"{c.input_format} batch to {output}: "
+                        "decode_batch_device differs from decode_batch "
+                        f"(host fallback frames {fallback})")
+            decoded[output] = out
+            dec_ms.append(f"to {output}: decode_batch "
+                          f"{med(host_t[1:]) / BATCH:.4f} ms, "
+                          f"decode_batch_device {med(dev_t[1:]) / BATCH:.4f} "
+                          "ms")
         peak_bytes = torch.cuda.max_memory_allocated()
+        line = (
+            f"{c.input_format} batch {BATCH} at {c.width}x{c.height} q4: "
+            f"device encode byte-equal to encode_batch; {overflowed} of "
+            f"{BATCH * c.num_channels * 9} bands overflowed at cap_bits 8; "
+            f"ratio {frames_.nbytes / sum(len(x) for x in samples):.4f} "
+            "(sample bytes); decode_batch_device equal to decode_batch on "
+            f"all {BATCH} frames, 0 fallback frames. Per frame, medians of "
+            f"3 batches after a warm-up: encode device "
+            f"{med(enc_dev[1:]) / BATCH:.4f} ms (upload + unpack + "
+            f"transform + entropy pack), encode host tail "
+            f"{med(enc_host[1:]) / BATCH:.4f} ms; " + "; ".join(dec_ms)
+            + f"; peak device memory over the decodes {peak_bytes} bytes "
+            f"({peak_bytes / 2**30:.3f} GiB; {base_bytes} allocated before)")
+        return samples, decoded, line, 5
+
+    reset_counts()
+    encodes = golden_encodes(RGB_ENCODE_GOLDENS)
+    for fmt, name in RGB_DECODE_GOLDENS:
+        for output, ext in RGB_OUTPUTS:
+            golden_decode(fmt, name, output, ext)
+
+    rgb_lines = []
+    for fmt, (c, rgb_frames) in rgb.items():
+        output = c.decode_output(None)
+        samples, decoded, line, n = timed_batch(c, rgb_frames, (output,))
+        encodes += n
+        decoded = decoded[output]
         src = rgb_frames.view("<u2").reshape(decoded.shape[0], HEIGHT,
                                               WIDTH, -1)
         out = decoded.reshape(src.shape[0], HEIGHT, WIDTH, -1)
         colour = (src, out) if fmt == "RG48" else (src[..., 1:], out[..., 1:])
         mse = np.mean((colour[0].astype(np.float64) - colour[1]) ** 2)
-        overflowed = sum(int(o.sum()) for _, levels in packed
-                         for _, _, o, _ in levels)
-        ratio = rgb_frames.nbytes / sum(len(x) for x in samples)
-        med3 = [statistics.median(v[1:]) / BATCH
-                for v in (enc_dev, enc_host, dec_host, dec_dev)]
         if decoded.shape != (BATCH, HEIGHT, WIDTH * out.shape[-1]) \
                 or decoded.dtype != np.uint16 or not mse > 0:
             raise AssertionError(f"{fmt} batch decoded to {decoded.shape} "
                                  f"{decoded.dtype}, mse {mse}")
-        rgb_lines += [
-            f"{fmt} batch {BATCH} at {WIDTH}x{HEIGHT} q4: device encode "
-            f"byte-equal to encode_batch; {overflowed} of "
-            f"{BATCH * c.num_channels * 9} bands overflowed at cap_bits 8; "
-            f"ratio {ratio:.4f} (sample bytes); round-trip PSNR of the "
-            f"colour channels {10 * np.log10(65535.0 ** 2 / mse):.4f} dB "
-            f"(16-bit peak); decode_batch_device equal to decode_batch on "
-            f"all {BATCH} frames, 0 fallback frames",
-            f"{fmt} per frame, medians of 3 batches after a warm-up: encode "
-            f"device {med3[0]:.4f} ms (upload + unpack + transform + entropy "
-            f"pack), encode host tail {med3[1]:.4f} ms (fetch, band-end, "
-            f"overflow re-encode, sample write); decode_batch "
-            f"{med3[2]:.4f} ms (parse + C++ entropy decode + upload + "
-            f"inverse + download), decode_batch_device {med3[3]:.4f} ms; "
-            f"peak device memory over the 8 decodes {peak_bytes} bytes "
-            f"({peak_bytes / 2**30:.3f} GiB; {base_bytes} allocated before)"]
-        del first, packed, samples, host_samples, decoded, dev_decoded
-    launches_rgb = {n: k["wrapper"].launches for n, k in kernels.items()}
-    rgb_path = [n for n, k in kernels.items() if "rgb" in k["paths"]]
-    if not all(launches_rgb[n] for n in rgb_path):
-        raise AssertionError(f"a kernel was not launched by the RGB path: "
-                             f"{launches_rgb}")
-    if (launches_rgb["dwt_forward_planes"], launches_rgb["dwt_forward_yuy2"],
-            launches_rgb["dwt_forward_groups"], dwt_forward_level.launches) \
-            != (3 * encodes, 0, 0, 0):
-        raise AssertionError(f"the RGB path's {encodes} encodes launched "
-                             f"{launches_rgb} and the single-plane level "
-                             f"{dwt_forward_level.launches}: expected 3 "
-                             "launches of dwt_forward_planes an encode, none "
-                             "of the YUY2 entry points")
+        rgb_lines += [line, f"{fmt} batch: round-trip PSNR of the colour "
+                      f"channels {10 * np.log10(65535.0 ** 2 / mse):.4f} dB "
+                      "(16-bit peak)"]
+        del samples, decoded, out, src
+    launches_rgb = path_launches("rgb", encodes, "dwt_forward_planes")
     for line in rgb_lines:
         log(line)
-    log(f"launches during the RGB path ({encodes} encodes): {launches_rgb}")
-    log("merge forms during the RGB path: " + "; ".join(
-        f"{w.__name__} branch launches {dict(w.branch_launches)}, rows that "
-        f"failed the guard {int(w.flagged[dev].item())}"
-        for w in (merge_network, merge_network_tgt, merge_network_highfirst)))
-    log(f"chunk_pack during the RGB path: "
-        f"{int(chunk_pack.tree_chunks[dev].item())} chunks took the tree "
-        "path")
+    def log_path(path, encodes, got):
+        log(f"launches during the {path} path ({encodes} encodes): {got}")
+        log(f"merge forms during the {path} path: " + "; ".join(
+            f"{w.__name__} branch launches {dict(w.branch_launches)}, rows "
+            f"that failed the guard {int(w.flagged[dev].item())}"
+            for w in (merge_network, merge_network_tgt,
+                      merge_network_highfirst)))
+        log(f"chunk_pack during the {path} path: "
+            f"{int(chunk_pack.tree_chunks[dev].item())} chunks took the "
+            "tree path")
+
+    log_path("RGB", encodes, launches_rgb)
+
+    # --- 6. 4:2:2 10-bit and Bayer: kernels at the batches' shapes ----------
+    t0 = time.perf_counter()
+    yuv10 = {}
+    for fmt, make in (("V210", v210_frame), ("UYVY", uyvy_frame),
+                      ("YU64", yu64_frame)):
+        c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format=fmt)
+        yuv10[fmt] = (c, rolled(make, c))
+    bayer = IntraCodec(BAYER_WIDTH, BAYER_HEIGHT, 4, device=dev,
+                       input_format="BYR4")
+    bayer_frames = rolled(byr4_frame, bayer)
+    log(f"4:2:2 10-bit batches ({', '.join(yuv10)}) at {WIDTH}x{HEIGHT} and "
+        f"the BYR4 batch at {BAYER_WIDTH}x{BAYER_HEIGHT}: {BATCH} frames of "
+        "each format's test frame pattern 1 rolled one row a frame "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    log(f"kernel checks, 4:2:2 10-bit and Bayer, batch {BATCH} (tolerance 0; "
+        "the V210 level 1 and the BYR4 levels timed as above, the rest "
+        "checked only)")
+    for fmt, (c, frames_) in yuv10.items():
+        timed = fmt == "V210"
+        up = c._upload(frames_)
+        x = unpack_timed(fmt, c, up) if timed else c.level1_input(up)
+        t = c.tables()
+        levels = []
+        for lev in range(3):
+            q = [t.band_quant[ch][lev] for ch in range(3)]
+            ps = t.prescale[lev]
+            out = compare(
+                "dwt_forward_groups", lambda: dwt_forward_groups(x, ps, q),
+                lambda: dwt.plain_groups((x[0][:, 0], x[1][:, 0],
+                                          x[1][:, 1]), ps, q),
+                f"{fmt} level {lev + 1} {tuple(x[0].shape)} + "
+                f"{tuple(x[1].shape)} prescale {ps} quants {q}", x,
+                ops=40 * (x[0].numel() + x[1].numel()), tally=False,
+                timed=timed and lev == 0, device=True)
+            levels.append((out[:2], out[2:]))
+            x = out[:2]
+        if timed:
+            encode_checks(c, levels, tally=False, timed=False)
+        del up, x, levels, out
+        if timed:
+            decode_checks(c, c.encode_batch_device(frames_), tally=False,
+                          timed=False)
+    up = bayer._upload(bayer_frames)
+    x = unpack_timed("BYR4", bayer, up)
+    t = bayer.tables()
+    levels = []
+    for lev in range(3):
+        q = [t.band_quant[ch][lev] for ch in range(4)]
+        ps = t.prescale[lev]
+        ll, highs = compare(
+            "dwt_forward_planes", lambda: dwt_forward_planes(x, ps, q),
+            lambda: dwt.plain_planes(x, ps, q),
+            f"BYR4 level {lev + 1} {tuple(x.shape)} prescale {ps} quants "
+            f"{q}", (x,), tally=False)
+        levels.append(((ll,), (highs,)))
+        x = ll
+    encode_checks(bayer, levels, tally=False, timed=False)
+    del up, x, levels, ll, highs
+    decode_checks(bayer, bayer.encode_batch_device(bayer_frames), tally=False,
+                  timed=False)
+
+    # --- 6. 4:2:2 10-bit and Bayer: the main path --------------------------
+    reset_counts()
+    encodes = golden_encodes(NEW_ENCODE_GOLDENS[:3])
+    golden_decode(*NEW_DECODE_GOLDENS[0])
+    c, frames_ = yuv10["V210"]
+    samples, decoded, line, n = timed_batch(c, frames_, ("YUY2", "BGRA"))
+    encodes += n
+    if decoded["YUY2"].shape != (BATCH, HEIGHT, 2 * WIDTH) \
+            or decoded["BGRA"].shape != (BATCH, HEIGHT, WIDTH, 4) \
+            or decoded["YUY2"].dtype != np.uint8 \
+            or len(np.unique(decoded["YUY2"][0])) < 64:
+        raise AssertionError(f"V210 batch decoded to {decoded['YUY2'].shape}"
+                             f" and {decoded['BGRA'].shape}")
+    yuv10_lines = [line]
+    # the transform round trip (bench.py): the codec's decode without the
+    # entropy coding
+    rt, ms = host_ms(torch, lambda: c.inverse(c.dequantize(c.forward(
+        c._upload(frames_)))).cpu().numpy())
+    encodes += 1
+    if rt.tobytes() != decoded["YUY2"].tobytes():
+        raise AssertionError("V210 batch: inverse(dequantize(forward)) "
+                             "differs from decode_batch")
+    yuv10_lines.append(f"V210 batch: inverse(dequantize(forward(frames))) "
+                       f"byte-equal to decode_batch ({ms / BATCH:.4f} ms a "
+                       "frame, one run)")
+    del samples, decoded, rt
+    for fmt in ("UYVY", "YU64"):
+        c, frames_ = yuv10[fmt]
+        if c.encode_batch_device(frames_) != c.encode_batch(frames_):
+            raise AssertionError(f"{fmt} batch: encode_batch_device differs "
+                                 "from encode_batch")
+        encodes += 2
+        yuv10_lines.append(f"{fmt} batch {BATCH} at {WIDTH}x{HEIGHT} q4: "
+                           "device encode byte-equal to encode_batch")
+    launches_yuv10 = path_launches("yuv10", encodes, "dwt_forward_groups")
+    for line in yuv10_lines:
+        log(line)
+    log_path("4:2:2 10-bit", encodes, launches_yuv10)
+
+    reset_counts()
+    encodes = golden_encodes(NEW_ENCODE_GOLDENS[3:])
+    golden_decode(*NEW_DECODE_GOLDENS[1])
+    samples, decoded, line, n = timed_batch(bayer, bayer_frames, ("BYR4",))
+    encodes += n
+    out = decoded["BYR4"]
+    src = bayer_frames.view("<u2")
+    if out.shape != src.shape or out.dtype != np.uint16:
+        raise AssertionError(f"BYR4 batch decoded to {out.shape} {out.dtype}")
+    mse = np.mean((out[0].astype(np.float64) - src[0]) ** 2)
+    launches_bayer = path_launches("bayer", encodes, "dwt_forward_planes")
+    log(line)
+    psnr16 = 10 * np.log10(65535.0 ** 2 / mse)
+    log(f"BYR4 batch: frame 0's round-trip PSNR {psnr16:.4f} dB (16-bit "
+        "peak, through the LOG-90 curve and back)")
+    log_path("Bayer", encodes, launches_bayer)
+    del samples, decoded, out, src
 
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
@@ -978,13 +1183,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
+    by_path = {"yuy2": launches, "rgb": launches_rgb, "yuv10": launches_yuv10,
+               "bayer": launches_bayer}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],
          **{key: k[key] for key in ("also_replaces", "mode", "device_ms",
                                     "library_note") if key in k},
-         "launches": launches[n] + launches_rgb[n],
-         "launches_by_path": {"yuy2": launches[n], "rgb": launches_rgb[n]},
+         "launches": sum(by[n] for by in by_path.values()),
+         "launches_by_path": {path: by[n] for path, by in by_path.items()},
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -1,13 +1,14 @@
-"""CFHD intra codec on a torch device: YUY2 4:2:2, RGB 4:4:4 (RG48) and
-RGBA 4:4:4:4 (B64A, RG64) encode and decode.
+"""CFHD intra codec on a torch device: 4:2:2 (YUY2, UYVY, YU64, V210), RGB
+4:4:4 (RG48), RGBA 4:4:4:4 (B64A, RG64) and Bayer (BYR4, BYR5) encode and
+decode.
 
-Port of `cineform_tpu.models.intra.IntraCodec` on those paths.  The split
-between device and host is the JAX package's:
+Port of `cineform_tpu.models.intra.IntraCodec`.  The split between device
+and host is the JAX package's:
 
 - encode: the 3-level production DWT with quantization, one launch a
   level for all the channels, the bands written in the entropy coder's
   layout (kernels `ops.dwt_forward`; YUY2's level 1 reads the frames'
-  bytes, the RGB formats' the planes that the plain `unpack_*` builds on
+  bytes, the other formats' the planes that the plain `unpack_*` builds on
   the device), then per (wavelet level, channel group) the band entropy
   encoder (`entropy.device.encode_band_arrays`, kernels
   `ops.chunk_pack` and `ops.merge_network`) on the device; the host
@@ -21,7 +22,8 @@ between device and host is the JAX package's:
   (`entropy.device_decode.decode_band_rows`, kernels
   `ops.merge_network.merge_network_tgt` and `merge_network_highfirst`),
   then the inverse DWT and the output: YUY2 with the reference's glibc
-  output dither, or the 16-bit RG48 and b64a rows of the RGB formats.  A
+  output dither or BGRA for 4:2:2 sources, the 16-bit RG48 and b64a rows
+  of the RGB formats, the 16-bit BYR4 mosaic of Bayer sources.  A
   frame the device route does not take (wrong dimensions, a band with
   peaks or unaligned payload, a device overflow flag) is decoded by
   `decode_batch`, per frame.
@@ -36,6 +38,7 @@ stage runs eagerly, once per call; there is no tracing or staging.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -45,10 +48,13 @@ from cineform_tpu_torch.entropy import device as edev
 from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.entropy import native as entropy_native
 from cineform_tpu_torch.models import intra_host
+from cineform_tpu_torch.ops import bgra
 from cineform_tpu_torch.ops import intra_transform as ops
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_planes,
                                                 dwt_forward_yuy2)
+from cineform_tpu_torch.ref.demosaic import log2lin_lut
+from cineform_tpu_torch.ref.intra import byr4_log90_curve
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
@@ -62,17 +68,34 @@ from cineform_tpu_torch.state import CodecTables, codec_tables
 #   RGBA      = 12-bit 4:4:4:4 [G, R, B, A] (b64a: chroma tables stay
 #               chroma)
 #   RGBA_FULL = RG64 (chroma_full_res like RGB)
+#   BAYER     = 12-bit quarter-res difference planes [G, RG, BG, DG],
+#               rgb_quality=3 (`Codec/encoder.c:2637`)
 _DEVICE_FORMATS = {
     "YUY2": {"code": 2, "row_bytes": lambda w: 2 * w, "encoded": "YUV"},
+    "UYVY": {"code": 1, "row_bytes": lambda w: 2 * w, "encoded": "YUV"},
+    "YU64": {"code": 12, "row_bytes": lambda w: 4 * w, "encoded": "YUV"},
+    "V210": {"code": 10, "row_bytes": lambda w: ((w + 47) // 48) * 128,
+             "encoded": "YUV"},
     "RG48": {"code": 120, "row_bytes": lambda w: 6 * w, "encoded": "RGB"},
     "B64A": {"code": 30, "row_bytes": lambda w: 8 * w, "encoded": "RGBA"},
     "RG64": {"code": 121, "row_bytes": lambda w: 8 * w,
              "encoded": "RGBA_FULL"},
+    "BYR4": {"code": 104, "row_bytes": lambda w: 2 * w, "encoded": "BAYER"},
+    "BYR5": {"code": 105, "row_bytes": lambda w: 3 * w // 2,
+             "encoded": "BAYER"},
 }
 
 #: the decode outputs of each encoded format, the default first
-_DECODE_OUTPUTS = {"YUV": ("YUY2",), "RGB": ("RG48", "b64a"),
-                   "RGBA": ("b64a", "RG48"), "RGBA_FULL": ("b64a", "RG48")}
+_DECODE_OUTPUTS = {"YUV": ("YUY2", "BGRA"), "RGB": ("RG48", "b64a"),
+                   "RGBA": ("b64a", "RG48"), "RGBA_FULL": ("b64a", "RG48"),
+                   "BAYER": ("BYR4",)}
+
+
+@lru_cache(maxsize=None)
+def _table(table, device: torch.device) -> torch.Tensor:
+    """The host table `table()` of the reference (the BYR4 encode curve or
+    the BYR4 decode's log-to-linear restore) as int32 on `device`."""
+    return torch.from_numpy(table().astype(np.int32)).to(device)
 
 
 def _u16(x: torch.Tensor) -> torch.Tensor:
@@ -122,10 +145,8 @@ class IntraCodec:
 
     def __post_init__(self):
         if self.input_format not in _DEVICE_FORMATS:
-            raise NotImplementedError(
-                f"input format {self.input_format!r}: the port encodes "
-                f"{', '.join(_DEVICE_FORMATS)}; the other device formats "
-                "are ROADMAP.md Queue 1 item 9")
+            raise ValueError(f"input format {self.input_format!r}: the "
+                             f"codec encodes {', '.join(_DEVICE_FORMATS)}")
         object.__setattr__(self, "device", torch.device(self.device))
 
     @property
@@ -134,9 +155,16 @@ class IntraCodec:
 
     @property
     def params(self) -> IntraParams:
+        """The transform's parameters; a Bayer codec transforms the
+        mosaic's quarter-res planes."""
         if self.encoded == "YUV":
             return IntraParams(width=self.width, height=self.height,
                                quality=self.quality)
+        if self.encoded == "BAYER":
+            return IntraParams(width=self.width // 2, height=self.height // 2,
+                               quality=self.quality,
+                               precision=tags.PRECISION_12BIT,
+                               chroma_full_res=True, rgb_quality=3)
         return IntraParams(width=self.width, height=self.height,
                            quality=self.quality,
                            precision=tags.PRECISION_12BIT,
@@ -150,7 +178,7 @@ class IntraCodec:
     def groups(self) -> tuple[tuple[int, ...], ...]:
         """The channels by group of equal plane shape, each group one call
         of the DWT and of the entropy coder a level: 4:2:2's Y, then V and
-        U; all the channels of RGB and RGBA."""
+        U; all the channels of RGB, RGBA and Bayer."""
         if self.encoded == "YUV":
             return ((0,), (1, 2))
         return (tuple(range(self.num_channels)),)
@@ -158,7 +186,7 @@ class IntraCodec:
     def plane_width(self, ch: int) -> int:
         if self.encoded == "YUV" and ch > 0:
             return self.width // 2
-        return self.width
+        return self.params.width
 
     @property
     def _write_sample_kwargs(self) -> dict:
@@ -167,6 +195,8 @@ class IntraCodec:
         common = {"input_format": self.input_format_code, "colorspace": None}
         if self.encoded == "RGB":
             return {**common, "encoded_format": tags.ENCODED_FORMAT_RGB_444}
+        if self.encoded == "BAYER":
+            return {**common, "encoded_format": tags.ENCODED_FORMAT_BAYER}
         return {**common, "encoded_format": tags.ENCODED_FORMAT_RGBA_4444,
                 "quality_high": 0x2000}
 
@@ -179,17 +209,48 @@ class IntraCodec:
         return _DEVICE_FORMATS[self.input_format]["code"]
 
     def _unpack(self, frames: torch.Tensor):
-        """(B, H, row_bytes) uint8 RGB frames -> the 12-bit channel
-        planes, each (B, H, W) int32 (plain PyTorch)."""
+        """(B, H, row_bytes) uint8 frames -> the channel planes, each (B, h,
+        w) int32 (plain PyTorch): 10-bit 4:2:2's Y, V, U, the RGB
+        formats' 12-bit [G, R, B(, A)], Bayer's quarter-res 12-bit [G, RG,
+        BG, DG]."""
+        fmt = self.input_format
+        if fmt == "UYVY":
+            return ops.unpack_uyvy(frames, self.params.precision)
+        if fmt == "YU64":
+            return ops.unpack_yu64(frames)
+        if fmt == "V210":
+            return ops.unpack_v210(frames, self.width)
+        if fmt == "BYR4":
+            return ops.unpack_byr4(frames, _table(byr4_log90_curve,
+                                                  frames.device))
+        if fmt == "BYR5":
+            # BYR5's rows are quarter-res rows of 3W bytes
+            return ops.unpack_byr5(frames.reshape(
+                frames.shape[0], self.height // 2, 3 * self.width))
         return {"RG48": ops.unpack_rg48, "B64A": ops.unpack_b64a,
-                "RG64": ops.unpack_rg64}[self.input_format](frames)
+                "RG64": ops.unpack_rg64}[fmt](frames)
+
+    def level1_input(self, frames: torch.Tensor):
+        """(B, H, row_bytes) uint8 frames on the device -> what the first
+        DWT launch reads, built by the plain unpack: the 4:2:2 formats'
+        group buffers, Y (B, 1, H, W) and V, U (B, 2, H, W/2); the other
+        formats' (B, G, h, w) planes.  YUY2's level 1 reads the frames
+        themselves and has none."""
+        planes = self._unpack(frames)
+        if self.encoded == "YUV":
+            # V210's luma is a view cut to the width from whole 6-pixel
+            # groups; the kernel takes contiguous buffers
+            return (planes[0][:, None].contiguous(),
+                    torch.stack(planes[1:], dim=1))
+        return torch.stack(planes, dim=1)
 
     def tables(self, frame_index: int = 0) -> CodecTables:
         p = self.params
-        return codec_tables(self.width, self.height, self.quality,
+        return codec_tables(p.width, p.height, self.quality,
                             frame_index, device=self.device,
                             precision=p.precision,
                             chroma_full_res=p.chroma_full_res,
+                            rgb_quality=p.rgb_quality,
                             num_channels=self.num_channels)
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
@@ -208,20 +269,25 @@ class IntraCodec:
         (B, G, h, w) the lowpass planes, highs (B, G, 3, h, pitch) the
         quantized (LH, HL, HH) bands in the entropy coder's layout.  On a
         card, one launch a level: YUY2's level 1 reads the frames' bytes,
-        the RGB formats' the unpacked planes."""
+        the other formats' the unpacked planes (`level1_input`)."""
         t = self.tables()
 
         def quants(k):
             return [t.band_quant[ch][k] for ch in range(self.num_channels)]
 
         if self.encoded == "YUV":
-            levels = [dwt_forward_yuy2(frames, self.params.precision,
-                                       t.prescale[0], quants(0))]
+            if self.input_format == "YUY2":
+                first = dwt_forward_yuy2(frames, self.params.precision,
+                                         t.prescale[0], quants(0))
+            else:
+                first = dwt_forward_groups(self.level1_input(frames),
+                                           t.prescale[0], quants(0))
+            levels = [first]
             for k in (1, 2):
                 levels.append(dwt_forward_groups(levels[-1][0],
                                                  t.prescale[k], quants(k)))
             return levels
-        x = torch.stack(self._unpack(frames), dim=1)
+        x = self.level1_input(frames)
         levels = []
         for k in range(3):
             x, highs = dwt_forward_planes(x, t.prescale[k], quants(k))
@@ -369,6 +435,16 @@ class IntraCodec:
 
     # --- decode ------------------------------------------------------------
 
+    def dequantize(self, coeffs):
+        """Per-channel (lowpass, [(LH, HL, HH)]) quantized coefficients ->
+        the same with the bands dequantized, as the entropy decoder folds
+        it into its tables (`ops.dequantize` with each band's quantizer)."""
+        p = self.params
+        return [(lowpass, [tuple(ops.dequantize(b, q)
+                                 for b, q in zip(bs, p.band_quant(ch)[k]))
+                           for k, bs in enumerate(bands)])
+                for ch, (lowpass, bands) in enumerate(coeffs)]
+
     def inverse(self, coeffs, frame_index: int = 0) -> torch.Tensor:
         """Per-channel (lowpass, bands) -> (B, H, 2W) uint8 YUY2 frames.
 
@@ -382,6 +458,19 @@ class IntraCodec:
             lowpass, bands, t.prescale, dither=dy if ch == 0 else dc)
             for ch, (lowpass, bands) in enumerate(coeffs)]
         return ops.pack_yuy2(*planes)
+
+    def inverse_bgra(self, coeffs) -> torch.Tensor:
+        """4:2:2 coefficients -> (B, H, W, 4) uint8 BGRA rows, bottom row
+        first: the fused final-level inverse and YUV->RGB conversion
+        (`ops.bgra`), fed the strips with the default +24 lowpass channel
+        offset (+5 at odd lowpass widths, `Codec/decoder.c:12258`)."""
+        p = self.params
+        (yl, yh), (c1l, c1h), (c2l, c2h) = [ops.inverse_channel_strips(
+            lowpass + intra_host.lowpass_offset_absolute(lowpass.shape[-1]),
+            bands, p.prescale)
+            for lowpass, bands in coeffs]
+        return bgra.strip_to_bgra(yl, yh, c2l, c2h, c1l, c1h,
+                                  p.precision).flip(-3)
 
     def _row16u_planes(self, coeffs):
         """Per-channel Row16u reconstruction (the deep paths take no
@@ -420,9 +509,29 @@ class IntraCodec:
             a = torch.full_like(g, 65520)
         return torch.stack([a, r, g, b], dim=-1).flatten(-2)
 
+    def inverse_byr4(self, coeffs) -> torch.Tensor:
+        """Bayer coefficients (G, RG, BG, GD difference planes) -> (B, H,
+        W) int32 BYR4 mosaic rows of uint16 values: GenerateBYR2's
+        un-difference with the BYR4LinearRestore log-to-linear table
+        (`Codec/bayer.c:13237`)."""
+        g, rg, bg, gd = self._row16u_planes(coeffs)
+        lut = _table(log2lin_lut, g.device)
+        r = (((rg - 32768) << 1) + g).clamp(0, 0xFFFF)
+        b = (((bg - 32768) << 1) + g).clamp(0, 0xFFFF)
+        gd = gd - 32768
+        g1 = (g + gd).clamp(0, 0xFFFF)
+        g2 = (g - gd).clamp(0, 0xFFFF)
+        r, g1, g2, b = (lut[(x >> 2).long()] for x in (r, g1, g2, b))
+        *lead, h, w = g.shape
+        line_a = torch.stack([r, g1], dim=-1).reshape(*lead, h, 2 * w)
+        line_b = torch.stack([g2, b], dim=-1).reshape(*lead, h, 2 * w)
+        return torch.stack([line_a, line_b], dim=-2).reshape(*lead, 2 * h,
+                                                              2 * w)
+
     def decode_output(self, output: str | None) -> str:
         """The decode output `output` names, checked, or the format's
-        default: YUY2 for YUY2 sources, RG48 for RGB, b64a for RGBA."""
+        default: YUY2 for 4:2:2 sources, RG48 for RGB, b64a for RGBA, BYR4
+        for Bayer."""
         outputs = _DECODE_OUTPUTS[self.encoded]
         if output is None:
             return outputs[0]
@@ -434,14 +543,18 @@ class IntraCodec:
     def inverse_output(self, coeffs, frame_index: int = 0,
                        output: str | None = None) -> torch.Tensor:
         """Per-channel (lowpass, bands) -> the decoded batch on the device:
-        (B, H, 2W) uint8 YUY2 with the output dither of `frame_index`, or
-        the 16-bit RG48 (B, H, 3W) and b64a (B, H, 4W) rows as int16 bit
-        patterns."""
+        (B, H, 2W) uint8 YUY2 with the output dither of `frame_index`,
+        (B, H, W, 4) uint8 BGRA, or the 16-bit RG48 (B, H, 3W), b64a (B, H,
+        4W) and BYR4 (B, H, W) rows as int16 bit patterns."""
         output = self.decode_output(output)
         if output == "YUY2":
             return self.inverse(coeffs, frame_index)
+        if output == "BGRA":
+            return self.inverse_bgra(coeffs)
         if output == "RG48":
             return _u16(self.inverse_rg48(coeffs))
+        if output == "BYR4":
+            return _u16(self.inverse_byr4(coeffs))
         return _u16(self.inverse_b64a(coeffs))
 
     def host_entropy_decode(self, samples: list[bytes]):
@@ -487,9 +600,9 @@ class IntraCodec:
     def decode_batch(self, samples: list[bytes], frame_index: int = 0,
                      output: str | None = None) -> np.ndarray:
         """Decode CFHD samples with the host C++ entropy decoder, then the
-        inverse and the output on the device: (B, H, 2W) uint8 YUY2, or
-        (B, H, 3W) RG48 or (B, H, 4W) b64a uint16 rows (`output`, by
-        default the source format's).
+        inverse and the output on the device: (B, H, 2W) uint8 YUY2 or (B,
+        H, W, 4) uint8 BGRA, or (B, H, 3W) RG48, (B, H, 4W) b64a or (B, H,
+        W) BYR4 uint16 rows (`output`, by default the source format's).
 
         frame_index positions the YUY2 output dither within the decoder
         process's rand stream (a sequential decoder passes 0, 1, 2, ...)."""
@@ -503,7 +616,7 @@ class IntraCodec:
     def _DECODE_CLASSES(self):
         """Band row classes (wavelet index k, plane channels); k indexes
         band dims plane >> (k + 1).  4:2:2 luma and chroma differ in width,
-        so they decode as separate classes; the RGB formats' channels
+        so they decode as separate classes; the other formats' channels
         share one class a level."""
         return tuple((k, planes) for k in range(3) for planes in self.groups)
 
@@ -512,7 +625,7 @@ class IntraCodec:
     MIN_ROW_CHUNKS = 256
 
     def _class_dims(self, k: int, planes: tuple[int, ...]):
-        bh = self.height >> (k + 1)
+        bh = self.params.height >> (k + 1)
         bw = self.plane_width(planes[0]) >> (k + 1)
         return bh, bw, intra_host.align16_pixels(bw)
 
@@ -574,7 +687,8 @@ class IntraCodec:
         batch = len(samples)
         pin = self.device.type == "cuda"
         nch = self.num_channels
-        lh = self.height >> 3
+        p = self.params
+        lh = p.height >> 3
         lws = tuple(self.plane_width(ch) >> 3 for ch in range(nch))
         #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
         parts: dict = {}
@@ -582,7 +696,7 @@ class IntraCodec:
         fallback = set()
         for i, sample in enumerate(samples):
             r = fastwalk.walk(sample)
-            if r is None or (r.width, r.height) != (self.width, self.height) \
+            if r is None or (r.width, r.height) != (p.width, p.height) \
                     or r.nchannels != nch or 0 in r.lowpass_off \
                     or r.lowpass_h != (lh,) * nch or r.lowpass_w != lws:
                 fallback.add(i)
@@ -633,7 +747,8 @@ class IntraCodec:
             w = lws[ch]
             arr = torch.zeros((batch, lh, w), dtype=torch.int32,
                               pin_memory=pin)
-            # the 8-bit YUY2 output's bias; the deep RGB paths take none
+            # the 4:2:2 outputs' bias; the deep RGB and Bayer paths take
+            # none
             bias = (intra_host.lowpass_channel_offset(w)
                     if self.encoded == "YUV" else 0)
             for i in live:

@@ -2,9 +2,9 @@
 
 A copy of the parts of the JAX package's `models/intra_host.py` that the
 intra codec uses: the band pitch, the encode-time metadata block, the
-sample writer for a 4:2:2, RGB 4:4:4 or RGBA 4:4:4:4 intra frame, the host
-band encoder (the C++ coder, for bands that overflow the device's
-capacity) and the decoder's lowpass bias.  Its samples equal the reference
+sample writer for a 4:2:2, RGB 4:4:4, RGBA 4:4:4:4 or Bayer intra frame,
+the host band encoder (the C++ coder, for bands that overflow the device's
+capacity) and the decoder's lowpass offsets.  Its samples equal the reference
 SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
@@ -114,8 +114,8 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
                  quality_high: int = 0) -> bytes:
     """Assemble a complete CFHD intra sample.  The defaults write a YUY2
     frame (4:2:2, BT.709); `colorspace=None` writes no colourspace tag, as
-    the RGB formats do, and `quality_high` is ORed into the QUALITY_H tag
-    (0x2000 for RGBA)."""
+    the RGB and Bayer formats do, and `quality_high` is ORed into the
+    QUALITY_H tag (0x2000 for RGBA)."""
     w = SampleWriter()
     num_channels = len(channels)
     num_wavelets = params.num_wavelets
@@ -265,3 +265,10 @@ def lowpass_channel_offset(lowpass_width: int) -> int:
     widths (chroma at w % 32 == 16 frame widths, e.g. 144) the generic path
     adds +5, which does not propagate exactly: the bias is 5 - 24."""
     return 5 - 24 if lowpass_width % 2 else 0
+
+
+def lowpass_offset_absolute(lowpass_width: int) -> int:
+    """The absolute channeloffset (`decoder.c:12258-12505`, precision 10)
+    of a one-frame 8-bit reconstruction built from scratch, as the BGRA
+    output is: +24, or +5 at odd lowpass widths."""
+    return 5 if lowpass_width % 2 else 24

@@ -1,7 +1,9 @@
 """Production CFHD intra transform as PyTorch tensor functions.
 
-Port of `cineform_tpu.ops.intra_transform` (the YUY2, RG48, B64A and RG64
-paths), bit-exact against it and therefore against the NumPy oracle
+Port of `cineform_tpu.ops.intra_transform` (the 4:2:2 YUY2, UYVY, YU64 and
+V210 paths, the RGB 4:4:4 RG48, the RGBA 4:4:4:4 B64A and RG64, the Bayer
+BYR4 and BYR5, and the decoder's dequantization), bit-exact against it and
+therefore against the NumPy oracle
 `cineform_tpu.ref.intra` and the reference SDK.  All arithmetic is int32
 on tensors of any leading shape; planes are (..., H, W).
 
@@ -115,6 +117,31 @@ def quantize(v: torch.Tensor, q: int) -> torch.Tensor:
         mid -= 1
     mag = (((v.abs() + mid) & 0xFFFF) * mult) >> 16
     return torch.sign(v) * mag
+
+
+def _compand_mag(c: torch.Tensor) -> torch.Tensor:
+    """Cubic companded magnitude: c + (c^3*768)>>24, rewritten shift-exact
+    as (c^3*3)>>16 so it stays in int32 (`Codec/codebooks.c:1048`)."""
+    return c + ((c * c * c * 3) >> 16)
+
+
+def requantize_magnitude(m: torch.Tensor) -> torch.Tensor:
+    """Quantized magnitude -> reconstructed magnitude after the encoder's
+    cubic companding and the decoder's expansion (ScaleFSM), i.e.
+    mag(max{code : mag(code) <= m}), by an 8-step binary search over the
+    monotone companding curve (elementwise, no table gather)."""
+    c = torch.zeros_like(m)
+    for bit in (128, 64, 32, 16, 8, 4, 2, 1):
+        t = c | bit
+        c = torch.where(_compand_mag(t) <= m, t, c)
+    return _compand_mag(c)
+
+
+def dequantize(codes: torch.Tensor, q: int) -> torch.Tensor:
+    """FSM dequantization: clamp, compand and expand, then the int16
+    wrapping multiply (`ScaleFSM` + `DeQuantFSM`, `Codec/decoder.c:20551`)."""
+    mag = requantize_magnitude(codes.clamp(-1023, 1023).abs())
+    return wrap16(torch.sign(codes) * mag * q)
 
 
 def dwt2d_forward(x: torch.Tensor, prescale: int = 0,
@@ -325,6 +352,62 @@ def pack_yuy2(y: torch.Tensor, v: torch.Tensor, u: torch.Tensor) -> torch.Tensor
     return quad.reshape(*lead, h, 2 * w).to(torch.uint8)
 
 
+def unpack_uyvy(frame: torch.Tensor, precision: int = 10):
+    """(..., H, 2W) uint8 2vuy/UYVY (U Y0 V Y1) -> (Y, V, U) planes
+    (`Codec/convert.c:5310`)."""
+    *lead, h, w2 = frame.shape
+    quad = frame.reshape(*lead, h, w2 // 4, 4).to(torch.int32)
+    shift = precision - 8
+    y = quad[..., 1::2].reshape(*lead, h, w2 // 2) << shift
+    return y, quad[..., 2] << shift, quad[..., 0] << shift
+
+
+def unpack_yu64(frame: torch.Tensor):
+    """(..., H, 4W) uint8 little-endian YU64 (16-bit 4:2:2, pairs
+    [Y0 C1 Y1 C2]) -> 10-bit (Y, C1, C2) planes (`Codec/frame.c:1556`)."""
+    *lead, h, w4 = frame.shape
+    px = _le16(frame, 4)                       # (..., H, W/2, 4)
+    y = px[..., 0::2].reshape(*lead, h, w4 // 4) >> 6
+    return y, px[..., 1] >> 6, px[..., 3] >> 6
+
+
+def unpack_v210(frame: torch.Tensor, width: int):
+    """(..., H, pitch) uint8 v210 rows -> 10-bit (Y, Cr, Cb) planes
+    (`Codec/convert.c:3968`, including its cross-wired u/v outputs, and the
+    Cr lag of its scalar tail, the columns past the last multiple of 48:
+    each 6-pixel group there gives Cr [c0, c0, c1] and drops c2).  Equals
+    the JAX package's device unpack where that one runs (width % 48 == 0)
+    and its NumPy oracle `ref.intra.unpack_v210` at every width."""
+    *lead, h, pitch = frame.shape
+    if pitch != ((width + 47) // 48) * 128:
+        raise ValueError(f"unpack_v210: rows of {pitch} bytes, a v210 row "
+                         f"{width} pixels wide has "
+                         f"{((width + 47) // 48) * 128}")
+    ngroups = (width + 5) // 6
+    b = frame.reshape(*lead, h, pitch // 4, 4).to(torch.int32)
+    # the top two bits of a word carry no sample: dropped, so that the
+    # shift stays inside int32
+    w32 = (b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+           | ((b[..., 3] & 0x3F) << 24))
+    g = w32[..., :4 * ngroups].reshape(*lead, h, ngroups, 4)
+    s0, s1, s2 = g & 0x3FF, (g >> 10) & 0x3FF, (g >> 20) & 0x3FF
+    y = torch.stack([s1[..., 0], s0[..., 1], s2[..., 1],
+                     s1[..., 2], s0[..., 3], s2[..., 3]], dim=-1)
+    cb = torch.stack([s0[..., 0], s1[..., 1], s2[..., 2]], dim=-1)
+    cr = torch.stack([s2[..., 0], s0[..., 2], s1[..., 3]], dim=-1)
+    y = y.reshape(*lead, h, 6 * ngroups)[..., :width]
+    cb = cb.reshape(*lead, h, 3 * ngroups)[..., :width // 2]
+    cr = cr.reshape(*lead, h, 3 * ngroups)[..., :width // 2]
+    i0 = (width - width % 48) // 2          # the tail's first chroma column
+    n = (width // 2 - i0) // 3              # its whole 3-column groups
+    if n:
+        tail = cr[..., i0:i0 + 3 * n].reshape(*lead, h, n, 3)
+        tail = torch.stack([tail[..., 0], tail[..., 0], tail[..., 1]], -1)
+        cr = torch.cat([cr[..., :i0], tail.flatten(-2), cr[..., i0 + 3 * n:]],
+                       dim=-1)
+    return y, cr, cb
+
+
 def _le16(frame: torch.Tensor, last: int) -> torch.Tensor:
     """(..., H, 2*N) uint8 -> (..., H, N/last, last) int32 little-endian
     u16."""
@@ -362,3 +445,65 @@ def unpack_rg64(frame: torch.Tensor):
     px = _le16(frame, 4)
     return (px[..., 1] >> 4, px[..., 0] >> 4, px[..., 2] >> 4,
             _alpha_companding(px[..., 3] >> 4))
+
+
+def _bayer_planes(r, g1, g2, b, log_curve: bool):
+    """Quadrant components -> [G, RG, BG, DG] 12-bit difference planes
+    (`ConvertBYR4ToFrame16s` `Codec/frame.c:4993` with the LOG-90 curve
+    applied upstream; `ConvertBYR5ToFrame16s` `frame.c:5473` linear)."""
+    g = (g1 + g2) >> 1
+    if log_curve:
+        rg = ((r - g) >> 1) + 2048
+        bg = ((b - g) >> 1) + 2048
+    else:
+        rg = (r - g + 4096) >> 1
+        bg = (b - g + 4096) >> 1
+    dg = (g1 - g2 + 4096) >> 1
+    return g, rg, bg, dg
+
+
+def _bayer_order(q00, q01, q10, q11, bayer_format: int):
+    """The mosaic's four quadrants -> (R, G1, G2, B) for its Bayer order."""
+    if bayer_format == 0:      # RED_GRN
+        return q00, q01, q10, q11
+    if bayer_format == 1:      # GRN_RED
+        return q01, q00, q11, q10
+    if bayer_format == 2:      # GRN_BLU
+        return q10, q00, q11, q01
+    return q11, q01, q10, q00  # BLU_GRN
+
+
+def unpack_byr4(frame: torch.Tensor, log_lut: torch.Tensor,
+                bayer_format: int = 0):
+    """(..., H, 2W) uint8 BYR4 (16-bit Bayer mosaic LE) -> quarter-res
+    12-bit planes [G, RG, BG, DG] after the LOG-90 encode curve
+    (`ConvertBYR4ToFrame16s` `Codec/frame.c:4993`; log_lut is the 14-bit
+    `ref.intra.byr4_log90_curve` table as int32 on the frame's device)."""
+    mosaic = _le16(frame, 1)[..., 0] >> 2
+    m = log_lut[mosaic.long()]
+    q00, q01 = m[..., 0::2, 0::2], m[..., 0::2, 1::2]
+    q10, q11 = m[..., 1::2, 0::2], m[..., 1::2, 1::2]
+    r, g1, g2, bl = _bayer_order(q00, q01, q10, q11, bayer_format)
+    return _bayer_planes(r, g1, g2, bl, log_curve=True)
+
+
+def unpack_byr5(frame: torch.Tensor, bayer_format: int = 0):
+    """(..., H/2, 3W) uint8 BYR5 (packed 12-bit Bayer: per quarter-res row
+    the four component rows' high bytes, then 4-bit remainders two per
+    byte, low nibble first) -> quarter-res 12-bit [G, RG, BG, DG]
+    (`ConvertBYR5ToFrame16s`, `Codec/frame.c:5473`; linear, no curve)."""
+    wc = frame.shape[-1] // 6
+    rows = frame.to(torch.int32)
+    nib = rows[..., 4 * wc:6 * wc]
+    low = torch.stack([nib & 0xF, (nib >> 4) & 0xF], dim=-1).flatten(-2)
+    v = (rows[..., :4 * wc] << 4) | low
+    comp = [v[..., i * wc:(i + 1) * wc] for i in range(4)]
+    if bayer_format == 0:
+        r, g1, g2, b = comp
+    elif bayer_format == 1:
+        g1, r, b, g2 = comp
+    elif bayer_format == 2:
+        g1, b, r, g2 = comp
+    else:
+        b, g1, g2, r = comp
+    return _bayer_planes(r, g1, g2, b, log_curve=False)

@@ -1,8 +1,9 @@
-"""The reference decoder's output dither, on the host.
+"""Host tables of the reference codec: the decoder's output dither and
+the BYR4 encode curve.
 
-A copy of `decode_dither_rows` from the JAX package's NumPy oracle
-(`ref/intra.py`); the port's transform is held against that oracle in the
-tests and keeps no copy of it.
+A copy of `decode_dither_rows` and `byr4_log90_curve` from the JAX
+package's NumPy oracle (`ref/intra.py`); the port's transform is held
+against that oracle in the tests and keeps no copy of it.
 """
 
 from __future__ import annotations
@@ -31,3 +32,17 @@ def decode_dither_rows(height: int, frame_index: int = 0) -> np.ndarray:
     for blk, r in enumerate(order):
         row_draws[r] = draws[blk]
     return row_draws
+
+
+def byr4_log90_curve() -> np.ndarray:
+    """The default BYR4 encode curve (LOG 90): 14-bit linear -> 12-bit log.
+
+    `Codec/frame.c:5218-5237` BYR4_LOGTABLE with MAX_INPUT_PRECISION=14
+    (`frame.c:4843`); float32 division and final multiply match the
+    reference build bit for bit.
+    """
+    i = np.arange(1 << 14)
+    x = i.astype(np.float32) / np.float32(16384.0)
+    l2l = (np.log10(x.astype(np.float64) * 89.0 + 1.0)
+           / np.log10(90.0)).astype(np.float32)
+    return np.where(i == 0, 0, (l2l * np.float32(4095.0)).astype(np.int64))

@@ -9,7 +9,8 @@ the n-th decoded frame (`ref.intra.decode_dither_rows`).  `codec_tables`
 builds them from the package's host modules and places the tensors on an
 explicit device.  What the input format decides (the precision, whether
 chroma takes the luma tables, the number of channels) comes in as
-keywords; the defaults are YUY2's.
+keywords, with the dimensions of the planes that the codec transforms (a
+Bayer mosaic's are half its own); the defaults are YUY2's.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ def codec_tables(width: int, height: int, quality: int, frame_index: int = 0,
                  *, device: torch.device | str,
                  precision: int = tags.PRECISION_10BIT,
                  chroma_full_res: bool = False,
+                 rgb_quality: int = 0,
                  num_channels: int = 3) -> CodecTables:
     device = torch.device(device)
     p = IntraParams(width=width, height=height, quality=quality,
-                    precision=precision, chroma_full_res=chroma_full_res)
+                    precision=precision, chroma_full_res=chroma_full_res,
+                    rgb_quality=rgb_quality)
     enc = encode_tables(17)
     mag_bits, mag_sizes = magnitude_lut(enc, device)
     return CodecTables(

@@ -24,6 +24,7 @@ from cineform_tpu.bitstream import parse_sample as jparse_sample
 from cineform_tpu.entropy import native as jnative
 from cineform_tpu.models import intra_host as jhost
 from cineform_tpu.models.intra import IntraCodec as JaxIntraCodec
+from cineform_tpu.ref import demosaic as jdemosaic
 from cineform_tpu.ref import intra as jref
 from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
@@ -37,11 +38,13 @@ from cineform_tpu_torch.bitstream import parse_sample as tparse_sample
 from cineform_tpu_torch.entropy import native as tnative
 from cineform_tpu_torch.models import intra_host as thost
 from cineform_tpu_torch.models.intra import IntraCodec
+from cineform_tpu_torch.ref import demosaic as tdemosaic
 from cineform_tpu_torch.ref import intra as tref
 from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
 from cineform_tpu_torch.spec import tags as ttags
 from cineform_tpu_torch.utils import glibc_random as tglibc
+from tests.test_formats import _raw_fill
 
 torch.set_num_threads(1)
 
@@ -208,6 +211,61 @@ def test_rgb_production_params_match(fmt, quality):
         jprod.pack_prescale_table(j.prescale)
 
 
+@pytest.mark.parametrize("quality", range(1, 7))
+@pytest.mark.parametrize("fmt", ["UYVY", "YU64", "V210", "BYR4", "BYR5"])
+def test_new_format_params_and_tables_match(fmt, quality):
+    """The params of the 10-bit 4:2:2 and Bayer formats as each package's
+    `IntraCodec` makes them (Bayer: 12 bits, rgb_quality 3, the planes a
+    quarter of the mosaic), and the codec tables built from them."""
+    codec = IntraCodec(1920, 1080, quality, device=CPU, input_format=fmt)
+    t = codec.params
+    j = JaxIntraCodec(width=1920, height=1080, quality=quality,
+                      input_format=fmt).params
+    fields = ("width", "height", "quality", "precision", "chroma_full_res",
+              "rgb_quality", "prescale")
+    assert [getattr(t, f) for f in fields] == [getattr(j, f) for f in fields]
+    assert [t.band_quant(ch) for ch in range(4)] == \
+        [j.band_quant(ch) for ch in range(4)]
+    tables = codec.tables()
+    assert tables.prescale == tuple(j.prescale)
+    assert tables.band_quant == tuple(
+        tuple(tuple(q) for q in j.band_quant(ch))
+        for ch in range(codec.num_channels))
+    assert tuple(tables.dither_rows.shape) == (j.height, 16)
+
+
+def test_new_format_host_tables_match():
+    """The BYR4 encode curve and decode restore tables (float32 steps,
+    bit for bit) and the absolute lowpass offsets."""
+    np.testing.assert_array_equal(tref.byr4_log90_curve(),
+                                  jref.byr4_log90_curve())
+    got, want = tdemosaic.log2lin_lut(), jdemosaic.log2lin_lut()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    # the port keeps the one-frame, not-deep-YUV offsets its BGRA output
+    # takes
+    assert [thost.lowpass_offset_absolute(w) for w in range(1, 40)] == \
+        [jhost.lowpass_offset_absolute(w, False, 1) for w in range(1, 40)]
+
+
+@pytest.mark.parametrize("pattern", [0, 1, 2])
+@pytest.mark.parametrize("w,h", [(96, 48), (112, 24)])
+def test_new_frame_generators_match(w, h, pattern):
+    for name in ("v210_frame", "yu64_frame", "byr4_frame"):
+        assert getattr(tframes, name)(w, h, pattern) == \
+            getattr(jframes, name)(w, h, pattern), name
+    for got, want in zip(tframes.components10(w, h, pattern),
+                         jframes.components10(w, h, pattern), strict=True):
+        np.testing.assert_array_equal(got, want)
+    # the UYVY frame as tests/test_formats.py builds the UYVY golden's
+    quad = np.frombuffer(jframes.yuy2_frame(w, h, pattern),
+                         np.uint8).reshape(-1, 4)
+    assert tframes.uyvy_frame(w, h, pattern) == \
+        quad[:, [1, 0, 3, 2]].tobytes()
+    assert tframes.raw_fill(w * h * 3 // 2, pattern) == \
+        _raw_fill(w * h * 3 // 2, pattern)
+
+
 @pytest.mark.parametrize("name", GOLDENS)
 def test_parser_and_walker_match_on_the_goldens(name):
     sample = _read(f"{name}.cfhd")
@@ -254,7 +312,8 @@ def test_write_sample_and_band_coder_match(w, h, quality):
     assert thost.write_sample(tchans, tp, 4, tmeta) == want
 
 
-@pytest.mark.parametrize("fmt", ["RG48", "B64A", "RG64"])
+@pytest.mark.parametrize("fmt", ["RG48", "B64A", "RG64", "UYVY", "YU64",
+                                 "V210", "BYR4", "BYR5"])
 def test_write_sample_of_rgb_formats_matches(fmt):
     """The copy's sample writer with the RGB formats' keywords (a required
     input-format tag for RG48 and RG64, no colourspace, QUALITY_H 0x2000

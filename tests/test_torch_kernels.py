@@ -455,13 +455,45 @@ def test_forward_packed_on_the_card_takes_three_dwt_launches(cuda,
     assert _equal(got, want)
 
 
+#: (batch, H, W) of 10-bit 4:2:2 planes for `dwt_forward_groups` at level
+#: 1, as UYVY, YU64 and V210 give it: a batch-2 1080p frame (luma 1920,
+#: chroma 960 wide), ragged column tiles and band pitches (W = 300, chroma
+#: 150), narrow planes (chroma 10 wide) and a small batch-3 frame
+GROUP_LEVEL1_CASES = [
+    (2, 1080, 1920),
+    (2, 48, 96),
+    (1, 30, 300),
+    (3, 12, 20),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prescale", [0, 2])
+@pytest.mark.parametrize("b,h,w", GROUP_LEVEL1_CASES)
+def test_dwt_forward_groups_at_level_1_matches_plain(cuda, b, h, w,
+                                                     prescale):
+    """One launch for Y and for V, U at a level-1 size, equal to
+    `plain_groups` on the same 10-bit planes."""
+    y = _rand(b * h * w + prescale, (b, 1, h, w), 0, 1024)
+    c = _rand(b * h * w + prescale + 1, (b, 2, h, w // 2), 0, 1024)
+    before = dwt_forward_groups.launches
+    got = dwt_forward_groups((y.to(cuda), c.to(cuda)), prescale,
+                             LEVEL_QUANTS[0])
+    torch.cuda.synchronize()
+    assert dwt_forward_groups.launches == before + 1
+    assert _equal(got, dwt.plain_groups((y[:, 0], c[:, 0], c[:, 1]),
+                                        prescale, LEVEL_QUANTS[0]))
+
+
 #: (batch, planes, H, W) of int32 plane groups: the RG48 and RGBA 1080p
-#: levels at batch 2 (level 3: 135 output rows), narrow planes (the
+#: levels at batch 2 (level 3: 135 output rows), the four 1920x1080 Bayer
+#: planes of a 4K mosaic at level 1, narrow planes (the
 #: narrow-row quirk with W % 8 == 0 at 16, without it at 14), the minimum
 #: plane, ragged column tiles and band pitches (W = 300, 76), rows that are
 #: not a multiple of 16 bytes (W = 38) and groups of one and two planes
 PLANE_CASES = [
     (2, 3, 1080, 1920),
+    (2, 4, 1080, 1920),
     (2, 4, 540, 960),
     (2, 4, 270, 480),
     (3, 3, 12, 16),
@@ -508,6 +540,39 @@ def test_rgb_forward_packed_on_the_card_takes_three_planes_launches(cuda,
         frames.to(cuda))
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == [before[0] + 3, *before[1:]]
+    assert _equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,w", [("UYVY", 192), ("YU64", 192),
+                                   ("V210", 192), ("V210", 320),
+                                   ("BYR4", 192), ("BYR5", 192)])
+def test_new_formats_forward_packed_on_the_card(cuda, fmt, w):
+    """On the card the 10-bit 4:2:2 formats' `forward_packed` launches
+    `dwt_forward_groups` 3 times (level 1 from the plain unpack's group
+    buffers; at V210's width 320 the unpack cuts the luma from whole
+    6-pixel groups) and Bayer's `dwt_forward_planes` 3 times, and each
+    equals the plain path."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+
+    h = 96
+    codec = IntraCodec(w, h, 4, device=torch.device("cpu"), input_format=fmt)
+    frames = np.random.default_rng(len(fmt)).integers(
+        0, 256, (2, h, codec.row_bytes)).astype(np.uint8)
+    if fmt == "V210":
+        frames &= np.tile(np.array([255, 255, 255, 63], np.uint8),
+                          codec.row_bytes // 4)
+    frames = torch.from_numpy(frames)
+    want = codec.forward_packed(frames)
+    wrappers = (dwt_forward_groups, dwt_forward_planes, dwt_forward_yuy2,
+                dwt_forward_level)
+    before = [f.launches for f in wrappers]
+    got = IntraCodec(w, h, 4, device=cuda, input_format=fmt).forward_packed(
+        frames.to(cuda))
+    torch.cuda.synchronize()
+    dwt_launches = (3, 0) if fmt in ("UYVY", "YU64", "V210") else (0, 3)
+    assert [f.launches for f in wrappers] == [
+        before[0] + dwt_launches[0], before[1] + dwt_launches[1], *before[2:]]
     assert _equal(got, want)
 
 
