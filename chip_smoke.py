@@ -76,7 +76,24 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    no other DWT entry point; then the BYR4 and BYR5 encode goldens, the
    BYR4 decode golden and the BYR4 batch the same way (decoded to BYR4),
    which must launch `dwt_forward_planes` 3 times an encode;
-8. fails if a module of the JAX package was imported.
+8. runs the two-frame GOP path (`GopCodec`): first each kernel against its
+   plain version at the shapes of a batch of 8 1080p YUY2 groups (the two
+   `dwt_forward_yuy2` launches of frames 0 and 1, `dwt_forward_groups` at
+   w3 (too wide for the row-0 carry), w4 with prescale 2 and w5, each
+   with its device time and bound, and the decoder merge forms of the 6
+   band row classes), and w3 of 64x48 groups, whose chroma takes the
+   carry; then,
+   with the launch counts set to 0, the GOP goldens
+   (`gop_320x240_q4_p1`, `gop2_320x240_q4_p100`) encoded and decoded on
+   both routes byte for byte, and the batch encoded and decoded both
+   ways in both reference modes (equal, no frame falling back), with the
+   per-group times and the decodes' peak device memory; it fails unless
+   that launched `dwt_forward_yuy2` 2 and `dwt_forward_groups` 3 times an
+   encode, and each decoder merge form 6 times a device decode; then,
+   counts reset, a batch of 8 1080p stereo 3D samples (`models.stereo`),
+   both eyes decoded on the device equal to `decode_batch` of the split
+   eyes, no frame falling back;
+9. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -119,6 +136,9 @@ NEW_DECODE_GOLDENS = (("YUY2", "s_320x240_q4_p1", "BGRA", "bgraout"),
 # the Bayer batch: a 4K UHD mosaic, four 1920x1080 planes
 BAYER_WIDTH, BAYER_HEIGHT = 3840, 2160
 ALL_PATHS = ("yuy2", "rgb", "yuv10", "bayer")
+# the GOP phase's 320x240 quality-4 goldens: name, the yuy2_frame patterns
+# of frames 0 and 1
+GOP_GOLDENS = (("gop_320x240_q4_p1", 1, 2), ("gop2_320x240_q4_p100", 100, 100))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "samples")
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
@@ -251,7 +271,10 @@ def main() -> int:
     from cineform_tpu_torch import _build
     from cineform_tpu_torch.entropy import device as edev
     from cineform_tpu_torch.entropy import device_decode as ddec
+    from cineform_tpu_torch.models.gop import GopCodec
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
+    from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
+                                                  encode_batch_3d, split_3d)
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
@@ -377,15 +400,17 @@ def main() -> int:
         kernels[name].update(device_ms=0.0, bytes=0)
 
     def compare(name, call, plain, what, inputs, ops=None, library=None,
-                tally=True, timed=True, device=False):
+                tally=True, timed=True, device=False, book=None):
         """Kernel against plain version on `inputs`, both timed unless not
         `timed`; the bound counts each input read and each output written
         once (chunk_pack writes every chunk's whole capacity of words, the
         zeros past its bit length included), and `ops` (default: the
         kernel's ops per input element).
-        With `tally`, the times and the bound add to the kernel's line.
+        With `tally`, the times and the bound add to the kernel's line;
+        with `book`, they and the device time add to the kernel's entry
+        `book` (another path's figures) instead.
         The device time (`device_ms`) is taken for the kernels that
-        report one, and for any with `device`."""
+        report one, and for any with `device` or `book`."""
         got, want = call(), plain()
         torch.cuda.synchronize()
         got, want = flat(got), flat(want)
@@ -410,17 +435,27 @@ def main() -> int:
             k["ms"] += ms
             k["plain_ms"] += plain_ms
             k["bound_ms"] += bound
-        if "device_ms" in k or device:
+        if "device_ms" in k or device or book:
             dms = device_ms(torch, call)
             extra += (f", device {dms:.4f} ms (the bound is "
                       f"{100 * bound / dms:.1f}% of it)")
             if tally and "device_ms" in k:
                 k["device_ms"] += dms
                 k["bytes"] += moved
+        if book:
+            b = k.setdefault(book, dict(ms=0.0, plain_ms=0.0, device_ms=0.0,
+                                        bound_ms=0.0, bytes=0, calls=0))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("device_ms", dms), ("bound_ms", bound),
+                           ("bytes", moved), ("calls", 1)):
+                b[key] += v
         if library is not None:
             lib_ms = cuda_ms(torch, library)
             if tally:
                 k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
+            if book:
+                k[book]["library_ms"] = k[book].get("library_ms", 0.0) \
+                    + lib_ms
             extra += f", library call {lib_ms:.4f} ms"
         log(f"  {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms{extra}")
@@ -596,8 +631,8 @@ def main() -> int:
             slots = ddec.band_slots(pay, rows[1][ci], rows[2][ci],
                                     rows[3][ci], nout)
             val, rem, tgt = ddec.compact_inputs(*slots[:3])
-            what = (f"class {ci} (level {lev + 1}, planes {planes}), payload "
-                    f"{tuple(pay.shape)}")
+            what = (f"class {ci} ({bh}x{pitch} bands of planes {planes}), "
+                    f"payload {tuple(pay.shape)}")
             comp = compare("merge_network_tgt",
                            lambda: merge_network_tgt(val, rem, tgt),
                            lambda: edev._settle_network_tgt(val, rem, tgt),
@@ -1172,6 +1207,238 @@ def main() -> int:
     log_path("Bayer", encodes, launches_bayer)
     del samples, decoded, out, src
 
+    # --- 8. the two-frame GOP: kernels at the 1080p batch's shapes ----------
+    t0 = time.perf_counter()
+    gop = GopCodec(WIDTH, HEIGHT, 4, device=dev)
+    gop_f0, gop_f1 = (np.stack([np.roll(base, j, axis=0)
+                                for j in range(f, 2 * BATCH, 2)])
+                      for f in (0, 1))
+    log(f"GOP batch: {BATCH} groups of yuy2_frame({WIDTH}, {HEIGHT}, 1) "
+        f"pairs, rolled one row a frame ({time.perf_counter() - t0:.3f} s)")
+    log(f"kernel checks, GOP, batch {BATCH} at {WIDTH}x{HEIGHT} q4 "
+        "(tolerance 0; times as above, the 5 DWT launches of an encode and "
+        "the decoder merge forms of a device decode booked as the GOP path's)")
+
+    def gop_level1(c, up, k, **opts):
+        q = c._quants(k)
+        out = compare("dwt_forward_yuy2",
+                      lambda: dwt_forward_yuy2(up, 10, 0, q),
+                      lambda: dwt.plain_groups(ops.unpack_yuy2(up, 10), 0, q),
+                      f"GOP {c.width}x{c.height} frame {k} level 1 "
+                      f"{tuple(up.shape)} quants {q}", (up,), **opts)
+        return out[:2]
+
+    def gop_spatial(c, k, x, ps, carry, **opts):
+        """w3, w4 or w5 of the groups `x` (the Y and V, U buffers) against
+        `plain_groups`; returns the kernel's lowpass buffers."""
+        q = c._quants(k)
+        carried = tuple(t for t in carry if t is not None)
+        out = compare(
+            "dwt_forward_groups", lambda: dwt_forward_groups(x, ps, q, carry),
+            lambda: dwt.plain_groups((x[0][:, 0], x[1][:, 0], x[1][:, 1]),
+                                     ps, q, carry),
+            f"GOP {c.width}x{c.height} w{k} {tuple(x[0].shape)} + "
+            f"{tuple(x[1].shape)} prescale {ps} quants {q}"
+            + (f", row-0 carry of {len(carried)} group(s)" if carried
+               else ""), (*x, *carried),
+            ops=40 * (x[0].numel() + x[1].numel()), **opts)
+        return out[:2]
+
+    def temporal_pair(l0, l1):
+        return (tuple(ops.sat16(a + b) for a, b in zip(l0, l1)),
+                tuple(ops.sat16(b - a) for a, b in zip(l0, l1)))
+
+    def gop_levels(c, f0, f1, **opts):
+        """The 5 DWT launches of `c`'s encode, each against its plain
+        version; returns the carries w3 took and level 1's lowpass
+        buffers."""
+        l0, l1 = (gop_level1(c, c._upload(f), k, **opts)
+                  for k, f in ((0, f0), (1, f1)))
+        tlow, thigh = temporal_pair(l0, l1)
+        carry = c.row0_carry(tlow, thigh)
+        gop_spatial(c, 3, thigh, 0, carry, **opts)
+        ll4 = gop_spatial(c, 4, tlow, 2, (None, None), **opts)
+        gop_spatial(c, 5, ll4, 0, (None, None), **opts)
+        return carry, l0, l1
+
+    _, l0, l1 = gop_levels(gop, gop_f0, gop_f1, tally=False, book="gop")
+    # the temporal pair between them (plain PyTorch, no kernel)
+    moved = nbytes(l0 + l1) * 2
+    dms = device_ms(torch, lambda: temporal_pair(l0, l1))
+    log(f"  temporal pair sat16(ll0 + ll1), sat16(ll1 - ll0) (plain "
+        f"PyTorch) on {tuple(l0[0].shape)} + {tuple(l0[1].shape)}: device "
+        f"{dms:.4f} ms (device_ms), {moved} bytes read and written, bound "
+        f"{bound_ms(moved, 0)[0]:.4f} ms")
+    del l0, l1
+    booked = [kernels[n]["gop"] for n in ("dwt_forward_yuy2",
+                                          "dwt_forward_groups")]
+    gop_device = sum(b["device_ms"] for b in booked)
+    gop_bound = sum(b["bound_ms"] for b in booked)
+    log(f"  the GOP encode's 5 DWT launches, a batch: device "
+        f"{gop_device:.4f} ms (device_ms), bound {gop_bound:.4f} ms "
+        f"({sum(b['bytes'] for b in booked)} bytes, "
+        f"{100 * gop_bound / gop_device:.1f}% of the device time)")
+    # the narrow case: chroma's temporal high, 16 wide, takes the carry
+    narrow = GopCodec(64, 48, 4, device=dev)
+    nb = np.frombuffer(yuy2_frame(64, 48, 1), np.uint8).reshape(48, 128)
+    n0, n1 = (np.stack([np.roll(nb, j, axis=0)
+                        for j in range(f, 2 * BATCH, 2)]) for f in (0, 1))
+    if gop_levels(narrow, n0, n1, tally=False, timed=False)[0][1] is None:
+        raise AssertionError("64x48 GOP: chroma's w3 took no row-0 carry")
+    got = narrow.forward(narrow._upload(n0), narrow._upload(n1))
+    want = GopCodec(64, 48, 4, device=torch.device("cpu")).forward(
+        torch.from_numpy(n0), torch.from_numpy(n1))
+    err = max_abs_err(torch, [t.cpu() for t in flat([
+        (lp, *[t for k_ in sorted(b) for t in b[k_]]) for lp, b in got])],
+        flat([(lp, *[t for k_ in sorted(b) for t in b[k_]])
+              for lp, b in want]))
+    log(f"  GopCodec(64, 48).forward on the card against its plain version "
+        f"on the CPU, batch {BATCH}: max_abs_err {err}")
+    if err:
+        raise AssertionError("64x48 GOP forward: the card disagrees with the "
+                             "plain version")
+    gop_samples = gop.encode_batch(gop_f0, gop_f1)
+    decode_checks(gop, gop_samples, tally=False, book="gop")
+    del got, want
+
+    # --- 8. the two-frame GOP: the main path --------------------------------
+    reset_counts()
+    encodes = dev_decodes = 0
+    for name, p0, p1 in GOP_GOLDENS:
+        gold = golden("cfhd.f1", name)
+        c = GopCodec(320, 240, 4, device=dev)
+        f0, f1 = (np.frombuffer(yuy2_frame(320, 240, p), np.uint8).reshape(
+            1, 240, 640) for p in (p0, p1))
+        if c.encode_batch(f0, f1, 1, sample_metadata(gold)) != [gold]:
+            raise AssertionError(f"GOP encode differs from {name}.cfhd.f1")
+        want = [golden(f"f{f}.yuy2", name) for f in (0, 1)]
+        host = [f.tobytes() for f in c.decode_batch([gold])]
+        *dev_out, fallback = c.decode_batch_device([gold])
+        if host != want or fallback or [f.tobytes() for f in dev_out] \
+                != want:
+            raise AssertionError(f"{name} decoded differs from its .f0/.f1 "
+                                 f"goldens (host fallback frames of the "
+                                 f"device route {fallback})")
+        encodes += 1
+        dev_decodes += 1
+        log(f"golden GOP {name}: encode_batch byte-equal to .cfhd.f1 "
+            f"({len(gold)} bytes); decode_batch and decode_batch_device "
+            "byte-equal to .f0.yuy2 and .f1.yuy2")
+    enc_dev, enc_host, enc_down = [], [], []
+    for it in range(4):
+        lv, ms = host_ms(torch, lambda: gop.forward_levels(
+            gop._upload(gop_f0), gop._upload(gop_f1)))
+        enc_dev.append(ms)
+        _, ms = host_ms(torch, lambda: [t.cpu() for t in flat(list(
+            lv.values()))])
+        enc_down.append(ms)
+        t0 = time.perf_counter()
+        samples = gop.write_groups(lv)
+        enc_host.append((time.perf_counter() - t0) * 1e3)
+        encodes += 1
+        if samples != gop_samples:
+            raise AssertionError("GOP batch: two encodes of the batch differ")
+    del lv
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    dec_ms = []
+    for rc in (True, False):
+        host_t, dev_t = [], []
+        for it in range(4):
+            host, ms = host_ms(torch, lambda: gop.decode_batch(samples, rc))
+            host_t.append(ms)
+            (*dev_out, fallback), ms = host_ms(
+                torch, lambda: gop.decode_batch_device(samples, rc))
+            dev_t.append(ms)
+            dev_decodes += 1
+            if fallback or any(a.tobytes() != b.tobytes()
+                               for a, b in zip(host, dev_out, strict=True)):
+                raise AssertionError(
+                    f"GOP batch (reference_compatible={rc}): "
+                    "decode_batch_device differs from decode_batch (host "
+                    f"fallback frames {fallback})")
+        dec_ms.append(f"reference_compatible={rc}: decode_batch "
+                      f"{med(host_t[1:]) / BATCH:.4f} ms, decode_batch_device "
+                      f"{med(dev_t[1:]) / BATCH:.4f} ms")
+        if rc:
+            rc_frames = host
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # the device route's parts (reference_compatible), as it runs them
+    parts = ("header walk and fill", "upload", "device entropy decode",
+             "inverse with pack", "download")
+    gop_parts = {p: [] for p in parts}
+    for it in range(4):
+        t0 = time.perf_counter()
+        host_rows = gop._decode_rows_host(samples)
+        gop_parts["header walk and fill"].append(
+            (time.perf_counter() - t0) * 1e3)
+        dev_rows, ms = host_ms(torch, lambda: gop._upload_rows(host_rows))
+        gop_parts["upload"].append(ms)
+        (co, ovf), ms = host_ms(torch, lambda: gop.decode_coefficients(
+            *dev_rows[:-1]))
+        gop_parts["device entropy decode"].append(ms)
+        pair, ms = host_ms(torch, lambda: gop.inverse(co))
+        gop_parts["inverse with pack"].append(ms)
+        got, ms = host_ms(torch, lambda: [f.cpu().numpy() for f in pair])
+        gop_parts["download"].append(ms)
+        dev_decodes += 1
+        if dev_rows[-1] or bool(ovf.any()) or any(
+                a.tobytes() != b.tobytes() for a, b in zip(got, rc_frames)):
+            raise AssertionError("GOP batch: the device route's parts "
+                                 "differ from decode_batch")
+    del host_rows, dev_rows, co, ovf, pair, got
+    launches_gop = {n: kk["wrapper"].launches for n, kk in kernels.items()}
+    want_gop = {n: 0 for n in kernels}
+    want_gop.update(dwt_forward_yuy2=2 * encodes,
+                    dwt_forward_groups=3 * encodes,
+                    merge_network_tgt=6 * dev_decodes,
+                    merge_network_highfirst=6 * dev_decodes)
+    if launches_gop != want_gop or dwt_forward_level.launches:
+        raise AssertionError(f"the GOP path's {encodes} encodes and "
+                             f"{dev_decodes} device decodes launched "
+                             f"{launches_gop} and the single-plane level "
+                             f"{dwt_forward_level.launches}: expected "
+                             f"{want_gop}")
+    gop_psnr = psnr(rc_frames[0], gop_f0)
+    log(f"GOP batch {BATCH} groups at {WIDTH}x{HEIGHT} q4: "
+        f"{sum(len(x) for x in samples)} bytes, ratio "
+        f"{(gop_f0.nbytes + gop_f1.nbytes) / sum(len(x) for x in samples):.4f}"
+        f"; frame 0's round-trip PSNR {gop_psnr:.4f} dB; decode_batch_device "
+        f"equal to decode_batch on all {2 * BATCH} frames in both reference "
+        "modes, 0 fallback frames. Per group, medians of 3 batches after a "
+        f"warm-up: encode device {med(enc_dev[1:]) / BATCH:.4f} ms (upload + "
+        "5 DWT launches + temporal pair), encode host tail "
+        f"{med(enc_host[1:]) / BATCH:.4f} ms (download + C++ band coding + "
+        f"GROUP writer; the download alone {med(enc_down[1:]) / BATCH:.4f} "
+        "ms); " + "; ".join(dec_ms)
+        + "; decode_batch_device's parts: " + ", ".join(
+            f"{p} {med(v[1:]) / BATCH:.4f} ms" for p, v in gop_parts.items())
+        + f"; peak device memory over the decodes {peak_bytes} bytes "
+        f"({peak_bytes / 2**30:.3f} GiB; {base_bytes} allocated before)")
+    log(f"launches during the GOP path ({encodes} encodes, {dev_decodes} "
+        f"device decodes): {launches_gop}")
+    del samples, host, dev_out, rc_frames
+
+    reset_counts()
+    stereo_samples = encode_batch_3d(codec, gop_f0, gop_f1)
+    for eye in (0, 1):
+        out, fallback = decode_batch_device_3d(stereo_samples, eye, codec)
+        want = codec.decode_batch([split_3d(x)[eye] for x in stereo_samples])
+        if fallback or out.tobytes() != want.tobytes():
+            raise AssertionError(f"stereo eye {eye}: decode_batch_device_3d "
+                                 "differs from decode_batch of the split "
+                                 f"eyes (host fallback frames {fallback})")
+    launches_stereo = {n: kk["wrapper"].launches
+                       for n, kk in kernels.items()}
+    if not (launches_stereo["merge_network_tgt"]
+            and launches_stereo["merge_network_highfirst"]):
+        raise AssertionError(f"the stereo decode launched {launches_stereo}")
+    log(f"stereo batch: {BATCH} 3D samples of {WIDTH}x{HEIGHT} eyes (the GOP "
+        "batch's frames 0 and 1 as left and right); both "
+        "eyes' decode_batch_device_3d byte-equal to decode_batch of the "
+        f"split eyes, 0 fallback frames; launches {launches_stereo}")
+    del stereo_samples, out, want
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -1184,12 +1451,13 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     by_path = {"yuy2": launches, "rgb": launches_rgb, "yuv10": launches_yuv10,
-               "bayer": launches_bayer}
+               "bayer": launches_bayer, "gop": launches_gop,
+               "stereo": launches_stereo}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],
          **{key: k[key] for key in ("also_replaces", "mode", "device_ms",
-                                    "library_note") if key in k},
+                                    "library_note", "gop") if key in k},
          "launches": sum(by[n] for by in by_path.values()),
          "launches_by_path": {path: by[n] for path, by in by_path.items()},
          "max_abs_err": k["max_abs_err"],

@@ -1,12 +1,13 @@
-"""cineform_tpu_torch — the CFHD intra codec in PyTorch, with CUDA kernels
+"""cineform_tpu_torch — the CFHD codec in PyTorch, with CUDA kernels
 written by hand for NVIDIA Hopper (sm_90a).
 
-A port of `cineform_tpu` (JAX/Pallas) on its YUY2 4:2:2, RGB 4:4:4 (RG48)
-and RGBA 4:4:4:4 (B64A, RG64) intra paths.  The device code is
-re-expressed in PyTorch; the host pieces those paths need (format
-constants, the sample writer, parser and native header walk, the C++ band
-coder, the output dither) are the package's own copies of the JAX
-package's modules, trimmed to those paths.  Its outputs equal the JAX
+A port of `cineform_tpu` (JAX/Pallas) on its intra paths (4:2:2 YUY2,
+UYVY, YU64, V210; RGB 4:4:4 RG48; RGBA 4:4:4:4 B64A, RG64; Bayer BYR4,
+BYR5), its two-frame GOP codec and its stereo 3D device route.  The
+device code is re-expressed in PyTorch; the host pieces those paths need
+(format constants, the sample writers, parser and native header walk, the
+C++ band coder, the output dither) are the package's own copies of the
+JAX package's modules, trimmed to those paths.  Its outputs equal the JAX
 package's bit for bit, and the CFHD samples it writes equal the reference
 SDK's.
 
@@ -17,9 +18,10 @@ Layout (mirrors `cineform_tpu`):
               PyTorch version.
   entropy/  — the band entropy encoder and decoder on tensors, and the
               host C++ band coder (`native`).
-  models/   — `IntraCodec`: 1080p-class YUY2, RG48, B64A and RG64 intra
-              encode, decode to YUY2, RG48 or b64a, and `intra_host`, the
-              sample writer.
+  models/   — `IntraCodec`: 1080p-class intra encode and decode of every
+              format above; `GopCodec`: two-frame GOP (FIELDPLUS) groups
+              of YUY2 pairs; `stereo`: 3D samples on `IntraCodec`; and
+              the sample writers `intra_host` and `gop_host`.
   spec/, bitstream/, ref/, utils/, native/ — the host copies.
   csrc/     — the CUDA C++ kernel sources, built with nvcc at first use.
   state.py  — the codec's constant tables as tensors on a device.

@@ -1,6 +1,8 @@
 """ctypes bindings for the native sample header walk (native/samplewalk.cpp).
 
-A copy of the JAX package's `bitstream/fastwalk.py`.
+A copy of the JAX package's `bitstream/fastwalk.py`, whose walker sends
+every stereo eye to the parser; this one walks an eye already split from
+its stereo sample (`models.stereo.split_3d`) like a one-eye sample.
 
 The decode hot path's host tail: one C pass per sample emits band
 records (offsets into the sample buffer — no payload copies) and the

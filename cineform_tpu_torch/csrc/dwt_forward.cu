@@ -46,12 +46,15 @@
 // The reference's width <= 16 narrow-row quirk (column 0 takes the centre
 // filter, reading the previous row's last two prescaled pixels when the
 // width is a multiple of 8) reads that row from device memory: only
-// planes of at most 16 pixels reach it.
+// planes of at most 16 pixels reach it.  Row 0 reads zeros there, or, where
+// the caller passes a plane's carry, the two pixels that precede the plane
+// in the reference's memory (the GOP's temporal-high spatial: the temporal
+// lowpass' last two pixels, `cineform_tpu/models/gop.py:55-61`).
 //
 // Entry points (plain C, launched on the caller's stream, returning
 // cudaGetLastError()): cf_dwt_forward_yuy2 (level 1 from YUY2 frames),
 // cf_dwt_forward_groups (one more level of Y, V, U held in their channel
-// groups' buffers), cf_dwt_forward_planes (one level of a group of up to
+// groups' buffers, with the optional row-0 carry), cf_dwt_forward_planes (one level of a group of up to
 // four equal int32 planes: RGB, RGBA), cf_dwt_forward_level (one level of
 // one int32 plane).
 
@@ -83,6 +86,8 @@ struct Plane {
   int tiles_x;
   int first_block;
   int q[3], mult[3], mid[3];
+  const int* carry;           // null, or the raw pixels before row 0
+  long long carry_bstride;    // elements between frames' carries
 };
 
 struct Level {
@@ -281,9 +286,14 @@ dwt_forward_kernel(const __grid_constant__ Level a) {
       return *reinterpret_cast<const int*>(s + step * k);
     };
     int prev = 0;
-    if (c == 0 && P.w <= 16 && P.w % 8 == 0 && y > 0) {
-      prev = ((pixel(y - 1, P.w - 2) + pr) >> ps) +
-             ((pixel(y - 1, P.w - 1) + pr) >> ps);
+    if (c == 0 && P.w <= 16 && P.w % 8 == 0) {
+      if (y > 0) {
+        prev = ((pixel(y - 1, P.w - 2) + pr) >> ps) +
+               ((pixel(y - 1, P.w - 1) + pr) >> ps);
+      } else if (P.carry) {
+        const int* q = P.carry + b * P.carry_bstride;
+        prev = ((q[0] + pr) >> ps) + ((q[1] + pr) >> ps);
+      }
     }
     return hfilter(x, c, wo, P.w, ps, pr, prev);
   };
@@ -401,7 +411,8 @@ int launch(Level& a, bool yuy2, int batch, int h, int ps, int shift,
 // frames), its lowpass (batch, g, h/2, w/2) and its bands
 // (batch, g, 3, h/2, pitch).
 void set_group(Level& a, int first, int g, const int* x, int* ll,
-               int* bands, int h, int w, int pitch) {
+               int* bands, int h, int w, int pitch,
+               const int* carry = nullptr) {
   const long long ho = h / 2, wo = w / 2;
   for (int i = 0; i < g; ++i) {
     Plane& p = a.p[first + i];
@@ -414,6 +425,8 @@ void set_group(Level& a, int first, int g, const int* x, int* ll,
     p.bands_bstride = g * 3 * ho * pitch;
     p.pitch = pitch;
     p.w = w;
+    p.carry = carry ? carry + 2 * i : nullptr;
+    p.carry_bstride = 2LL * g;
   }
   a.nplanes = first + g;
 }
@@ -444,18 +457,21 @@ extern "C" int cf_dwt_forward_yuy2(const uint8_t* frames, int* ll_y,
 }
 
 // One level of Y (batch, 1, h, w) and V, U (batch, 2, h, w / 2) int32, into
-// the channel groups' buffers of the next level.  w % 4 == 0.
+// the channel groups' buffers of the next level.  w % 4 == 0.  carry_y
+// (batch, 1, 2) and carry_c (batch, 2, 2), each null or not: the raw
+// pixels before each plane's row 0, for the narrow-row quirk.
 extern "C" int cf_dwt_forward_groups(const int* x_y, const int* x_c,
                                      int* ll_y, int* ll_c, int* bands_y,
-                                     int* bands_c, int batch, int h, int w,
-                                     int pitch_y, int pitch_c, int prescale,
-                                     int qy0, int qy1, int qy2, int qv0,
-                                     int qv1, int qv2, int qu0, int qu1,
-                                     int qu2, void* stream) {
+                                     int* bands_c, const int* carry_y,
+                                     const int* carry_c, int batch, int h,
+                                     int w, int pitch_y, int pitch_c,
+                                     int prescale, int qy0, int qy1, int qy2,
+                                     int qv0, int qv1, int qv2, int qu0,
+                                     int qu1, int qu2, void* stream) {
   if (w % 4) return (int)cudaErrorInvalidValue;
   Level a = {};
-  set_group(a, 0, 1, x_y, ll_y, bands_y, h, w, pitch_y);
-  set_group(a, 1, 2, x_c, ll_c, bands_c, h, w / 2, pitch_c);
+  set_group(a, 0, 1, x_y, ll_y, bands_y, h, w, pitch_y, carry_y);
+  set_group(a, 1, 2, x_c, ll_c, bands_c, h, w / 2, pitch_c, carry_c);
   set_quant(a.p[0], qy0, qy1, qy2);
   set_quant(a.p[1], qv0, qv1, qv2);
   set_quant(a.p[2], qu0, qu1, qu2);

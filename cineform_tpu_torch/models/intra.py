@@ -410,10 +410,11 @@ class IntraCodec:
                                   metadata, frame_numbers)
 
     def encode_batch(self, frames: np.ndarray, first_frame_number: int = 1,
-                     metadata=None, frame_numbers: list[int] | None = None
-                     ) -> list[bytes]:
+                     metadata=None, frame_numbers: list[int] | None = None,
+                     eye: int | None = None) -> list[bytes]:
         """Encode with the transform on the device and the entropy coding
-        on the host (C++ coder)."""
+        on the host (C++ coder).  `eye` 0 or 1 writes each frame as that
+        eye's bitstream of a stereo 3D sample (`models.stereo`)."""
         coeffs = [(lowpass.cpu().numpy(),
                    [tuple(b.cpu().numpy() for b in bs) for bs in bands])
                   for lowpass, bands in self.forward(self._upload(frames))]
@@ -430,7 +431,7 @@ class IntraCodec:
                 for ch, (lowpass, bands) in enumerate(coeffs)]
             samples.append(intra_host.write_sample(
                 channels, p, frame_numbers[i], metadata[i],
-                **self._write_sample_kwargs))
+                **self._write_sample_kwargs, eye=eye))
         return samples
 
     # --- decode ------------------------------------------------------------

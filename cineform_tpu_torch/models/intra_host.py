@@ -4,7 +4,8 @@ A copy of the parts of the JAX package's `models/intra_host.py` that the
 intra codec uses: the band pitch, the encode-time metadata block, the
 sample writer for a 4:2:2, RGB 4:4:4, RGBA 4:4:4:4 or Bayer intra frame,
 the host band encoder (the C++ coder, for bands that overflow the device's
-capacity) and the decoder's lowpass offsets.  Its samples equal the reference
+capacity, and the two-frame group's coder) and the decoder's lowpass
+offsets.  Its samples equal the reference
 SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
@@ -46,6 +47,7 @@ class EncoderMetadata:
     time: str = "00:00:00"
     timecode: str = "00:00:00:00"
     unique_frame: int = 0
+    video_channels: int = 0      # VCHN: 2 = stereo 3D dual-channel
 
     def block(self) -> bytes:
         """FOURCC + 24-bit LE size + type char + payload, each padded to 4B
@@ -56,8 +58,12 @@ class EncoderMetadata:
             return fourcc + bytes([size & 0xFF, (size >> 8) & 0xFF,
                                    (size >> 16) & 0xFF]) + typ + payload + b"\0" * pad
 
+        vchn = (tup(b"VCHN", b"\x00",
+                    self.video_channels.to_bytes(4, "little"))
+                if self.video_channels else b"")
         return (
             tup(b"GUID", b"G", self.guid)
+            + vchn
             + tup(b"DATE", b"c", self.date.encode())
             + tup(b"TIME", b"c", self.time.encode())
             + tup(b"TIMC", b"c", self.timecode.encode())
@@ -111,11 +117,13 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
                  input_format: int = tags.COLOR_FORMAT_YUYV,
                  encoded_format: int = tags.ENCODED_FORMAT_YUV_422,
                  colorspace: int | None = tags.COLOR_SPACE_BT_709,
-                 quality_high: int = 0) -> bytes:
+                 quality_high: int = 0,
+                 eye: int | None = None) -> bytes:
     """Assemble a complete CFHD intra sample.  The defaults write a YUY2
     frame (4:2:2, BT.709); `colorspace=None` writes no colourspace tag, as
     the RGB and Bayer formats do, and `quality_high` is ORed into the
-    QUALITY_H tag (0x2000 for RGBA)."""
+    QUALITY_H tag (0x2000 for RGBA).  `eye` 0 or 1 writes one eye's
+    bitstream of a stereo 3D sample."""
     w = SampleWriter()
     num_channels = len(channels)
     num_wavelets = params.num_wavelets
@@ -154,6 +162,10 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     else:
         w.put_tag_optional(tags.PRESCALE_TABLE,
                            pack_prescale_table(params.prescale))
+    if eye is not None:
+        # stereo 3D: both eyes share one sample (`Codec/encoder.c:7548-7556`)
+        w.put_tag_optional(tags.ENCODED_CHANNELS, 2)
+        w.put_tag_optional(tags.ENCODED_CHANNEL_NUMBER, eye)
 
     # --- sample size chunk + metadata + extension (encoder.c:7559-7621) -----
     w.push_chunk(tags.SAMPLE_SIZE)
@@ -254,21 +266,28 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     return w.getvalue()
 
 
-def lowpass_channel_offset(lowpass_width: int) -> int:
+def lowpass_channel_offset(lowpass_width: int, num_frames: int = 1) -> int:
     """The reference decoder's per-channel lowpass load bias for an 8-bit
-    intra output (`DecodeLowPassBand`, `Codec/decoder.c:12258-12505`,
-    precision 10), relative to the pinned 8-bit decode models.
+    output (`DecodeLowPassBand`, `Codec/decoder.c:12258-12505`, precision
+    10), relative to the pinned 8-bit decode models; `num_frames` 1 is an
+    intra frame, 2 a two-frame group.
 
     The reference adds `channeloffset` to every deepest-lowpass coefficient
     as it parses the band.  At even lowpass widths the 8-bit models absorb
-    its +24 in their output-stage constants, so the bias is 0; at odd
-    widths (chroma at w % 32 == 16 frame widths, e.g. 144) the generic path
-    adds +5, which does not propagate exactly: the bias is 5 - 24."""
-    return 5 - 24 if lowpass_width % 2 else 0
+    its +24 (a group's +48) in their output-stage constants, so the bias is
+    0; at odd widths (chroma at w % 32 == 16 frame widths, e.g. 144) the
+    generic path adds +5 (+10), which does not propagate exactly: the bias
+    is 5 - 24 (10 - 48)."""
+    if lowpass_width % 2 == 0:
+        return 0
+    return 10 - 48 if num_frames == 2 else 5 - 24
 
 
-def lowpass_offset_absolute(lowpass_width: int) -> int:
+def lowpass_offset_absolute(lowpass_width: int, num_frames: int = 1) -> int:
     """The absolute channeloffset (`decoder.c:12258-12505`, precision 10)
-    of a one-frame 8-bit reconstruction built from scratch, as the BGRA
-    output is: +24, or +5 at odd lowpass widths."""
-    return 5 if lowpass_width % 2 else 24
+    of an 8-bit reconstruction built from scratch, as the BGRA output and
+    the interlaced group output are: +24 (a two-frame group's +48), or +5
+    (+10) at odd lowpass widths."""
+    if lowpass_width % 2:
+        return 10 if num_frames == 2 else 5
+    return 48 if num_frames == 2 else 24

@@ -8,7 +8,9 @@
 // Python parser (bitstream/parser.py) stays the full-fidelity oracle;
 // this walker covers the common intra fast path and reports anything
 // unusual (stereo dual-channel samples, truncated chunks) through the
-// `complex` flag so the caller can fall back to the oracle.
+// `complex` flag so the caller can fall back to the oracle.  One eye's
+// bitstream already split from a stereo sample (`models/stereo.split_3d`:
+// the eye, then at most 15 bytes of alignment) walks as a one-eye sample.
 //
 // fill_rows then memcpy's the band payloads straight from the sample
 // buffer into the caller's padded row tensor — the one copy the host
@@ -98,6 +100,7 @@ int64_t walk_sample(const uint8_t* data, int64_t n, Header* hdr,
     int64_t nbands = 0;
     int chan = -1;          // current channel index (list order)
     int pending_lowpass = 0;
+    int stereo = 0;         // ENCODED_CHANNELS > 1 seen
     BandRec cur;            // staged band fields ahead of its chunk
     memset(&cur, 0, sizeof(cur));
     cur.quant = 1;
@@ -204,9 +207,11 @@ int64_t walk_sample(const uint8_t* data, int64_t n, Header* hdr,
                 if (value) cur.flags |= 1;
                 break;
             case TAG_ENCODED_CHANNELS:
-                if (value > 1) hdr->complex_flag = 1;  // stereo: oracle
+                stereo = value > 1;
                 break;
             case TAG_FRAME_TRAILER:
+                // a whole stereo sample (another eye follows): oracle
+                if (stereo && n - pos >= 16) hdr->complex_flag = 1;
                 return nbands;
             default:
                 break;

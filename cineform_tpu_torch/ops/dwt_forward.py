@@ -3,8 +3,9 @@
 - `dwt_forward_yuy2(frames, precision, prescale, quants)`: level 1 of the
   YUY2 encode, read from the frames' bytes, for all three channels in one
   launch.
-- `dwt_forward_groups(lows, prescale, quants)`: the next level of the
-  three YUY2 channels, in one launch.
+- `dwt_forward_groups(lows, prescale, quants, row0_prev)`: the next level
+  of the three YUY2 channels, in one launch, with the narrow-row quirk's
+  optional row-0 carry.
 - `dwt_forward_planes(x, prescale, quants)`: one level of a group of
   equal-size int32 planes (the 3 or 4 channels of RGB 4:4:4 and RGBA
   4:4:4:4), in one launch.
@@ -41,9 +42,10 @@ from cineform_tpu_torch.ops import intra_transform
 MAX_PLANES = 4
 
 # src (frames, or the Y and VU lowpass buffers), ll_y, ll_c, bands_y,
-# bands_c; batch, h, w, pitch_y, pitch_c, (shift,) prescale, 9 quantizers
+# bands_c(, carry_y, carry_c); batch, h, w, pitch_y, pitch_c, (shift,)
+# prescale, 9 quantizers
 _YUY2_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 16
-_GROUPS_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 15
+_GROUPS_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 15
 # x, ll, bands; batch, planes, h, w, pitch, prescale, 12 quantizers
 _PLANES_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 18
 # x, ll, bands; batch, h, w, prescale, q0, q1, q2
@@ -59,23 +61,29 @@ def group_layout(trios) -> torch.Tensor:
     return F.pad(t, (0, align16_pixels(w) - w))
 
 
-def plain_planes(x: torch.Tensor, prescale: int, quants):
+def plain_planes(x: torch.Tensor, prescale: int, quants,
+                 row0_prev: torch.Tensor | None = None):
     """The plain version of one level of a group of planes, (B, G, H, W)
-    int32: `dwt2d_forward` on each, then the group's layout."""
-    outs = [intra_transform.dwt2d_forward(x[:, g], prescale, tuple(q))
-            for g, q in enumerate(quants)]
+    int32, with the (B, G, 2) row-0 carry or none: `dwt2d_forward` on each,
+    then the group's layout."""
+    outs = [intra_transform.dwt2d_forward(
+        x[:, g], prescale, tuple(q),
+        None if row0_prev is None else row0_prev[:, g])
+        for g, q in enumerate(quants)]
     return (torch.stack([ll for ll, _ in outs], dim=1),
             group_layout([bands for _, bands in outs]))
 
 
-def plain_groups(planes, prescale: int, quants):
+def plain_groups(planes, prescale: int, quants, row0_prev=(None, None)):
     """The plain version of one level of the three 4:2:2 channel planes
-    (Y, V, U), each (B, H, W) int32: `plain_planes` of the Y group and of
-    the V, U group."""
+    (Y, V, U), each (B, H, W) int32, with the groups' row-0 carries (Y
+    (B, 1, 2), V, U (B, 2, 2), each a tensor or None): `plain_planes` of
+    the Y group and of the V, U group."""
     y, v, u = planes
-    (ly, hy), (lc, hc) = (plain_planes(y[:, None], prescale, quants[:1]),
+    (ly, hy), (lc, hc) = (plain_planes(y[:, None], prescale, quants[:1],
+                                       row0_prev[0]),
                           plain_planes(torch.stack((v, u), dim=1), prescale,
-                                       quants[1:]))
+                                       quants[1:], row0_prev[1]))
     return (ly, lc), (hy, hc)
 
 
@@ -133,10 +141,16 @@ def dwt_forward_yuy2(frames: torch.Tensor, precision: int, prescale: int,
     return lows, highs
 
 
-def dwt_forward_groups(lows, prescale: int, quants):
+def dwt_forward_groups(lows, prescale: int, quants, row0_prev=(None, None)):
     """The next level of the three channels held in their groups' lowpass
     buffers, Y (B, 1, H, W) and V, U (B, 2, H, W/2) int32 -> (lows, highs)
     by group.
+
+    row0_prev: for each group, None or its planes' row-0 carry, Y (B, 1, 2)
+    and V, U (B, 2, 2) int32: the raw pixels that precede each plane's
+    first row in the reference's memory, which the narrow-row quirk of a
+    plane at most 16 wide (a multiple of 8) reads for row 0 in place of
+    zeros (`intra_transform.h26_forward`).
 
     W must be a multiple of 4 and at least 12, H even and at least 6."""
     _check_quants("dwt_forward_groups", quants)
@@ -155,11 +169,22 @@ def dwt_forward_groups(lows, prescale: int, quants):
                          f"{tuple(y.shape)} and {tuple(c.shape)} are not Y "
                          "(B, 1, H, W) and V, U (B, 2, H, W/2) with H even "
                          "and at least 6, W a multiple of 4, at least 12")
+    if len(row0_prev) != 2:
+        raise ValueError("dwt_forward_groups: expected a row-0 carry (or "
+                         "None) for each of the two groups")
+    for t, g in zip(row0_prev, (1, 2)):
+        if t is not None and (t.dtype != torch.int32
+                              or t.shape != (batch, g, 2)):
+            raise ValueError(f"dwt_forward_groups: row-0 carry "
+                             f"{tuple(t.shape)} {t.dtype}: expected "
+                             f"({batch}, {g}, 2) int32")
     if not _build.uses_kernel("dwt_forward_groups", y):
-        return plain_groups((y[:, 0], c[:, 0], c[:, 1]), prescale, quants)
+        return plain_groups((y[:, 0], c[:, 0], c[:, 1]), prescale, quants,
+                            row0_prev)
     out_lows, highs = _group_outputs(y.device, batch, h // 2, w // 2)
     _build.launch(dwt_forward_groups, "dwt_forward", "cf_dwt_forward_groups",
-                  _GROUPS_ARGTYPES, y, c, *out_lows, *highs, batch, h, w,
+                  _GROUPS_ARGTYPES, y, c, *out_lows, *highs, *row0_prev,
+                  batch, h, w,
                   highs[0].shape[-1], highs[1].shape[-1], prescale,
                   *(q for qs in quants for q in qs))
     return out_lows, highs

@@ -2,10 +2,14 @@
 
 Port of `cineform_tpu.ops.intra_transform` (the 4:2:2 YUY2, UYVY, YU64 and
 V210 paths, the RGB 4:4:4 RG48, the RGBA 4:4:4:4 B64A and RG64, the Bayer
-BYR4 and BYR5, and the decoder's dequantization), bit-exact against it and
+BYR4 and BYR5, the decoder's dequantization, and the two-frame GOP's
+row-0 carry and stale-bottom inverse), bit-exact against it and
 therefore against the NumPy oracle
-`cineform_tpu.ref.intra` and the reference SDK.  All arithmetic is int32
-on tensors of any leading shape; planes are (..., H, W).
+`cineform_tpu.ref.intra` and the reference SDK; the interlaced group's
+frame inverse and the output's scalar tail follow the NumPy oracles
+`cineform_tpu.ref.gop` and `ref.intra`, which have no JAX twin.  All
+arithmetic is int32 on tensors of any leading shape; planes are (..., H,
+W).
 
 These plain versions run on any device.  The forward level
 (`dwt2d_forward`) is also the reference that the hand-written CUDA level
@@ -43,11 +47,15 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def h26_forward(x: torch.Tensor, prescale: int = 0):
+def h26_forward(x: torch.Tensor, prescale: int = 0,
+                row0_prev: torch.Tensor | None = None):
     """Horizontal production 2-6 forward along the last axis.
 
     prescale=2: per-tap (x+3)>>2 for the highpass, (x0+x1+3)>>2 lowpass
-    (`FilterHorizontalRow10bit16s`)."""
+    (`FilterHorizontalRow10bit16s`).
+    row0_prev: the raw (..., 2) pixels that precede the first row in
+    memory, for the narrow-row quirk below (the GOP's temporal-high
+    spatial reads the temporal lowpass' last two pixels there)."""
     even, odd = x[..., 0::2], x[..., 1::2]
     if prescale:
         r = (1 << prescale) - 1
@@ -72,10 +80,16 @@ def h26_forward(x: torch.Tensor, prescale: int = 0):
         # filter at column 0, whose input[-2..-1] overread lands on the
         # previous row's last two (prescaled) pixels when the row pitch is
         # a multiple of 8 pixels, and on zeros otherwise and on the first
-        # row (ref/intra._h26_forward, validated at 64x48..144x96).
+        # row unless `row0_prev` gives its predecessor (ref/intra.
+        # _h26_forward, validated at 64x48..144x96).
         prev = torch.zeros_like(plow[..., 0])
         if x.shape[-1] % 8 == 0:
             prev[..., 1:] = plow[..., :-1, -1]
+            if row0_prev is not None:
+                p = row0_prev
+                if prescale:
+                    p = (p + ((1 << prescale) - 1)) >> prescale
+                prev[..., 0] = p[..., 0] + p[..., 1]
         first = ((-prev + plow[..., 1] + ROUNDING) >> 3) + diff[..., 0]
     last = (
         11 * pe[..., -1] - 5 * po[..., -1]
@@ -145,9 +159,10 @@ def dequantize(codes: torch.Tensor, q: int) -> torch.Tensor:
 
 
 def dwt2d_forward(x: torch.Tensor, prescale: int = 0,
-                  quant: tuple[int, int, int] | None = None):
+                  quant: tuple[int, int, int] | None = None,
+                  row0_prev: torch.Tensor | None = None):
     """One production 2D level; returns (LL, (LH, HL, HH))."""
-    low, high = h26_forward(x, prescale)
+    low, high = h26_forward(x, prescale, row0_prev)
     ll, hl = v26_forward(low)
     lh, hh = v26_forward(high)
     if quant is not None:
@@ -241,11 +256,15 @@ def expand_dither_rows(row_draws: torch.Tensor, width: int,
 
 def h26_inverse_to_output(low: torch.Tensor, high: torch.Tensor,
                           descale_shift: int = 2,
-                          dither: torch.Tensor | None = None) -> torch.Tensor:
+                          dither: torch.Tensor | None = None,
+                          scalar_tail: int = 0) -> torch.Tensor:
     """Final horizontal inverse fused with 8-bit output conversion
     (`InvertHorizontalStrip16s.c:3770`), byte-exact vs the reference:
     interior (max(6tap±high, 0) + 3 + 2*dither) >> 3 with dither in {0,1};
-    borders (6tap±high + 3) >> 3, undithered.  Returns uint8."""
+    borders (6tap±high + 3) >> 3, undithered.  `scalar_tail` output
+    columns at the row's end go through the reference's scalar loop
+    (`InvertHorizontalStrip16s.c:4680+`): plain arithmetic, no dither and
+    no lane wrap.  Returns uint8."""
     total = descale_shift + 1
     bias = (1 << (total - 1)) - 1
     te = (low[..., :-2] - low[..., 2:] + ROUNDING) >> 3
@@ -266,6 +285,14 @@ def h26_inverse_to_output(low: torch.Tensor, high: torch.Tensor,
     do = dither[..., 1::2][..., 1:-1] if dither is not None else 0
     even_i = _sse_lane(te, +1, de)
     odd_i = _sse_lane(to, -1, do)
+    # the scalar region's last pair is the right border (below), which
+    # leaves scalar_tail / 2 - 1 interior pairs
+    n = scalar_tail // 2 - 1
+    if n > 0:
+        even_i[..., -n:] = ((te + low[..., 1:-1] + high[..., 1:-1]).clamp(
+            min=0)[..., -n:] + bias) >> total
+        odd_i[..., -n:] = ((to + low[..., 1:-1] - high[..., 1:-1]).clamp(
+            min=0)[..., -n:] + bias) >> total
     t0e = (11 * low[..., 0] - 4 * low[..., 1] + low[..., 2] + ROUNDING) >> 3
     t0o = (5 * low[..., 0] + 4 * low[..., 1] - low[..., 2] + ROUNDING) >> 3
     even_f = ((t0e + high[..., 0] + bias) >> total)[..., None]
@@ -279,10 +306,63 @@ def h26_inverse_to_output(low: torch.Tensor, high: torch.Tensor,
     return _interleave(even, odd).clamp(0, 255).to(torch.uint8)
 
 
-def dwt2d_inverse(ll, lh, hl, hh, descale: int = 1) -> torch.Tensor:
-    low = v26_inverse(ll, hl)
+def v26_inverse_shifted_bottom(low: torch.Tensor,
+                               high: torch.Tensor) -> torch.Tensor:
+    """v26_inverse with the bottom border taps one row stale
+    (`InvertSpatialQuantOverflowProtected16s` advances its lowpass pointer
+    past its border filter, `Codec/spatial.c:21114+690`): the GOP's w5
+    and w3 inverses apply it to the (LL, HL) vertical pair."""
+    out = v26_inverse(low, high)
+    tke = (5 * low[..., -2, :] + 4 * low[..., -3, :]
+           - low[..., -4, :] + ROUNDING) >> 3
+    tko = (11 * low[..., -2, :] - 4 * low[..., -3, :]
+           + low[..., -4, :] + ROUNDING) >> 3
+    last2 = torch.stack([sat16((tke + high[..., -1, :]) >> 1),
+                         sat16((tko - high[..., -1, :]) >> 1)], dim=-2)
+    return torch.cat([out[..., :-2, :], last2], dim=-2)
+
+
+def dwt2d_inverse(ll, lh, hl, hh, descale: int = 1,
+                  bottom_shift: bool = False) -> torch.Tensor:
+    v26 = v26_inverse_shifted_bottom if bottom_shift else v26_inverse
+    low = v26(ll, hl)
     high = v26_inverse(lh, hh)
     return h26_inverse(low, high, descale)
+
+
+def frame_wavelet_inverse(ll, lh, hl, hh, dither: torch.Tensor,
+                          channel: int) -> torch.Tensor:
+    """Inverse of the interlaced group's HORZTEMP frame wavelet to 8-bit
+    rows: the horizontal 2-6 inverse, then the 2-2 row expansion
+    (`InvertInterlacedRow16s10bitToYUV`, `Codec/temporal.c:5961`): even =
+    clamp_0..2047(low - high) >> 1, odd = clamp(low + high) >> 1, then
+    (row + dither) >> 2.
+
+    `hl` holds the dequantized, difference-coded values: the row cumsum
+    (`Codec/entropy_threading.c:205`, int16 wrap) is applied here.
+    `dither` (pairs, 16) holds the {0, 1} draws of each output row pair
+    (`ref.gop.interlaced_dither_rows`); luma's even rows take lanes 0-7
+    and 8-15 alternating every 8 columns and its odd rows the swap,
+    channel 1 (V) lanes 0-7 on even rows and 8-15 on odd, channel 2 (U)
+    the swap.  Returns uint8 (..., 2h, w)."""
+    hl = wrap16(torch.cumsum(hl.to(torch.int64), dim=-1)).to(torch.int32)
+    tlow = h26_inverse(ll, lh)
+    thigh = h26_inverse(hl, hh)
+    c = torch.arange(tlow.shape[-1], device=tlow.device)
+    block = (c // 8) % 2 == 0
+    if channel == 0:
+        lane_e = torch.where(block, c % 8, 8 + c % 8)
+        lane_o = torch.where(block, 8 + c % 8, c % 8)
+    elif channel == 1:
+        lane_e, lane_o = c % 8, 8 + c % 8
+    else:
+        lane_e, lane_o = 8 + c % 8, c % 8
+    d = dither.to(torch.int32)
+    even = (sat16(tlow - thigh).clamp(0, 2047) >> 1) + d[:, lane_e]
+    odd = (sat16(tlow + thigh).clamp(0, 2047) >> 1) + d[:, lane_o]
+    out = torch.stack([even, odd], dim=-2)
+    out = out.reshape(*even.shape[:-2], 2 * even.shape[-2], even.shape[-1])
+    return (out >> 2).clamp(0, 255).to(torch.uint8)
 
 
 def inverse_channel_strips(lowpass, bands, prescale):

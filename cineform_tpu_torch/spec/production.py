@@ -1,9 +1,9 @@
 """Production encoder parameters: quality -> per-band quantizers.
 
 A copy of the JAX package's `spec/production.py`, cut to what the intra
-codec's YUY2, RGB 4:4:4 and RGBA 4:4:4:4 paths need: the preset quality
-tables with the 12-bit RGB gains, no custom quantization and no FILMSCAN
-rate control.  It mirrors the reference's quality system for the shipping
+codec's paths and the two-frame GOP codec need: the preset quality
+tables with the 12-bit RGB gains and the GOP length, no custom
+quantization, no interlaced remap and no FILMSCAN rate control.  It mirrors the reference's quality system for the shipping
 encoder:
 
 - base quality tables `LUMA_QUALITY_*` / `CHROMA_QUALITY_*`
@@ -44,13 +44,16 @@ QUANT_SCALE_FACTOR = 2      # `Codec/quantize.h:52`
 
 def quality_tables(quality: int, precision: int,
                    chroma_full_res: bool = False,
-                   rgb_quality: int = 0) -> tuple[list[int], list[int]]:
+                   rgb_quality: int = 0,
+                   gop_length: int = 1) -> tuple[list[int], list[int]]:
     """17-entry (luma, chroma) quant tables after QuantizationSetQuality
-    for a progressive intra frame on the first frame (the FILMSCAN rate
+    for a progressive frame on the first frame (the FILMSCAN rate
     limiter at its first-frame value: 8 for FILMSCAN2, 4 for FILMSCAN3,
     `Codec/quantize.c:224-233`).  `chroma_full_res` gives the chroma
     channels the luma table (4:4:4 RGB); at 12-bit precision the RGB gains
-    of `rgb_quality` apply.
+    of `rgb_quality` apply.  `gop_length` 1 is an intra frame, 2 a
+    two-frame group (FIELDPLUS), whose subbands 7-9 keep their own
+    entries.
 
     quality: CFHD_ENCODING_QUALITY_* numeric (1=low .. 6=filmscan3).
     Mirrors `Codec/quantize.c:186-585` for the FixedQuality path with
@@ -103,10 +106,11 @@ def quality_tables(quality: int, precision: int,
             luma[i] *= 4
             chroma[i] *= chromagain
 
-    # Intra: frame-wavelet subbands read table entries 11-13
-    # (`Codec/quantize.c:548-565`)
-    for t in (luma, chroma):
-        t[7], t[8], t[9] = t[11], t[12], t[13]
+    if gop_length == 1:
+        # Intra: frame-wavelet subbands read table entries 11-13
+        # (`Codec/quantize.c:548-565`)
+        for t in (luma, chroma):
+            t[7], t[8], t[9] = t[11], t[12], t[13]
     return luma, chroma
 
 

@@ -1,6 +1,7 @@
 """The port's own copy of the host path (`cineform_tpu_torch.spec`,
-`bitstream`, `entropy.native`, `native`, `models.intra_host`, `ref.intra`,
-`utils.glibc_random`, `testframes`), on the CPU.
+`bitstream`, `entropy.native`, `native`, `models.intra_host`,
+`models.gop_host`, `ref.intra`, `ref.gop`, `utils.glibc_random`,
+`testframes`), on the CPU.
 
 The port imports nothing of the JAX package: no source names it, and the
 slice runs where it cannot be imported.  Each copy equals its original on
@@ -22,9 +23,11 @@ import torch
 from cineform_tpu.bitstream import fastwalk as jfastwalk
 from cineform_tpu.bitstream import parse_sample as jparse_sample
 from cineform_tpu.entropy import native as jnative
+from cineform_tpu.models import gop_host as jgop_host
 from cineform_tpu.models import intra_host as jhost
 from cineform_tpu.models.intra import IntraCodec as JaxIntraCodec
 from cineform_tpu.ref import demosaic as jdemosaic
+from cineform_tpu.ref import gop as jgop
 from cineform_tpu.ref import intra as jref
 from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
@@ -36,9 +39,11 @@ from cineform_tpu_torch import testframes as tframes
 from cineform_tpu_torch.bitstream import fastwalk as tfastwalk
 from cineform_tpu_torch.bitstream import parse_sample as tparse_sample
 from cineform_tpu_torch.entropy import native as tnative
+from cineform_tpu_torch.models import gop_host as tgop_host
 from cineform_tpu_torch.models import intra_host as thost
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.ref import demosaic as tdemosaic
+from cineform_tpu_torch.ref import gop as tgop
 from cineform_tpu_torch.ref import intra as tref
 from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
@@ -86,9 +91,17 @@ def _plain(x):
 # The port imports nothing of the JAX package
 # ---------------------------------------------------------------------------
 
+#: modules of the port that a later slice added, which the guards must see
+NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
+               "ref/gop.py")
+
+
 def test_port_sources_import_nothing_of_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports `cineform_tpu`
-    or `jax`, at top level or inside a function."""
+    or `jax`, at top level or inside a function; the GOP and stereo
+    modules are among those checked."""
+    sources = [os.path.relpath(p, PKG) for p in _port_sources()]
+    assert set(NEW_MODULES) <= set(sources)
     found = []
     for path in _port_sources():
         with open(path) as f:
@@ -133,6 +146,14 @@ assert c.encode_batch_device(f, 1, sample_metadata(gold))[0] == gold
 assert c.decode_batch([gold]).tobytes() == want
 out, fallback = c.decode_batch_device([gold])
 assert fallback == () and out.tobytes() == want
+from cineform_tpu_torch.models.gop import GopCodec
+group = open(os.path.join(samples, "gop_320x240_q4_p1.cfhd.f1"), "rb").read()
+f0, f1, fallback = GopCodec(320, 240, 4, device="cpu").decode_batch_device(
+    [group])
+assert fallback == () and f0.tobytes() == open(os.path.join(
+    samples, "gop_320x240_q4_p1.f0.yuy2"), "rb").read()
+for name in ("gop", "gop_host", "stereo"):
+    assert "cineform_tpu_torch.models." + name in sys.modules
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("cineform_tpu", "jax", "jaxlib")]
 print("ok")
@@ -141,8 +162,9 @@ print("ok")
 
 def test_port_runs_where_the_jax_package_cannot_be_imported():
     """In a fresh interpreter where importing `cineform_tpu` or `jax`
-    raises, every port module imports, and the 64x48 golden encodes and
-    decodes byte for byte on both decode routes."""
+    raises, every port module imports, the 64x48 golden encodes and
+    decodes byte for byte on both decode routes, and a GOP golden decodes
+    on the device route."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -242,10 +264,13 @@ def test_new_format_host_tables_match():
     got, want = tdemosaic.log2lin_lut(), jdemosaic.log2lin_lut()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    # the port keeps the one-frame, not-deep-YUV offsets its BGRA output
-    # takes
-    assert [thost.lowpass_offset_absolute(w) for w in range(1, 40)] == \
-        [jhost.lowpass_offset_absolute(w, False, 1) for w in range(1, 40)]
+    # the port keeps the not-deep-YUV offsets that its BGRA and interlaced
+    # group outputs take
+    for frames in (1, 2):
+        assert [thost.lowpass_offset_absolute(w, frames)
+                for w in range(1, 40)] == \
+            [jhost.lowpass_offset_absolute(w, False, frames)
+             for w in range(1, 40)]
 
 
 @pytest.mark.parametrize("pattern", [0, 1, 2])
@@ -396,3 +421,80 @@ def test_overflow_reencode_from_device_coefficients_matches_jax():
         assert got[i] == jhost.encode_sample(
             frames[i].tobytes(), w, h, 4, frame_number=5 + i,
             metadata=jhost.EncoderMetadata().advanced(4 + i))
+
+
+# ---------------------------------------------------------------------------
+# The two-frame GOP's host copies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quality", range(1, 7))
+def test_gop_quality_tables_and_band_quant_match(quality):
+    """`quality_tables(gop_length=2)` and the FIELDPLUS band quantizers,
+    progressive and interlaced, scales and prescale table."""
+    for precision in (jtags.PRECISION_10BIT, jtags.PRECISION_12BIT):
+        assert tprod.quality_tables(quality, precision, gop_length=2) == \
+            jprod.quality_tables(quality, precision, gop_length=2)
+    for ch in range(3):
+        for progressive in (True, False):
+            assert tgop.fieldplus_band_quant(
+                quality, ttags.PRECISION_10BIT, ch, progressive) == \
+                jgop.fieldplus_band_quant(quality, jtags.PRECISION_10BIT, ch,
+                                          progressive)
+    assert tgop.fieldplus_band_scales() == jgop.fieldplus_band_scales()
+    assert tgop.FIELDPLUS_PRESCALE == jgop.FIELDPLUS_PRESCALE
+
+
+def test_gop_host_helpers_match():
+    """The subband map, the band-end marker, the two-frame lowpass offsets
+    and the interlaced output's draws (the windows `decode_group` cuts)."""
+    assert tgop_host.SUBBAND_MAP == jgop_host.SUBBAND_MAP
+    assert tgop_host.BANDEND_MARKER == jgop_host._bandend_marker()
+    for frames in (1, 2):
+        assert [thost.lowpass_channel_offset(w, frames)
+                for w in range(1, 300)] == \
+            [jhost.lowpass_channel_offset(w, num_frames=frames)
+             for w in range(1, 300)]
+    height, base = 48, 3
+    pairs = height // 2
+    seq = jglibc.glibc_rand_sequence(16 * pairs * (base + 2)) & 1
+    for f in (0, 1):
+        np.testing.assert_array_equal(
+            tgop.interlaced_dither_rows(height, base + f),
+            seq[16 * pairs * (base + f):16 * pairs * (base + f + 1)]
+            .reshape(pairs, 16))
+
+
+@pytest.mark.parametrize("w,h,quality", [(96, 48, 4), (144, 48, 6),
+                                         (320, 240, 1)])
+def test_write_group_matches(w, h, quality):
+    """The copy's GROUP writer, with every band through the copy's C++
+    coder, against the original's, on the original's FIELDPLUS transform
+    of two frames."""
+    f0 = jref.unpack_yuy2(jframes.yuy2_frame(w, h, 1), w, h)
+    f1 = jref.unpack_yuy2(jframes.yuy2_frame(w, h, 2), w, h)
+    chans = []
+    for ch in range(3):
+        bq = jgop.fieldplus_band_quant(quality, jtags.PRECISION_10BIT, ch)
+        lowpass, bands = jgop.forward_channel_gop(f0[ch], f1[ch], bq)
+        chans.append((lowpass, bands, bq))
+    meta = jhost.EncoderMetadata().advanced(2)
+    tmeta = thost.EncoderMetadata().advanced(2)
+    assert tgop_host.write_group(chans, w, h, quality, 3, tmeta) == \
+        jgop_host.write_group(chans, w, h, quality, 3, meta)
+
+
+def test_stereo_metadata_and_eye_headers_match():
+    """The VCHN tuple of a stereo sample's metadata and an eye's header
+    tags, as the original's `write_sample` writes them."""
+    jp = jprod.IntraParams(width=64, height=48, quality=4)
+    tp = tprod.IntraParams(width=64, height=48, quality=4)
+    planes = jref.unpack_yuy2(jframes.yuy2_frame(64, 48, 1), 64, 48)
+    chans = [jhost.transform_channel(p, jp, c) for c, p in enumerate(planes)]
+    tchans = [thost.EncodedChannel(lowpass=c.lowpass, bands=c.bands,
+                                   quants=c.quants) for c in chans]
+    meta = jhost.EncoderMetadata(video_channels=2)
+    tmeta = thost.EncoderMetadata(video_channels=2)
+    for eye in (0, 1):
+        assert thost.write_sample(tchans, tp, 1, tmeta, eye=eye) == \
+            jhost.write_sample(chans, jp, 1, meta, video_channels=2,
+                               channel_number=eye)

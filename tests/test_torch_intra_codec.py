@@ -55,9 +55,7 @@ def test_sample_metadata_matches_the_golden_reader(name):
     gold = _golden(name, "cfhd")
     got, want = sample_metadata(gold), _metadata_from(gold)
     assert got.block() == want.block()
-    assert dataclasses.asdict(got) == {
-        k: v for k, v in dataclasses.asdict(want).items()
-        if k != "video_channels"}                   # stereo only: not ported
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("name,w,h,q,p", GOLDENS)

@@ -301,6 +301,37 @@ def test_wrappers_reject_bad_shapes():
         merge_network_highfirst(z32, z64)
 
 
+def _carries(seed, b, which):
+    """Row-0 carries of the Y and V, U groups: `which` of them seeded
+    pixels, the other None."""
+    return tuple(_rand(seed + g, (b, g, 2), 0, 4096) if which in (n, "both")
+                 else None for g, n in ((1, "y"), (2, "c")))
+
+
+def test_dwt_forward_groups_row0_carry_on_cpu():
+    """On the CPU `dwt_forward_groups` hands its row-0 carries to the plain
+    version; at a chroma width of 16 the carry changes rows 0 and 1 of
+    chroma's LH and HH (the vertical filter's first rows read input row
+    0's highpass), and nothing of luma, 32 wide.  A carry of the wrong shape
+    or dtype raises."""
+    x = _rand(5, (2, 12, 32), 0, 4096)
+    lows = (x[:, None], torch.stack((x[..., :16], x[..., 16:]), dim=1))
+    carry = _carries(9, 2, "both")
+    got = dwt_forward_groups(lows, 0, LEVEL_QUANTS[0], carry)
+    want = dwt.plain_groups((lows[0][:, 0], lows[1][:, 0], lows[1][:, 1]), 0,
+                            LEVEL_QUANTS[0], carry)
+    assert _equal(got, want)
+    plain = dwt_forward_groups(lows, 0, LEVEL_QUANTS[0])
+    assert _equal(plain[0], got[0]) and torch.equal(plain[1][0], got[1][0])
+    diff = (plain[1][1] != got[1][1]).nonzero()
+    assert len(diff) and set(diff[:, 2].tolist()) <= {0, 2} \
+        and 0 in set(diff[:, 3].tolist()) <= {0, 1}
+    for bad in ((carry[0][:1], None), (None, carry[0]),
+                (carry[0].long(), None), (carry[0],)):
+        with pytest.raises(ValueError):
+            dwt_forward_groups(lows, 0, LEVEL_QUANTS[0], bad)
+
+
 def test_package_imports_no_jax():
     """In a fresh interpreter where importing jax fails, every module of
     the port imports and the slice runs."""
@@ -360,6 +391,89 @@ DWT_CASES = [
     (2, 6, 6, 0, (1, 1, 1)),
     (1, 30, 300, 2, (12, 12, 6)),
 ]
+
+
+#: (batch, H, W of the luma plane, prescale, carried groups) of the row-0
+#: carry: chroma 16 wide (the quirk reads the carry), luma 16 and chroma 8
+#: (both), chroma 12 and luma 24 (W % 8 != 0 or W > 16: ignored), and the
+#: GOP's w4 and w3 shapes at 64x48 (prescale 2, and the carry)
+CARRY_CASES = [
+    (2, 12, 32, 0, "both"),
+    (3, 24, 16, 2, "both"),
+    (1, 12, 16, 0, "y"),
+    (2, 12, 32, 2, "c"),
+    (2, 8, 24, 0, "both"),
+    (2, 24, 32, 2, None),
+    (2, 24, 32, 0, "both"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,prescale,which", CARRY_CASES)
+def test_dwt_forward_groups_carry_kernel_matches_plain(cuda, b, h, w,
+                                                       prescale, which):
+    y = _rand(w * h + prescale, (b, 1, h, w), -2000, 4096)
+    c = _rand(w * h + 1, (b, 2, h, w // 2), -2000, 4096)
+    carry = _carries(h, b, which)
+    before = dwt_forward_groups.launches
+    got = dwt_forward_groups((y.to(cuda), c.to(cuda)), prescale,
+                             LEVEL_QUANTS[1],
+                             tuple(t if t is None else t.to(cuda)
+                                   for t in carry))
+    torch.cuda.synchronize()
+    assert dwt_forward_groups.launches == before + 1
+    assert _equal(got, dwt.plain_groups((y[:, 0], c[:, 0], c[:, 1]),
+                                        prescale, LEVEL_QUANTS[1], carry))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,h", [(64, 48), (96, 48), (320, 240)])
+def test_gop_forward_on_the_card_matches_plain(cuda, w, h):
+    """`GopCodec.forward` on the card, 2 `dwt_forward_yuy2` and 3
+    `dwt_forward_groups` launches, equals its plain version on the CPU."""
+    from cineform_tpu_torch.models.gop import GopCodec
+
+    f0, f1 = (_frames(w * h + k, 2, h, w) for k in (0, 1))
+    launches = (dwt_forward_yuy2.launches, dwt_forward_groups.launches)
+    got = GopCodec(w, h, 4, device=cuda).forward(f0.to(cuda), f1.to(cuda))
+    torch.cuda.synchronize()
+    assert (dwt_forward_yuy2.launches, dwt_forward_groups.launches) == (
+        launches[0] + 2, launches[1] + 3)
+    want = GopCodec(w, h, 4, device=torch.device("cpu")).forward(f0, f1)
+    for (glp, gb), (wlp, wb) in zip(got, want, strict=True):
+        assert _equal(glp, wlp)
+        assert all(_equal(gb[k], wb[k]) for k in wb)
+
+
+@pytest.mark.gpu
+def test_gop_codec_on_the_card_matches_goldens(cuda):
+    """The GOP goldens encode byte for byte on the card, and decode on both
+    routes, the device route with 6 launches of each decoder merge form
+    and no fallback."""
+    from cineform_tpu_torch.models.gop import GopCodec
+    from cineform_tpu_torch.models.intra import sample_metadata
+    from cineform_tpu_torch.testframes import yuy2_frame
+
+    def golden(name):
+        with open(os.path.join(REPO, "tests", "golden", "samples", name),
+                  "rb") as f:
+            return f.read()
+
+    codec = GopCodec(320, 240, 4, device=cuda)
+    for name, p0, p1 in (("gop_320x240_q4_p1", 1, 2),
+                         ("gop2_320x240_q4_p100", 100, 100)):
+        gold = golden(name + ".cfhd.f1")
+        f0, f1 = (np.frombuffer(yuy2_frame(320, 240, p), np.uint8).reshape(
+            1, 240, 640) for p in (p0, p1))
+        assert codec.encode_batch(f0, f1, 1, sample_metadata(gold)) == [gold]
+        want = [golden(f"{name}.f{f}.yuy2") for f in (0, 1)]
+        assert [f.tobytes() for f in codec.decode_batch([gold])] == want
+        launches = [merge_network_tgt.launches,
+                    merge_network_highfirst.launches]
+        *dev, fallback = codec.decode_batch_device([gold])
+        assert fallback == () and [f.tobytes() for f in dev] == want
+        assert [merge_network_tgt.launches,
+                merge_network_highfirst.launches] == [n + 6 for n in launches]
 
 
 @pytest.mark.gpu
