@@ -93,7 +93,27 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    counts reset, a batch of 8 1080p stereo 3D samples (`models.stereo`),
    both eyes decoded on the device equal to `decode_batch` of the split
    eyes, no frame falling back;
-9. fails if a module of the JAX package was imported.
+9. drives the public API and the pools (`cineform_tpu_torch.api`,
+   `pool`) at 1920x1080, quality 4, with fixed metadata: the sync
+   `Encoder` on 8 YUY2, then 8 RG48 and 8 V210 frames, one call each,
+   equal to `encode_batch_device` of the same frames and frame numbers
+   (the DWT 3 times a frame); the sync `Decoder` on the YUY2 samples to
+   YUY2 and UYVY and on the RG48 samples to RG48, equal to
+   `decode_batch_device` with no frame falling back; the 320x240 API
+   goldens (the `gopstream` encode and decode series, `fs2`/`fs3`) and
+   stereo eye selection; then, the launch counts set to 0 before each
+   pool, an `EncoderPool` of 32 YUY2 frames (the batcher takes what is
+   queued, up to 8 jobs: the DWT 3 times, `chunk_pack` and
+   `merge_network` 6 times a batch taken) and of 8 GOP pairs, in order
+   and equal to the sync `Encoder`'s samples, and a `DecoderPool` of the
+   32 samples to YUY2 (equal to the sync `Decoder`) and to BGRA (equal to
+   `decode_batch_device`), 6 launches of each decoder merge form a batch
+   taken and no frame falling back; it prints the batch sizes, the
+   sync ms/frame (medians of 3 runs after a warm-up), the pools'
+   frames/s over the window from the first submission to the last
+   harvest and the decoder pool's peak device memory, each beside the
+   card's name and power limit;
+10. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -250,6 +270,14 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * np.log10(255.0 ** 2 / mse)) if mse > 0 else 99.0
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0] if smi else "nvidia-smi: no output"
+
+
 def golden(ext: str, name: str = GOLDEN) -> bytes:
     with open(os.path.join(GOLDEN_DIR, f"{name}.{ext}"), "rb") as f:
         return f.read()
@@ -268,14 +296,16 @@ def main() -> int:
         raise SystemExit("chip_smoke: run it from the root of a checkout")
     sys.path.insert(0, ROOT)
 
-    from cineform_tpu_torch import _build
+    from cineform_tpu_torch import _build, api
     from cineform_tpu_torch.entropy import device as edev
     from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models.gop import GopCodec
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
+    from cineform_tpu_torch.models.intra_host import EncoderMetadata
     from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
                                                   encode_batch_3d, split_3d)
     from cineform_tpu_torch.ops import intra_transform as ops
+    from cineform_tpu_torch.pool import DecoderPool
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
     from cineform_tpu_torch.ops.dwt_forward import (
@@ -1439,6 +1469,310 @@ def main() -> int:
         f"split eyes, 0 fallback frames; launches {launches_stereo}")
     del stereo_samples, out, want
 
+    # --- 9. the public API and the pools -----------------------------------
+    meta = EncoderMetadata()            # fixed metadata on both sides
+    the_card = card()
+    numbers = list(range(1, BATCH + 1))
+    dwt_names = ("dwt_forward_yuy2", "dwt_forward_groups",
+                 "dwt_forward_planes")
+    launches_api = dict.fromkeys(kernels, 0)
+    launches_pool = dict.fromkeys(kernels, 0)
+
+    def counts():
+        return {n: k["wrapper"].launches for n, k in kernels.items()}
+
+    def book(into):
+        """Add the launch counts since `reset_counts` to a path's."""
+        for n, v in counts().items():
+            into[n] += v
+
+    def sync_encode(fmt, frames_, dwt_want):
+        """The sync Encoder on `frames_`, one call each, 4 runs (a warm-up
+        and 3 timed); fails unless every run's samples equal
+        encode_batch_device's of the same frames and frame numbers, and
+        the DWT entry points ran `dwt_want` times a frame.  Returns
+        (samples, median ms/frame, the median ms of encode_batch_device
+        on one frame)."""
+        c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format=fmt)
+        want = c.encode_batch_device(frames_, metadata=meta,
+                                     frame_numbers=numbers)
+        alone = [host_ms(torch, lambda: c.encode_batch_device(
+            frames_[:1], metadata=meta))[1] for _ in range(4)]
+        reset_counts()
+        times = []
+        for it in range(4):
+            enc = api.Encoder(dev)
+            enc.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat[fmt])
+            enc.attach_metadata(meta)
+            got = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in frames_:
+                enc.encode_sample(f)
+                got.append(enc.get_sample_data())
+            times.append((time.perf_counter() - t0) * 1e3 / BATCH)
+            if got != want:
+                raise AssertionError(f"api.Encoder {fmt} run {it}: samples "
+                                     "differ from encode_batch_device's")
+        got = counts()
+        want_dwt = {n: 4 * BATCH * dwt_want.get(n, 0) for n in dwt_names}
+        if {n: got[n] for n in dwt_names} != want_dwt \
+                or dwt_forward_level.launches:
+            raise AssertionError(f"api.Encoder {fmt}: {4 * BATCH} encodes "
+                                 f"launched {got}: expected {want_dwt}")
+        book(launches_api)
+        return want, med(times[1:]), med(alone[1:])
+
+    def sync_decode(samples_, fmt, pf, output):
+        """The sync Decoder on `samples_` to `pf`, 4 runs (a warm-up and 3
+        timed); fails unless each run equals decode_batch_device's frames
+        (`output`; UYVY: YUY2 repacked) with no frame falling back.
+        Returns (the median ms/frame, the median ms of
+        decode_batch_device on one sample)."""
+        c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format=fmt)
+        want, fallback = c.decode_batch_device(samples_, output=output)
+        if pf == api.PixelFormat.UYVY:
+            want = want.reshape(BATCH, -1, 4)[..., [1, 0, 3, 2]]
+        if fallback:
+            raise AssertionError(f"decode_batch_device {fmt}: fallback "
+                                 f"frames {fallback}")
+        alone = [host_ms(torch, lambda: c.decode_batch_device(
+            samples_[:1], output=output))[1] for _ in range(4)]
+        reset_counts()
+        times = []
+        for it in range(4):
+            dec = api.Decoder(dev)
+            dec.prepare_to_decode(0, 0, pf, sample=samples_[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [dec.decode_sample(x) for x in samples_]
+            times.append((time.perf_counter() - t0) * 1e3 / BATCH)
+            if dec.fallback_frames or any(
+                    a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                raise AssertionError(
+                    f"api.Decoder {fmt} to {pf.name} run {it}: frames differ "
+                    "from decode_batch_device's, or fell back "
+                    f"({dec.fallback_frames})")
+        book(launches_api)
+        return med(times[1:]), med(alone[1:])
+
+    t_phase = time.perf_counter()
+    rg48_c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format="RG48")
+    v210_c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format="V210")
+    yuy2_samples, *enc_yuy2 = sync_encode(
+        "YUY2", frames, {"dwt_forward_yuy2": 1, "dwt_forward_groups": 2})
+    rg48_samples, *enc_rg48 = sync_encode(
+        "RG48", rolled(rg48_frame, rg48_c), {"dwt_forward_planes": 3})
+    _, *enc_v210 = sync_encode("V210", rolled(v210_frame, v210_c),
+                               {"dwt_forward_groups": 3})
+    dec_yuy2 = sync_decode(yuy2_samples, "YUY2", api.PixelFormat.YUY2,
+                           "YUY2")
+    dec_uyvy = sync_decode(yuy2_samples, "YUY2", api.PixelFormat.UYVY,
+                           "YUY2")
+    dec_rg48 = sync_decode(rg48_samples, "RG48", api.PixelFormat.RG48,
+                           "RG48")
+    log(f"api sync at {WIDTH}x{HEIGHT} q4, {BATCH} frames a run, each a "
+        "call, byte-equal to encode_batch_device and decode_batch_device "
+        "with 0 fallback frames; ms/frame, medians of 3 runs after a "
+        "warm-up, and in brackets the codec's own call on one frame "
+        "(medians of 3 after a warm-up): " + "; ".join(
+            f"{what} {fmt} {t[0]:.4f} [{t[1]:.4f}]"
+            for what, fmt, t in (
+                ("encode", "YUY2", enc_yuy2), ("encode", "RG48", enc_rg48),
+                ("encode", "V210", enc_v210), ("decode", "YUY2", dec_yuy2),
+                ("decode", "UYVY", dec_uyvy), ("decode", "RG48", dec_rg48)))
+        + f" ({the_card})")
+
+    # the 320x240 API goldens on the card
+    reset_counts()
+    stream = [golden(f"s{i}", "gopstream_320x240_q4") for i in range(6)]
+    enc = api.Encoder(dev)
+    enc.prepare_to_encode(320, 240, api.PixelFormat.YUY2,
+                          encoding_flags=api.EncodingFlags.YUV_2FRAME_GOP)
+    for i, want in enumerate(stream):
+        enc.attach_metadata(sample_metadata(stream[i | 1]))
+        enc.encode_sample(yuy2_frame(320, 240, 1 + i))
+        if enc.get_sample_data() != want:
+            raise AssertionError(f"api.Encoder GOP stream: sample {i} "
+                                 "differs from gopstream_320x240_q4")
+    dec = api.Decoder(dev)
+    dec.prepare_to_decode(320, 240, sample=stream[1])
+    names = [None, "f0", "f1true", "f2", "f3true", "f4"]
+    for i, name in enumerate(names):
+        got = dec.decode_sample(stream[i])
+        want = None if name is None else golden(f"{name}.yuy2",
+                                                "gopstream_320x240_q4")
+        if (got is None) != (want is None) or (
+                got is not None and got.tobytes() != want):
+            raise AssertionError(f"api.Decoder GOP stream: sample {i} "
+                                 f"differs from {name}")
+    if dec.fallback_frames:
+        raise AssertionError(f"GOP stream: {dec.fallback_frames} frames "
+                             "fell back")
+    for q, base_name in ((5, "fs2_320x240"), (6, "fs3_320x240")):
+        series = [golden(f"cfhd.f{f}", base_name) for f in range(4)]
+        enc = api.Encoder(dev)
+        enc.prepare_to_encode(320, 240, api.PixelFormat.YUY2,
+                              quality=api.EncodingQuality(q))
+        enc.attach_metadata(sample_metadata(series[0]))
+        for f, want in enumerate(series):
+            enc.encode_sample(yuy2_frame(320, 240, f + 1))
+            if enc.get_sample_data() != want:
+                raise AssertionError(f"api.Encoder {base_name} frame {f} "
+                                     "differs from its golden")
+    stereo_enc = api.StereoEncoder(dev)
+    stereo_enc.prepare_to_encode(320, 240, api.PixelFormat.YUY2)
+    pair = stereo_enc.encode_sample(yuy2_frame(320, 240, 1),
+                                    yuy2_frame(320, 240, 2))
+    codec320 = IntraCodec(320, 240, 4, device=dev)
+    for mask in (1, 2):
+        dec = api.Decoder(dev)
+        dec.prepare_to_decode(320, 240)
+        dec.set_channels_active(mask)
+        want = codec320.decode_batch([split_3d(pair)[mask - 1]])
+        if dec.decode_sample(pair).tobytes() != want.tobytes() \
+                or dec.fallback_frames:
+            raise AssertionError(f"api.Decoder stereo eye {mask}: differs "
+                                 "from decode_batch of the split eye")
+    book(launches_api)
+    log("api goldens on the card: the gopstream_320x240_q4 encode (6 "
+        "samples) and decode series, fs2_320x240 and fs3_320x240 (4 frames "
+        "each) byte-equal; StereoEncoder at 320x240, eyes 1 and 2 equal to "
+        "decode_batch of the split eyes; 0 fallback frames")
+    if not all(launches_api.values()):
+        raise AssertionError(f"the api path launched {launches_api}")
+
+    # the pools: 32 YUY2 frames
+    frames32 = np.stack([np.roll(base, i, axis=0) for i in range(4 * BATCH)])
+    enc = api.Encoder(dev)
+    enc.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat.YUY2)
+    enc.attach_metadata(meta)
+    want32 = []
+    for f in frames32:
+        enc.encode_sample(f)
+        want32.append(enc.get_sample_data())
+
+    def pool_run(p, submit, harvest, n):
+        """Submit n items, then harvest them; -> (items, seconds from the
+        first submission to the last harvest)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            submit(i + 1, i)
+        got = [harvest(timeout=600) for _ in range(n)]
+        window = time.perf_counter() - t0
+        p.stop()
+        if [b.frame_number for b in got] != list(range(1, n + 1)):
+            raise AssertionError("a pool delivered out of order: "
+                                 f"{[b.frame_number for b in got]}")
+        return got, window
+
+    def pool_counts(what, p, jobs, want):
+        """Fails unless the pool took its `jobs` jobs in batches of at
+        most 8 and launched `want` (launches a batch) per batch taken."""
+        if sum(p.batches) != jobs or max(p.batches) > BATCH:
+            raise AssertionError(f"{what}: batches {p.batches} for {jobs} "
+                                 "jobs")
+        got = counts()
+        full = dict.fromkeys(kernels, 0)
+        full.update({n: v * len(p.batches) for n, v in want.items()})
+        if got != full or dwt_forward_level.launches:
+            raise AssertionError(f"{what}: batches {p.batches} launched "
+                                 f"{got}: expected {full}")
+        book(launches_pool)
+
+    reset_counts()
+    p = api.CFHD_CreateEncoderPool(1, 4 * BATCH, device=dev)
+    p.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat.YUY2)
+    p.attach_metadata(meta)
+    p.start()
+    got, enc_window = pool_run(
+        p, lambda n, i: p.encode_async_sample(n, frames32[i]),
+        p.wait_for_sample, 4 * BATCH)
+    if [b.get_encoded_sample() for b in got] != want32:
+        raise AssertionError("EncoderPool: samples differ from the sync "
+                             "Encoder's")
+    enc_batches = p.batches
+    pool_counts("EncoderPool", p, 4 * BATCH, {
+        "dwt_forward_yuy2": 1, "dwt_forward_groups": 2, "chunk_pack": 6,
+        "merge_network": 6})
+
+    frames16 = np.stack([gop_f0, gop_f1], axis=1).reshape(
+        2 * BATCH, HEIGHT, 2 * WIDTH)
+    want16 = []
+    enc = api.Encoder(dev)
+    enc.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat.YUY2,
+                          encoding_flags=api.EncodingFlags.YUV_2FRAME_GOP)
+    enc.attach_metadata(meta)
+    for f in frames16:
+        enc.encode_sample(f)
+        want16.append(enc.get_sample_data())
+    reset_counts()
+    p = api.CFHD_CreateEncoderPool(1, 2 * BATCH, device=dev)
+    p.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat.YUY2,
+                        encoding_flags=api.EncodingFlags.YUV_2FRAME_GOP)
+    p.attach_metadata(meta)
+    p.start()
+    got, gop_window = pool_run(
+        p, lambda n, i: p.encode_async_sample(n, frames16[i]),
+        p.wait_for_sample, 2 * BATCH)
+    if [b.get_encoded_sample() for b in got] != want16:
+        raise AssertionError("EncoderPool GOP: samples differ from the "
+                             "sync Encoder's")
+    gop_batches = p.batches
+    pool_counts("EncoderPool GOP", p, BATCH, {"dwt_forward_yuy2": 2,
+                                              "dwt_forward_groups": 3})
+
+    dec = api.Decoder(dev)
+    dec.prepare_to_decode(WIDTH, HEIGHT)
+    want_yuy2 = [dec.decode_sample(x).tobytes() for x in want32]
+    want_bgra = []
+    for i in range(0, 4 * BATCH, BATCH):
+        out, fallback = codec.decode_batch_device(want32[i:i + BATCH],
+                                                  output="BGRA")
+        if fallback:
+            raise AssertionError(f"BGRA batch {i}: fallback {fallback}")
+        want_bgra += [o.tobytes() for o in out]
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dec_windows, dec_batches = {}, {}
+    for pf, want in ((api.PixelFormat.YUY2, want_yuy2),
+                     (api.PixelFormat.BGRA, want_bgra)):
+        reset_counts()
+        p = DecoderPool(2, 4 * BATCH, device=dev)
+        p.prepare_to_decode(WIDTH, HEIGHT, pf)
+        p.start()
+        got, dec_windows[pf.name] = pool_run(
+            p, lambda n, i: p.decode_async_sample(n, want32[i]),
+            p.wait_for_frame, 4 * BATCH)
+        if [b.data.tobytes() for b in got] != want or p.fallback_frames:
+            raise AssertionError(
+                f"DecoderPool {pf.name}: frames differ from the sync route's"
+                f", or {p.fallback_frames} fell back")
+        dec_batches[pf.name] = p.batches
+        pool_counts(f"DecoderPool {pf.name}", p, 4 * BATCH, {
+            "merge_network_tgt": 6, "merge_network_highfirst": 6})
+    pool_peak = torch.cuda.max_memory_allocated()
+    log(f"EncoderPool at {WIDTH}x{HEIGHT} q4: {4 * BATCH} YUY2 frames in "
+        f"batches {enc_batches}, {4 * BATCH / enc_window:.4f} frames/s "
+        f"({enc_window:.4f} s from the first submission to the last "
+        f"harvest); 8 GOP pairs in batches {gop_batches}, "
+        f"{2 * BATCH / gop_window:.4f} frames/s ({gop_window:.4f} s); "
+        f"in order and byte-equal to the sync Encoder ({the_card})")
+    log(f"DecoderPool at {WIDTH}x{HEIGHT}: the {4 * BATCH} samples, " +
+        ", ".join(f"to {n} in batches {dec_batches[n]} "
+                  f"{4 * BATCH / w:.4f} frames/s ({w:.4f} s)"
+                  for n, w in dec_windows.items())
+        + "; YUY2 byte-equal to the sync Decoder, BGRA to "
+        "decode_batch_device, in order, 0 fallback frames; peak device "
+        f"memory over the two pool decodes {pool_peak} bytes "
+        f"({pool_peak / 2**30:.3f} GiB; {base_bytes} allocated before) "
+        f"({the_card})")
+    log(f"launches of the api path {launches_api}; of the pools "
+        f"{launches_pool}; phase {time.perf_counter() - t_phase:.3f} s")
+    del frames32, frames16, want32, want16, want_yuy2, want_bgra, got
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -1446,13 +1780,11 @@ def main() -> int:
                              f"{jax_modules[:10]}")
     log("sys.modules holds no module of cineform_tpu or jax")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
+    log(card())
     by_path = {"yuy2": launches, "rgb": launches_rgb, "yuv10": launches_yuv10,
                "bayer": launches_bayer, "gop": launches_gop,
-               "stereo": launches_stereo}
+               "stereo": launches_stereo, "api": launches_api,
+               "pool": launches_pool}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

@@ -7,7 +7,9 @@ a hash of the source and the flags, and loaded with ctypes.  No PyTorch
 headers are included, so a build takes seconds.
 
 Nothing here runs at import time: the CPU tests import every module on a
-machine without nvcc.
+machine without nvcc.  A build holds its library's lock (`build_lock`),
+so that threads that reach a kernel together (the pools' batcher and
+decode threads) build it once, while different libraries build at once.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from functools import lru_cache
 
 import torch
@@ -25,6 +28,9 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cineform_tpu_torch")
+
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,6 +48,13 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def build_lock(so_path: str) -> threading.Lock:
+    """The lock that a build of the library `so_path`, CUDA or host C++,
+    holds."""
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(so_path, threading.Lock())
+
+
 def library_path(name: str) -> str:
     """Path of the built library for csrc/<name>.cu, building it if needed.
 
@@ -52,19 +65,20 @@ def library_path(name: str) -> str:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_so = os.path.join(tmp, f"{name}.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp_so, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        with open(so_path + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp_so, so_path)
+    with build_lock(so_path):
+        if os.path.exists(so_path):
+            return so_path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            tmp_so = os.path.join(tmp, f"{name}.so")
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp_so, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            with open(so_path + ".log", "w") as f:
+                f.write(proc.stdout + proc.stderr)
+            os.replace(tmp_so, so_path)
     return so_path
 
 

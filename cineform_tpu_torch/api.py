@@ -1,0 +1,812 @@
+"""Public CFHD-shaped API on a torch device: the port of `cineform_tpu.api`.
+
+The surface mirrors the reference's `CFHD_*` entry points
+(`Common/CFHDEncoder.h:254-428`, `Common/CFHDDecoder.h:201-309`) as the JAX
+package's API does:
+
+    CFHD_OpenEncoder / CFHD_PrepareToEncode / CFHD_EncodeSample /
+    CFHD_GetSampleData / CFHD_CloseEncoder            -> Encoder
+    CFHD_OpenDecoder / CFHD_GetOutputFormats /
+    CFHD_PrepareToDecode / CFHD_DecodeSample / ...    -> Decoder
+    CFHD_CreateEncoderPool / CFHD_EncodeAsyncSample /
+    CFHD_WaitForSample / ...                          -> pool.EncoderPool
+
+Every encode and decode runs on one torch device, the card unless the
+caller passes `device="cpu"`, through the port's codecs: intra frames
+through `models.intra.IntraCodec` (`encode_batch_device`,
+`decode_batch_device`), two-frame GOP groups through `models.gop.GopCodec`
+and stereo samples through `models.stereo`.  There is no host codec to
+fall back to: an error of a kernel's build or launch reaches the caller.
+What the JAX API does on the host and no port codec does yet raises
+`CFHDError(BADFORMAT, "... not ported yet")`.
+
+Errors raise CFHDError carrying the CFHD_ERROR_* code instead of returning
+status ints (`Common/CFHDError.h:25-82`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cineform_tpu_torch.bitstream import parse_sample
+from cineform_tpu_torch.models import gop_host, lens, stereo, thumbnail
+from cineform_tpu_torch.models.gop import GopCodec
+from cineform_tpu_torch.models.intra import IntraCodec
+from cineform_tpu_torch.models.intra_host import EncoderMetadata
+from cineform_tpu_torch.spec import tags
+from cineform_tpu_torch.spec.production import update_fs_rate_limiter
+from cineform_tpu_torch.utils import override_db
+
+
+def _fourcc(s: str) -> int:
+    b = s.encode()
+    return (b[0] << 24) | (b[1] << 16) | (b[2] << 8) | b[3]
+
+
+class ErrorCode(enum.IntEnum):
+    """CFHD_Error values (`Common/CFHDError.h:25-82`)."""
+
+    OKAY = 0
+    INVALID_ARGUMENT = 1
+    OUTOFMEMORY = 2
+    BADFORMAT = 3
+    BADSCALING = 4
+    BADSAMPLE = 5
+    INTERNAL = 6
+    METADATA_CLASS = 7
+    METADATA_UNDEFINED = 8
+    METADATA_END = 9
+    UNEXPECTED = 10
+    BAD_RESOLUTION = 11
+    BAD_PIXEL_SIZE = 12
+    NOT_FINISHED = 13
+    ENCODING_NOT_STARTED = 14
+    METADATA_ATTACHED = 15
+    BAD_METADATA = 16
+    THREAD_CREATE_FAILED = 17
+    THREAD_WAIT_FAILED = 18
+    UNKNOWN_TAG = 19
+    LICENSING = 20
+    CODEC_ERROR = 2048
+
+
+class CFHDError(Exception):
+    def __init__(self, code: ErrorCode, message: str = "") -> None:
+        super().__init__(f"{code.name}: {message}" if message else code.name)
+        self.code = code
+
+
+class PixelFormat(enum.IntEnum):
+    """CFHD_PixelFormat FOURCCs (`Common/CFHDTypes.h:112-178`)."""
+
+    YUY2 = _fourcc("YUY2")
+    UYVY = _fourcc("2vuy")
+    BGRA = _fourcc("BGRA")
+    RG24 = _fourcc("RG24")
+    RG48 = _fourcc("RG48")
+    B64A = _fourcc("b64a")
+    V210 = _fourcc("v210")
+    YU64 = _fourcc("YU64")
+    BYR4 = _fourcc("BYR4")
+    BYR5 = _fourcc("BYR5")
+    DPX0 = _fourcc("DPX0")
+    R210 = _fourcc("r210")
+    RG30 = _fourcc("RG30")
+    AB10 = _fourcc("AB10")
+    AR10 = _fourcc("AR10")
+    RG64 = _fourcc("RG64")
+    NV12 = _fourcc("NV12")
+    # decoder-only output formats (`Common/CFHDTypes.h:63-70`)
+    YUYV = _fourcc("yuyv")
+    BGRa = _fourcc("BGRa")
+    R408 = _fourcc("R408")
+    V408 = _fourcc("V408")
+    WP13 = _fourcc("WP13")
+    W13A = _fourcc("W13A")
+    BYR2 = _fourcc("BYR2")
+    # Avid CT family (`Common/CFHDTypes.h:79-84`)
+    CT_UCHAR = _fourcc("avu8")
+    CT_10BIT_2_8 = _fourcc("av28")
+    CT_SHORT_2_14 = _fourcc("a214")
+    CT_USHORT_10_6 = _fourcc("a106")
+    CT_SHORT = _fourcc("av16")
+
+
+class EncodedFormat(enum.IntEnum):
+    """CFHD_EncodedFormat (`Common/CFHDTypes.h:231-240`)."""
+
+    YUV_422 = 0
+    RGB_444 = 1
+    RGBA_4444 = 2
+    BAYER = 3
+
+
+class EncodingQuality(enum.IntEnum):
+    """CFHD_EncodingQuality (`Common/CFHDTypes.h:200-221`)."""
+
+    FIXED = 0
+    LOW = 1
+    MEDIUM = 2
+    HIGH = 3
+    FILMSCAN1 = 4
+    FILMSCAN2 = 5
+    FILMSCAN3 = 6
+    DEFAULT = 4
+
+
+class DecodedResolution(enum.IntEnum):
+    """CFHD_DecodedResolution (`Common/CFHDTypes.h:451-470`)."""
+
+    FULL = 1
+    HALF = 2
+    QUARTER = 3
+    THUMBNAIL = 4
+
+
+class EncodingFlags(enum.IntFlag):
+    NONE = 0
+    YUV_INTERLACED = 1 << 0      # CFHD_ENCODING_FLAGS_YUV_INTERLACED
+    YUV_2FRAME_GOP = 1 << 1      # CFHD_ENCODING_FLAGS_YUV_2FRAME_GOP (`Common/CFHDTypes.h:254`)
+
+
+class DecodingFlags(enum.IntFlag):
+    NONE = 0
+
+
+@dataclass
+class SampleInfo:
+    """CFHD_GetSampleInfo results (`DecoderSDK/CFHDDecoder.cpp`)."""
+
+    width: int
+    height: int
+    display_height: int
+    key_frame: bool
+    encoded_format: EncodedFormat
+    quality: int
+    frame_number: int
+
+
+def _not_ported(what: str) -> CFHDError:
+    """The error of a route the JAX API takes on the host and no codec of
+    the port takes yet."""
+    return CFHDError(ErrorCode.BADFORMAT, f"{what} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# The codecs, one per configuration and device
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def intra_codec(width: int, height: int, quality: int, fmt: str,
+                device: torch.device,
+                fs_rate_limiter: int | None = None) -> IntraCodec:
+    return IntraCodec(width, height, quality, device=device,
+                      input_format=fmt, fs_rate_limiter=fs_rate_limiter)
+
+
+@functools.lru_cache(maxsize=16)
+def gop_codec(width: int, height: int, quality: int,
+              device: torch.device) -> GopCodec:
+    return GopCodec(width, height, quality, device=device)
+
+
+#: the decoders' codec quality: a decode reads every quantizer from the
+#: sample's band headers
+DECODE_QUALITY = 4
+
+
+# ---------------------------------------------------------------------------
+# Encoder (CFHD_OpenEncoder .. CFHD_CloseEncoder)
+# ---------------------------------------------------------------------------
+
+class Encoder:
+    """Synchronous sample encoder (`EncoderSDK/SampleEncoder.cpp:115-620`)
+    on `device`."""
+
+    #: the input formats, each as `IntraCodec` names it
+    CODEC_FORMATS = {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "UYVY",
+                     PixelFormat.V210: "V210", PixelFormat.YU64: "YU64",
+                     PixelFormat.RG48: "RG48", PixelFormat.B64A: "B64A",
+                     PixelFormat.RG64: "RG64", PixelFormat.BYR4: "BYR4",
+                     PixelFormat.BYR5: "BYR5"}
+    INPUT_FORMATS = tuple(CODEC_FORMATS)
+    #: the JAX API's other input formats, which it encodes on the host
+    NOT_PORTED_FORMATS = (PixelFormat.R210, PixelFormat.DPX0,
+                          PixelFormat.RG30, PixelFormat.AB10,
+                          PixelFormat.AR10, PixelFormat.BGRA,
+                          PixelFormat.BGRa, PixelFormat.RG24,
+                          PixelFormat.CT_UCHAR, PixelFormat.CT_10BIT_2_8,
+                          PixelFormat.CT_SHORT_2_14,
+                          PixelFormat.CT_USHORT_10_6, PixelFormat.CT_SHORT)
+    #: the input formats of each encoded format but 4:2:2, which takes any
+    _FAMILIES = {EncodedFormat.RGB_444: (PixelFormat.RG48,),
+                 EncodedFormat.RGBA_4444: (PixelFormat.B64A,
+                                           PixelFormat.RG64),
+                 EncodedFormat.BAYER: (PixelFormat.BYR4, PixelFormat.BYR5)}
+    #: the formats the FILMSCAN2/3 rate control applies to (the JAX API's
+    #: 4:2:2 routes; its RGB and Bayer encoders keep the first frame's)
+    _RATE_CONTROLLED = (PixelFormat.YUY2, PixelFormat.UYVY, PixelFormat.V210,
+                        PixelFormat.YU64)
+
+    def __init__(self, device: torch.device | str = "cuda") -> None:
+        self.device = torch.device(device)
+        self._prepared = False
+        self._sample: bytes | None = None
+        self._frame_number = 0
+        self._fs_limiter = None
+        self._metadata = None
+
+    # CFHD_GetInputFormats
+    def get_input_formats(self) -> tuple[PixelFormat, ...]:
+        return self.INPUT_FORMATS
+
+    # CFHD_PrepareToEncode
+    def prepare_to_encode(self, width: int, height: int,
+                          pixel_format: PixelFormat,
+                          encoded_format: EncodedFormat = EncodedFormat.YUV_422,
+                          encoding_flags: EncodingFlags = EncodingFlags.NONE,
+                          quality: EncodingQuality = EncodingQuality.FILMSCAN1,
+                          ) -> None:
+        if pixel_format in self.NOT_PORTED_FORMATS:
+            raise _not_ported(f"encoding {pixel_format!r}")
+        if pixel_format not in self.INPUT_FORMATS:
+            raise CFHDError(ErrorCode.BADFORMAT, f"{pixel_format!r}")
+        # RGB/RGBA/Bayer inputs imply their natural encoded format (the
+        # reference maps them the same way in CFHD_PrepareToEncode)
+        if encoded_format != EncodedFormat.YUV_422 and \
+                pixel_format not in self._FAMILIES.get(encoded_format, ()):
+            raise CFHDError(ErrorCode.BADFORMAT, f"{encoded_format!r}")
+        if width % 16 or height % 8 or width < 32 or height < 48:
+            # dims must survive 3 halvings with filter-legal extents
+            raise CFHDError(ErrorCode.INVALID_ARGUMENT,
+                            f"unsupported dimensions {width}x{height}")
+        if (encoding_flags & EncodingFlags.YUV_2FRAME_GOP) and \
+                pixel_format != PixelFormat.YUY2:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            "2-frame GOP supports YUY2 input")
+        if (encoding_flags & EncodingFlags.YUV_INTERLACED) and not \
+                (encoding_flags & EncodingFlags.YUV_2FRAME_GOP):
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            "interlaced encoding requires the 2-frame GOP")
+        if encoding_flags & EncodingFlags.YUV_INTERLACED:
+            raise _not_ported("interlaced 2-frame GOP encoding")
+        self.width = width
+        self.height = height
+        self.pixel_format = pixel_format
+        self.encoded_format = encoded_format
+        self.encoding_flags = encoding_flags
+        self.quality = EncodingQuality(int(quality) & 0xFF)
+        #: full quality word incl. the *_UNCOMPRESSED target bits 8-12
+        #: (`Common/CFHDTypes.h:210-216`, `Codec/encoder.c:1979`)
+        self.quality_word = int(quality)
+        self.row_bytes = IntraCodec(width, height, 4, device="cpu",
+                                    input_format=self.CODEC_FORMATS[
+                                        pixel_format]).row_bytes
+        self._pending_gop_frame = None
+        self._prepared = True
+
+    # CFHD_MetadataAttach
+    def attach_metadata(self, metadata) -> None:
+        self._metadata = metadata
+
+    def _encoder_overrides(self) -> dict:
+        """Collect encoder setting overrides in the reference's priority
+        order: attached metadata, then defaults.colr, then override.colr
+        (`Codec/encoder.c:2070-2078`, `encoder.c:8792`)."""
+        local = b""
+        if self._metadata is not None and hasattr(self._metadata, "block"):
+            try:
+                local = self._metadata.block()
+            except Exception:
+                local = b""
+        base, force = override_db.load_disk_blocks()
+        ov = override_db.parse_overrides(local)
+        if not ov.get("ignore_database"):
+            ov.update(override_db.parse_overrides(base, force))
+        return ov
+
+    def set_custom_quantization(self, quant_y, quant_c=None) -> None:
+        """The low-level codec API's custom_quant struct
+        (`Codec/encoder.c:1143`)."""
+        raise _not_ported("custom quantization")
+
+    # CFHD_EncodeSample
+    def encode_sample(self, frame: bytes | np.ndarray,
+                      pitch: int | None = None) -> None:
+        if not self._prepared:
+            raise CFHDError(ErrorCode.ENCODING_NOT_STARTED)
+        row_bytes = self.row_bytes
+        buf = (np.frombuffer(frame, dtype=np.uint8)
+               if isinstance(frame, (bytes, bytearray)) else frame.view(np.uint8))
+        if pitch is not None and pitch != row_bytes:
+            buf = buf.reshape(-1, pitch)[:self.height, :row_bytes]
+        buf = np.ascontiguousarray(buf).reshape(-1)
+        if buf.size != self.height * row_bytes:
+            raise CFHDError(ErrorCode.INVALID_ARGUMENT, "bad frame size")
+        frames = buf.reshape(1, self.height, row_bytes)
+        self._frame_number += 1
+        # FILMSCAN2/3 rate control (`QuantizationSetQuality`,
+        # quantize.c:236-310): the limiter advances each frame from the
+        # previous sample's achieved compression
+        if (int(self.quality) & 0xFF) >= 5 and not (self.quality_word & 0x1F00):
+            if self._fs_limiter is None:
+                self._fs_limiter = {5: 8, 6: 4}.get(int(self.quality) & 0xFF, 0)
+            if self._sample is not None:
+                self._fs_limiter = update_fs_rate_limiter(
+                    self._fs_limiter, self.quality_word, len(self._sample),
+                    self.width, self.height)
+        if self.encoding_flags & EncodingFlags.YUV_2FRAME_GOP:
+            self._sample = self._encode_gop(frames)
+            return
+        if self.pixel_format == PixelFormat.YUY2:
+            ov = self._encoder_overrides()
+            if ov.get("limit_yuv") or ov.get("conv_601_709"):
+                # LYUV/CV67 transform the input pixels during unpack
+                # (`Codec/convert.c:5176-5290`)
+                raise _not_ported("the LYUV/CV67 encoder overrides")
+        if self.pixel_format == PixelFormat.V210 and \
+                (self.quality_word >> 8) & 0x1F:
+            # `Codec/encoder.c:1971-2026`
+            raise _not_ported("V210 uncompressed passthrough")
+        limiter = (self._fs_limiter
+                   if self.pixel_format in self._RATE_CONTROLLED else None)
+        codec = intra_codec(self.width, self.height, int(self.quality),
+                            self.CODEC_FORMATS[self.pixel_format],
+                            self.device, limiter)
+        # per-frame metadata: the codec advances UFRM and the timecode to
+        # the frame number, as the reference does on every EncodeSample
+        # (`SampleEncoder.cpp:795-880`)
+        self._sample = codec.encode_batch_device(
+            frames, frame_numbers=[self._frame_number],
+            metadata=[self._metadata])[0]
+
+    def _encode_gop(self, frames: np.ndarray) -> bytes:
+        """The 2-frame GOP streaming protocol (byte-exact against the
+        reference's CFHD_EncodeSample over a 6-frame series): the stream's
+        very first submission returns the tiny sequence-header sample
+        (`EncodeFirstSample`, encoder.c:3226-3229); the first submission
+        of every LATER pair returns a 24-byte SAMPLE_TYPE_FRAME sample
+        that, on decode, emits the held group's true second frame; the
+        second submission of each pair returns the GROUP sample."""
+        if self._pending_gop_frame is None:
+            self._pending_gop_frame = frames.copy()
+            if self._frame_number == 1:
+                return gop_host.sequence_header(self.width, self.height)
+            return gop_host.frame_header_sample(self.width, self.height,
+                                                self._frame_number - 2)
+        first, self._pending_gop_frame = self._pending_gop_frame, None
+        # the group's FRAME_NUMBER is the display number of its first
+        # frame (1, 3, 5, ... across the stream)
+        codec = gop_codec(self.width, self.height, int(self.quality),
+                          self.device)
+        return codec.encode_batch(first, frames, self._frame_number - 1,
+                                  self._metadata)[0]
+
+    # CFHD_GetSampleData
+    def get_sample_data(self) -> bytes:
+        if self._sample is None:
+            raise CFHDError(ErrorCode.NOT_FINISHED)
+        return self._sample
+
+    # CFHD_GetEncodeThumbnail
+    def get_encode_thumbnail(self, sample: bytes):
+        return thumbnail.extract(sample)
+
+    # CFHD_CloseEncoder
+    def close(self) -> None:
+        self._prepared = False
+        self._sample = None
+
+
+# ---------------------------------------------------------------------------
+# Decoder (CFHD_OpenDecoder .. CFHD_CloseDecoder)
+# ---------------------------------------------------------------------------
+
+def _to_uyvy(out: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(out.reshape(-1, 4)[:, [1, 0, 3, 2]])
+
+
+class Decoder:
+    """Sample decoder (`DecoderSDK/SampleDecoder.cpp:387-1936`) on
+    `device`.  `fallback_frames` counts the frames the device decoders
+    left to their host-entropy route (`decode_batch`): a band with peaks,
+    an unaligned payload or a device overflow."""
+
+    OUTPUT_FORMATS = (PixelFormat.YUY2, PixelFormat.UYVY, PixelFormat.YU64,
+                      PixelFormat.V210, PixelFormat.RG48, PixelFormat.BGRA,
+                      PixelFormat.B64A, PixelFormat.NV12, PixelFormat.R210,
+                      PixelFormat.DPX0, PixelFormat.RG30,
+                      PixelFormat.BYR4, PixelFormat.BYR2, PixelFormat.YUYV,
+                      PixelFormat.BGRa, PixelFormat.RG24, PixelFormat.R408,
+                      PixelFormat.V408, PixelFormat.WP13, PixelFormat.W13A,
+                      PixelFormat.CT_SHORT, PixelFormat.CT_USHORT_10_6,
+                      PixelFormat.CT_SHORT_2_14, PixelFormat.CT_10BIT_2_8,
+                      PixelFormat.CT_UCHAR)
+
+    #: per source kind, the outputs the port decodes to (the codec's
+    #: names), and the JAX API's other outputs, which it decodes on the
+    #: host (`Codec/decoder.c:11584` format dispatch)
+    _PORTED = {"YUV": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2",
+                       PixelFormat.BGRA: "BGRA"},
+               "RGB": {PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a"},
+               "BAYER": {PixelFormat.BYR4: "BYR4"},
+               "GOP": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"}}
+    _HOST_ONLY = {
+        "YUV": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
+                PixelFormat.B64A, PixelFormat.NV12, PixelFormat.R210,
+                PixelFormat.DPX0, PixelFormat.RG30, PixelFormat.YUYV,
+                PixelFormat.BGRa, PixelFormat.RG24, PixelFormat.R408,
+                PixelFormat.V408, PixelFormat.WP13, PixelFormat.W13A,
+                PixelFormat.CT_SHORT, PixelFormat.CT_USHORT_10_6,
+                PixelFormat.CT_SHORT_2_14, PixelFormat.CT_10BIT_2_8),
+        "RGB": (PixelFormat.WP13, PixelFormat.W13A, PixelFormat.BGRA,
+                PixelFormat.BGRa, PixelFormat.RG24),
+        "BAYER": (PixelFormat.RG48, PixelFormat.B64A, PixelFormat.YUY2,
+                  PixelFormat.UYVY, PixelFormat.BYR2, PixelFormat.WP13,
+                  PixelFormat.W13A),
+        "GOP": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
+                PixelFormat.BGRA, PixelFormat.B64A, PixelFormat.R210,
+                PixelFormat.DPX0, PixelFormat.RG30)}
+    #: output row pitch in bytes as a function of width
+    _ROW_BYTES = {PixelFormat.YUY2: lambda w: 2 * w,
+                  PixelFormat.UYVY: lambda w: 2 * w,
+                  PixelFormat.RG48: lambda w: 6 * w,
+                  PixelFormat.BGRA: lambda w: 4 * w,
+                  PixelFormat.B64A: lambda w: 8 * w,
+                  PixelFormat.BYR4: lambda w: 2 * w}
+    #: the outputs the reference warps when a sample's lens metadata asks
+    #: (`Codec/decoder.c:9230-9242`)
+    _WARPED = (PixelFormat.YUY2, PixelFormat.BGRA, PixelFormat.W13A,
+               PixelFormat.WP13, PixelFormat.RG48, PixelFormat.B64A)
+
+    def __init__(self, device: torch.device | str = "cuda") -> None:
+        self.device = torch.device(device)
+        self._prepared = False
+        self._channels_active = 1
+        self._held_group = None
+        self.fallback_frames = 0
+
+    # CFHD_GetOutputFormats
+    def get_output_formats(self, sample: bytes | None = None) -> tuple[PixelFormat, ...]:
+        return self.OUTPUT_FORMATS
+
+    # CFHD_GetSampleInfo / CFHD_ParseSampleHeader
+    def get_sample_info(self, sample: bytes) -> SampleInfo:
+        try:
+            s = parse_sample(sample)
+            encoded_format = EncodedFormat(max(0, s.encoded_format - 1))
+        except Exception as exc:
+            raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
+        # the reference doubles the reported dimensions for Bayer sources
+        # (`ParseSampleHeader`, Codec/decoder.c:2619-2623)
+        mult = 2 if s.encoded_format == 2 else 1
+        return SampleInfo(
+            width=s.width * mult, height=s.height * mult,
+            display_height=(s.display_height or s.height) * mult,
+            key_frame=(s.sample_type == tags.SAMPLE_TYPE_IFRAME),
+            encoded_format=encoded_format,
+            quality=s.quality, frame_number=s.frame_number)
+
+    # CFHD_PrepareToDecode
+    def prepare_to_decode(self, width: int, height: int,
+                          output_format: PixelFormat = PixelFormat.YUY2,
+                          resolution: DecodedResolution = DecodedResolution.FULL,
+                          decoding_flags: DecodingFlags = DecodingFlags.NONE,
+                          sample: bytes | None = None,
+                          ) -> tuple[int, int, PixelFormat]:
+        if output_format not in self.OUTPUT_FORMATS:
+            raise CFHDError(ErrorCode.BADFORMAT, f"{output_format!r}")
+        if sample is not None and (width == 0 or height == 0):
+            # 0x0 = decode at the native coded size
+            # (`DecoderSDK/SampleDecoder.cpp:1593-1597`)
+            info = self.get_sample_info(sample)
+            width, height = info.width, info.height
+        if resolution == DecodedResolution.HALF:
+            width, height = width // 2, height // 2
+        elif resolution == DecodedResolution.QUARTER:
+            width, height = width // 4, height // 4
+        elif resolution == DecodedResolution.THUMBNAIL:
+            width, height = width // 8, height // 8
+        self.width = width
+        self.height = height
+        self.output_format = output_format
+        self.resolution = resolution
+        self._prepared = True
+        return width, height, output_format
+
+    # CFHD_SetActiveMetadata(TAG_CHANNELS_ACTIVE) analog
+    def set_channels_active(self, mask: int) -> None:
+        """Select the video channel(s) of stereo 3D samples: 1 = left,
+        2 = right (`Codec/decoder.c:10310-10340` channel_mask); 3, both
+        eyes composited, is not ported yet and raises at decode."""
+        if int(mask) not in (1, 2, 3):
+            raise CFHDError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"channel mask {mask}: supported masks are 1 (left), "
+                "2 (right), 3 (both eyes composited)")
+        self._channels_active = int(mask)
+
+    # CFHD_SetActiveMetadata(TAG_BLEND_TYPE) analog
+    def set_channel_blend(self, mode: int) -> None:
+        """The 3D display compositing of mask-3 decodes (`Do3DWork`,
+        `Codec/bayer.c:10761`)."""
+        raise _not_ported("the 3D composite's blend modes")
+
+    # --- per-sample-kind decode handlers -------------------------------------
+
+    def _output(self, kind: str) -> str:
+        """The codec's name of the prepared output for a `kind` source."""
+        out = self._PORTED[kind].get(self.output_format)
+        if out is not None:
+            return out
+        if self.output_format in self._HOST_ONLY[kind]:
+            raise _not_ported(f"{kind} decode to {self.output_format!r}")
+        raise CFHDError(ErrorCode.BADFORMAT,
+                        f"{kind} decode to {self.output_format!r}")
+
+    def _yuy2_or_uyvy(self, out: np.ndarray) -> np.ndarray:
+        return _to_uyvy(out) if self.output_format == PixelFormat.UYVY \
+            else out
+
+    def _route_stereo(self, sample: bytes):
+        """(the sample to decode, its parse or None): for dual-channel
+        samples the active eye's bitstream (`Codec/decoder.c:10086-10104`
+        stereo channel logic).  Parse errors fall through to the main
+        dispatch (which reports them)."""
+        try:
+            info = parse_sample(sample)
+            if info.encoded_channels < 2:
+                return sample, info
+            eyes = stereo.split_3d(sample)
+        except Exception:
+            return sample, None
+        if self._channels_active == 3 and len(eyes) > 1:
+            raise _not_ported("the 3D composite of both eyes (channel "
+                              "mask 3)")
+        eye = eyes[1] if self._channels_active == 2 and len(eyes) > 1 \
+            else eyes[0]
+        return eye, None
+
+    def _gop_frames(self, sample: bytes, reference_compatible: bool,
+                    dither_base: int):
+        info = parse_sample(sample)
+        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
+                          self.device)
+        f0, f1, fallback = codec.decode_batch_device(
+            [sample], reference_compatible, dither_base)
+        self.fallback_frames += len(fallback)
+        return f0[0], f1[0]
+
+    def _decode_frame_sample(self) -> tuple[bytes, np.ndarray]:
+        """24-byte SAMPLE_TYPE_FRAME sample: emit the TRUE second frame of
+        the group this decoder holds (`DecodeSampleFrame` ->
+        ReconstructSampleFrameToBuffer(frame_index=1),
+        decoder.c:11482/11546), with the second dither window.  Returns
+        (held, out)."""
+        held = self._held_group
+        if held is None:
+            raise CFHDError(ErrorCode.BADSAMPLE,
+                            "FRAME sample without a decoded group")
+        info = parse_sample(held)
+        if (self.width, self.height) != (info.width, info.height):
+            raise _not_ported("GOP decodes to another size than the "
+                              "group's")
+        self._output("GOP")
+        # the rand() dither stream persists across samples in one
+        # decoder instance: this frame takes the NEXT window after
+        # everything already emitted
+        base = getattr(self, "_gop_dither_count", 1) - 1
+        self._gop_dither_count = base + 2
+        _, out = self._gop_frames(held, False, base)
+        return held, self._yuy2_or_uyvy(out)
+
+    def _decode_group(self, sample: bytes, info0) -> np.ndarray:
+        """GROUP (2-frame GOP) sample: decode frame 1 and hold the group
+        for a following SAMPLE_TYPE_FRAME sample; consecutive calls on the
+        same group return frame 1 then frame 1 with the next dither
+        window, like the reference decoder."""
+        self._held_group = sample
+        if self.resolution != DecodedResolution.FULL:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            "scaled GOP decode is not supported")
+        if (self.width, self.height) != (info0.width, info0.height):
+            raise _not_ported("GOP decodes to another size than the "
+                              "group's")
+        self._output("GOP")
+        base = getattr(self, "_gop_dither_count", 0)
+        self._gop_dither_count = base + 1
+        out, _ = self._gop_frames(sample, True, base)
+        return self._yuy2_or_uyvy(out)
+
+    def _decode_intra(self, sample: bytes, info0, kind: str, fmt: str,
+                      scale: int = 1) -> np.ndarray:
+        """An intra sample of a `kind` source through the device decoder of
+        an `fmt` codec (`scale` 2: a Bayer sample's mosaic)."""
+        codec = intra_codec(info0.width * scale, info0.height * scale,
+                            DECODE_QUALITY, fmt, self.device)
+        out, fallback = codec.decode_batch_device([sample],
+                                                  output=self._output(kind))
+        self.fallback_frames += len(fallback)
+        return out[0]
+
+    def _decode_yuv_source(self, sample: bytes, info0) -> np.ndarray:
+        """YUV 4:2:2 intra sample at its coded size."""
+        out = self._output("YUV")
+        chroma_lowpass = info0.channels[-1].lowpass_width
+        if out == "BGRA" and chroma_lowpass % 2:
+            # the JAX package's device and host BGRA decoders differ at odd
+            # chroma lowpass widths (ROADMAP.md Queue 3), so no bytes here
+            raise CFHDError(
+                ErrorCode.BADFORMAT,
+                f"BGRA decode of a {info0.width}-wide source, whose chroma "
+                f"lowpass width {chroma_lowpass} is odd: the reference's "
+                "BGRA output there is an open question")
+        return self._yuy2_or_uyvy(self._decode_intra(sample, info0, "YUV",
+                                                     "YUY2"))
+
+    def _refuse_warp(self, sample: bytes, parsed=None) -> None:
+        """The reference warps the output when the sample's lens metadata
+        asks (`WarpFrame`, `Codec/decoder.c:11140`); the port has no warp,
+        so such a decode raises rather than hand out unwarped bytes."""
+        if self.output_format in self._WARPED and \
+                lens.parse_lens_metadata(sample, parsed) is not None:
+            raise _not_ported("the lens-correction warp")
+
+    # CFHD_DecodeSample
+    def decode_sample(self, sample: bytes) -> np.ndarray | None:
+        if not self._prepared:
+            raise CFHDError(ErrorCode.UNEXPECTED, "not prepared")
+        if len(sample) % 4:
+            # the tag/value stream is a sequence of 32-bit pairs; a
+            # partial trailing pair is a bitstream error
+            raise CFHDError(ErrorCode.BADSAMPLE,
+                            f"sample size {len(sample)} not 32-bit aligned")
+        sample, info0 = self._route_stereo(sample)
+        try:
+            if sample[:4] == b"\x00\x01\x00\x07":
+                # video sequence header: ignored by the decoder, no frame
+                # (`DecodeSample` SAMPLE_TYPE_SEQUENCE_HEADER,
+                # decoder.c:11023-11026)
+                return None
+            if sample[:4] == b"\x00\x01\x00\x01":
+                # FRAME samples carry no pixel data; the held group's
+                # warp metadata applies
+                held, out = self._decode_frame_sample()
+                self._refuse_warp(held)
+                return out.reshape(self.height, -1)
+            if info0 is None:
+                info0 = parse_sample(sample)
+            if not info0.channels:
+                raise CFHDError(ErrorCode.BADSAMPLE, "no coded channel")
+            if info0.sample_type == tags.SAMPLE_TYPE_GROUP:
+                out = self._decode_group(sample, info0)
+            elif self.resolution != DecodedResolution.FULL:
+                raise _not_ported("reduced-resolution decodes")
+            elif info0.encoded_format in (3, 4):
+                out = self._decode_intra(
+                    sample, info0, "RGB",
+                    "B64A" if info0.encoded_format == 4 else "RG48")
+            elif info0.encoded_format == 2:
+                out = self._decode_intra(sample, info0, "BAYER", "BYR4", 2)
+            elif (self.width, self.height) != (info0.width, info0.height):
+                raise _not_ported("decodes to another size than the "
+                                  "sample's")
+            else:
+                out = self._decode_yuv_source(sample, info0)
+            row_bytes = self._ROW_BYTES[self.output_format](self.width)
+            out = np.ascontiguousarray(out).view(np.uint8)
+            if out.size != self.height * row_bytes:
+                raise CFHDError(
+                    ErrorCode.BADSAMPLE,
+                    f"decoded {out.size} bytes, expected "
+                    f"{self.height * row_bytes}")
+            self._refuse_warp(sample, info0)
+            return out.reshape(self.height, row_bytes)
+        except CFHDError:
+            raise
+        except Exception as exc:
+            raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
+
+    # CFHD_CloseDecoder
+    def close(self) -> None:
+        self._prepared = False
+
+
+# --- C-style aliases (1:1 with the reference entry points) -------------------
+
+def CFHD_OpenEncoder(device: torch.device | str = "cuda") -> Encoder:
+    return Encoder(device)
+
+
+def CFHD_OpenDecoder(device: torch.device | str = "cuda") -> Decoder:
+    return Decoder(device)
+
+
+def CFHD_CreateEncoderPool(thread_count: int, queue_length: int,
+                           device: torch.device | str = "cuda"):
+    from cineform_tpu_torch.pool import EncoderPool
+
+    return EncoderPool(thread_count, queue_length, device)
+
+
+@dataclass
+class _AttachedMetadata(EncoderMetadata):
+    """Metadata that every frame of a stereo stream carries as attached:
+    the JAX API's `StereoEncoder` advances neither UFRM nor the timecode
+    (the codec advances metadata through `advanced`)."""
+
+    def advanced(self, k: int) -> EncoderMetadata:
+        return self
+
+
+class StereoEncoder:
+    """Dual-channel stereoscopic 3D encoder on `device`: both eyes in ONE
+    sample.
+
+    The reference encodes 3D by looping EncodeSample over the video
+    channels, appending each eye's bitstream 16-byte-aligned into one
+    sample with ENCODED_CHANNELS/ENCODED_CHANNEL_NUMBER header tags and a
+    VCHN metadata tuple (`Codec/encoder.c:3407-3438`, `7548-7556`)."""
+
+    def __init__(self, device: torch.device | str = "cuda") -> None:
+        self.device = torch.device(device)
+        self._prepared = False
+        self._frame_number = 0
+        self._metadata = None
+        self._sample: bytes | None = None
+
+    def prepare_to_encode(self, width: int, height: int,
+                          pixel_format: PixelFormat,
+                          encoded_format: EncodedFormat = EncodedFormat.YUV_422,
+                          quality: EncodingQuality = EncodingQuality.FILMSCAN1,
+                          ) -> None:
+        if pixel_format != PixelFormat.YUY2 or \
+                encoded_format != EncodedFormat.YUV_422:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            "stereo 3D supports YUY2 4:2:2")
+        probe = Encoder(self.device)
+        probe.prepare_to_encode(width, height, pixel_format, encoded_format,
+                                EncodingFlags.NONE, quality)
+        self.width, self.height = width, height
+        self.quality = probe.quality
+        self._prepared = True
+
+    def attach_metadata(self, metadata) -> None:
+        self._metadata = metadata
+
+    def encode_sample(self, left: bytes | np.ndarray,
+                      right: bytes | np.ndarray) -> bytes:
+        """Encode one stereo pair into a single dual-channel sample."""
+        if not self._prepared:
+            raise CFHDError(ErrorCode.ENCODING_NOT_STARTED)
+        eyes = []
+        for f in (left, right):
+            buf = np.frombuffer(np.ascontiguousarray(f).tobytes()
+                                if isinstance(f, np.ndarray) else bytes(f),
+                                np.uint8)
+            if buf.size != self.height * 2 * self.width:
+                raise CFHDError(ErrorCode.INVALID_ARGUMENT, "bad frame size")
+            eyes.append(buf.reshape(1, self.height, 2 * self.width))
+        self._frame_number += 1
+        meta = _AttachedMetadata(**dataclasses.asdict(
+            self._metadata or EncoderMetadata()))
+        codec = intra_codec(self.width, self.height, int(self.quality),
+                            "YUY2", self.device)
+        self._sample = stereo.encode_batch_3d(codec, *eyes,
+                                              self._frame_number, meta)[0]
+        return self._sample
+
+    def get_sample_data(self) -> bytes:
+        if self._sample is None:
+            raise CFHDError(ErrorCode.NOT_FINISHED)
+        return self._sample
+
+    def close(self) -> None:
+        self._prepared = False
+        self._sample = None

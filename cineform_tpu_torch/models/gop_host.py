@@ -2,10 +2,11 @@
 subband map and its writer.
 
 A copy of the parts of the JAX package's `models/gop_host.py` that the GOP
-codec uses: `SUBBAND_MAP`, the band-end marker and `write_group` for a
-progressive group, whose bands the C++ coder codes
-(`intra_host.encode_band_payload`).  Its samples equal the reference
-encoder's byte for byte (tests/golden/samples/gop_*.cfhd.f1).
+codec and the API use: `SUBBAND_MAP`, the band-end marker, `write_group`
+for a progressive group, whose bands the C++ coder codes
+(`intra_host.encode_band_payload`), and the GOP stream's two header
+samples (`sequence_header`, `frame_header_sample`).  Its samples equal the
+reference encoder's byte for byte (tests/golden/samples/gop_*.cfhd.f1).
 
 The GROUP layout, captured from the reference: the SAMPLE=2 header, the
 lowpass, then per channel the wavelets w5, w4, w3 (whose LL, subband 7, is
@@ -210,4 +211,46 @@ def write_group(channels, width: int, height: int, quality: int,
     w.put_tag(tags.GROUP_TRAILER, 0)
     w.pop_chunk()
     w.patch_index(index_off, channel_sizes)
+    return w.getvalue()
+
+
+def sequence_header(width: int, height: int) -> bytes:
+    """The tiny sequence-header sample emitted for the first GOP frame of
+    a YUY2 stream (`PutVideoSequenceHeader`, observed layout from the
+    reference)."""
+    w = SampleWriter()
+    w.put_tag(tags.SAMPLE, tags.SAMPLE_TYPE_SEQUENCE_HEADER)
+    w.put_tag(tags.VERSION_MAJOR, 0)
+    w.put_tag(tags.VERSION_MINOR, 1)
+    w.put_tag(tags.VERSION_REVISION, 0)
+    w.put_tag(tags.VERSION_EDIT, 0)
+    w.put_tag(tags.SEQUENCE_FLAGS, 0)
+    w.put_tag(tags.FRAME_WIDTH, width)
+    w.put_tag(tags.FRAME_HEIGHT, height)
+    w.put_tag(tags.FRAME_FORMAT, 2)
+    w.put_tag_optional(tags.INPUT_FORMAT, tags.COLOR_FORMAT_YUYV)
+    return w.getvalue()
+
+
+def frame_header_sample(width: int, height: int,
+                        frame_number: int) -> bytes:
+    """The 24-byte SAMPLE_TYPE_FRAME sample the encoder emits for the
+    first submission of every group after the first (the reference emits
+    the sequence header only for the stream's first frame,
+    `Codec/encoder.c:3226-3229`).  In decode order this sample asks the
+    decoder for the TRUE second frame of the group it currently holds
+    (`DecodeSampleFrame`, `Codec/decoder.c:11482` ->
+    `ReconstructSampleFrameToBuffer(frame_index=1)`).  Byte-exact vs the
+    reference's 6-frame GOP stream (tests/test_gop.py).
+
+    frame_number is the display number of that second frame (1-based
+    stream position minus one: the sample emitted at submission 2k
+    carries 2k-1)."""
+    w = SampleWriter()
+    w.put_tag(tags.SAMPLE, tags.SAMPLE_TYPE_FRAME)
+    w.put_tag(tags.FRAME_TYPE, 2)
+    w.put_tag(tags.FRAME_WIDTH, width)
+    w.put_tag(tags.FRAME_HEIGHT, height)
+    w.put_tag_optional(tags.FRAME_NUMBER, frame_number)
+    w.put_tag(tags.FRAME_INDEX, 1)
     return w.getvalue()

@@ -135,13 +135,17 @@ def sample_metadata(sample: bytes) -> intra_host.EncoderMetadata:
 @dataclass(frozen=True)
 class IntraCodec:
     """An intra codec for one (width, height, quality, input format) config
-    on one torch device: the card unless the caller asks for another."""
+    on one torch device: the card unless the caller asks for another.
+    `fs_rate_limiter` is the FILMSCAN2/3 rate control's state for the
+    frames it encodes (`spec.production.update_fs_rate_limiter`; None, the
+    first frame's)."""
 
     width: int
     height: int
     quality: int
     device: torch.device | str = "cuda"
     input_format: str = "YUY2"
+    fs_rate_limiter: int | None = None
 
     def __post_init__(self):
         if self.input_format not in _DEVICE_FORMATS:
@@ -157,18 +161,21 @@ class IntraCodec:
     def params(self) -> IntraParams:
         """The transform's parameters; a Bayer codec transforms the
         mosaic's quarter-res planes."""
+        limiter = self.fs_rate_limiter
         if self.encoded == "YUV":
             return IntraParams(width=self.width, height=self.height,
-                               quality=self.quality)
+                               quality=self.quality, fs_rate_limiter=limiter)
         if self.encoded == "BAYER":
             return IntraParams(width=self.width // 2, height=self.height // 2,
                                quality=self.quality,
                                precision=tags.PRECISION_12BIT,
-                               chroma_full_res=True, rgb_quality=3)
+                               chroma_full_res=True, rgb_quality=3,
+                               fs_rate_limiter=limiter)
         return IntraParams(width=self.width, height=self.height,
                            quality=self.quality,
                            precision=tags.PRECISION_12BIT,
-                           chroma_full_res=self.encoded != "RGBA")
+                           chroma_full_res=self.encoded != "RGBA",
+                           fs_rate_limiter=limiter)
 
     @property
     def num_channels(self) -> int:
@@ -251,7 +258,8 @@ class IntraCodec:
                             precision=p.precision,
                             chroma_full_res=p.chroma_full_res,
                             rgb_quality=p.rgb_quality,
-                            num_channels=self.num_channels)
+                            num_channels=self.num_channels,
+                            fs_rate_limiter=p.fs_rate_limiter)
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         """(B, H, row_bytes) uint8 host frames -> a tensor on the device."""

@@ -7,7 +7,9 @@ source and of the host's instruction-set flags (a library built on one
 machine can raise SIGILL on another), and loaded with ctypes at the first
 call that needs it, never at import.  The build
 writes into a temporary directory beside the target and renames the result
-into place, so that parallel test workers can build at once.
+into place, so that parallel test workers can build at once, and holds
+the library's `_build.build_lock`, so that threads of one process build
+it once.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import platform
 import subprocess
 import tempfile
 
-from cineform_tpu_torch._build import BUILD_DIR
+from cineform_tpu_torch._build import BUILD_DIR, build_lock
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 
@@ -43,14 +45,16 @@ def library_path(name: str) -> str:
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + _machine_key()).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"host_{name}_{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_so = os.path.join(tmp, f"{name}.so")
-        subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                        "-o", tmp_so, src], check=True, capture_output=True)
-        os.replace(tmp_so, so_path)
+    with build_lock(so_path):
+        if os.path.exists(so_path):
+            return so_path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            tmp_so = os.path.join(tmp, f"{name}.so")
+            subprocess.run(["g++", "-O3", "-march=native", "-shared",
+                            "-fPIC", "-o", tmp_so, src], check=True,
+                           capture_output=True)
+            os.replace(tmp_so, so_path)
     return so_path
 
 

@@ -1,10 +1,11 @@
 """Production encoder parameters: quality -> per-band quantizers.
 
 A copy of the JAX package's `spec/production.py`, cut to what the intra
-codec's paths and the two-frame GOP codec need: the preset quality
-tables with the 12-bit RGB gains and the GOP length, no custom
-quantization, no interlaced remap and no FILMSCAN rate control.  It mirrors the reference's quality system for the shipping
-encoder:
+codec's paths, the two-frame GOP codec and the API need: the preset
+quality tables with the 12-bit RGB gains, the GOP length and the FILMSCAN
+rate limiter with its per-frame update; no custom quantization and no
+interlaced remap.  It mirrors the reference's quality system for the
+shipping encoder:
 
 - base quality tables `LUMA_QUALITY_*` / `CHROMA_QUALITY_*`
   (`Codec/quantize.h:54-65`), indexed by the 17-subband FIELDPLUS layout;
@@ -45,11 +46,14 @@ QUANT_SCALE_FACTOR = 2      # `Codec/quantize.h:52`
 def quality_tables(quality: int, precision: int,
                    chroma_full_res: bool = False,
                    rgb_quality: int = 0,
-                   gop_length: int = 1) -> tuple[list[int], list[int]]:
+                   gop_length: int = 1,
+                   fs_rate_limiter: int | None = None
+                   ) -> tuple[list[int], list[int]]:
     """17-entry (luma, chroma) quant tables after QuantizationSetQuality
-    for a progressive frame on the first frame (the FILMSCAN rate
-    limiter at its first-frame value: 8 for FILMSCAN2, 4 for FILMSCAN3,
-    `Codec/quantize.c:224-233`).  `chroma_full_res` gives the chroma
+    for a progressive frame.  fs_rate_limiter is the FILMSCAN2/3 rate
+    control's state (`update_fs_rate_limiter`); None is its first-frame
+    value, 8 for FILMSCAN2 and 4 for FILMSCAN3
+    (`Codec/quantize.c:224-233`).  `chroma_full_res` gives the chroma
     channels the luma table (4:4:4 RGB); at 12-bit precision the RGB gains
     of `rgb_quality` apply.  `gop_length` 1 is an intra frame, 2 a
     two-frame group (FIELDPLUS), whose subbands 7-9 keep their own
@@ -60,7 +64,8 @@ def quality_tables(quality: int, precision: int,
     vbrscale=256 (no VBR feedback on the first frame)."""
     factor = quality & 0xFF
     new_quality = factor
-    fs_rate_limiter = {5: 8, 6: 4}.get(new_quality, 0)
+    if fs_rate_limiter is None:
+        fs_rate_limiter = {5: 8, 6: 4}.get(new_quality, 0)
     if factor < 1 or factor > 10:
         factor = 0
     if factor > 3:
@@ -128,9 +133,64 @@ def spatial_band_scales(num_spatial: int = 2) -> list[list[int]]:
     return scales
 
 
+def update_fs_rate_limiter(limiter: int, quality: int,
+                           last_sample_bytes: int, width: int,
+                           height: int) -> int:
+    """Per-frame FILMSCAN rate-control feedback (`QuantizationSetQuality`,
+    `Codec/quantize.c:236-310`) for a 10-bit 4:2:2 frame, the formats the
+    API rate-controls: the FSratelimiter walks up/down from the achieved
+    compression ratio of the PREVIOUS sample, moving the subband-8..16
+    quantizer scale (16 + 2*limiter, see quality_tables).  quality is the
+    raw CFHD quality word; only FILMSCAN2/3 (5/6) adapt.  Returns the
+    updated limiter, clamped to [0, 20]."""
+    new_quality = quality & 0xFF
+    if new_quality < 5 or not last_sample_bytes or (quality & 0x1F00):
+        return limiter
+    # 3 channels of 10 bits, over 1.5 for the half-width chroma
+    compression = width * height * 3 * 10 / 8.0 / float(last_sample_bytes)
+    compression /= 1.5
+    if new_quality == 5:      # FILMSCAN2: target 4.0-5.5:1
+        if compression > 5.5:
+            limiter -= 1
+            if compression > 6.5:
+                limiter -= 1
+            if compression > 7.5:
+                limiter -= 2
+        elif compression < 4.0:
+            limiter += 1
+            if compression < 3.5:
+                limiter += 1
+            if compression < 3.0:
+                limiter += 1
+            if compression < 2.5:
+                limiter += 1
+            if compression < 2.0:
+                limiter += 1
+            if compression < 1.5:
+                limiter += 2
+    else:                     # FILMSCAN3 (and higher): target 3.0-4.5:1
+        if compression > 4.5:
+            limiter -= 1
+            if compression > 5.5:
+                limiter -= 1
+            if compression > 6.5:
+                limiter -= 2
+        elif compression < 3.0:
+            limiter += 1
+            if compression < 2.5:
+                limiter += 1
+            if compression < 2.0:
+                limiter += 1
+            if compression < 1.5:
+                limiter += 2
+    return max(0, min(limiter, 20))
+
+
 def intra_band_quant(quality: int, precision: int, channel: int,
                      num_spatial: int = 2, chroma_full_res: bool = False,
-                     rgb_quality: int = 0) -> list[tuple[int, int, int]]:
+                     rgb_quality: int = 0,
+                     fs_rate_limiter: int | None = None
+                     ) -> list[tuple[int, int, int]]:
     """Per-wavelet (q_lh, q_hl, q_hh) quantizers for the intra transform,
     wavelet index 0 (finest, the frame wavelet) first.
 
@@ -142,7 +202,8 @@ def intra_band_quant(quality: int, precision: int, channel: int,
           quant = table[subband]  (scale not applied)
     """
     luma, chroma = quality_tables(quality, precision, chroma_full_res,
-                                  rgb_quality)
+                                  rgb_quality,
+                                  fs_rate_limiter=fs_rate_limiter)
     table = chroma if channel > 0 else luma
     scales = spatial_band_scales(num_spatial)
 
@@ -193,6 +254,9 @@ class IntraParams:
     precision: int = tags.PRECISION_10BIT
     chroma_full_res: bool = False
     rgb_quality: int = 0
+    #: FILMSCAN2/3 rate-control state (None = first-frame default);
+    #: advance per frame with update_fs_rate_limiter
+    fs_rate_limiter: int | None = None
     num_spatial: ClassVar[int] = 2
 
     @property
@@ -202,7 +266,7 @@ class IntraParams:
     def band_quant(self, channel: int) -> list[tuple[int, int, int]]:
         return intra_band_quant(self.quality, self.precision, channel,
                                 self.num_spatial, self.chroma_full_res,
-                                self.rgb_quality)
+                                self.rgb_quality, self.fs_rate_limiter)
 
     @property
     def prescale(self) -> list[int]:

@@ -10,7 +10,8 @@ builds them from the package's host modules and places the tensors on an
 explicit device.  What the input format decides (the precision, whether
 chroma takes the luma tables, the number of channels) comes in as
 keywords, with the dimensions of the planes that the codec transforms (a
-Bayer mosaic's are half its own); the defaults are YUY2's.
+Bayer mosaic's are half its own), and so does the FILMSCAN rate limiter's
+state; the defaults are YUY2's on the first frame.
 """
 
 from __future__ import annotations
@@ -56,11 +57,12 @@ def codec_tables(width: int, height: int, quality: int, frame_index: int = 0,
                  precision: int = tags.PRECISION_10BIT,
                  chroma_full_res: bool = False,
                  rgb_quality: int = 0,
-                 num_channels: int = 3) -> CodecTables:
+                 num_channels: int = 3,
+                 fs_rate_limiter: int | None = None) -> CodecTables:
     device = torch.device(device)
     p = IntraParams(width=width, height=height, quality=quality,
                     precision=precision, chroma_full_res=chroma_full_res,
-                    rgb_quality=rgb_quality)
+                    rgb_quality=rgb_quality, fs_rate_limiter=fs_rate_limiter)
     enc = encode_tables(17)
     mag_bits, mag_sizes = magnitude_lut(enc, device)
     return CodecTables(

@@ -1,7 +1,8 @@
 """The port's own copy of the host path (`cineform_tpu_torch.spec`,
 `bitstream`, `entropy.native`, `native`, `models.intra_host`,
-`models.gop_host`, `ref.intra`, `ref.gop`, `utils.glibc_random`,
-`testframes`), on the CPU.
+`models.gop_host`, `models.thumbnail`, `models.lens`, `ref.intra`,
+`ref.gop`, `utils.glibc_random`, `utils.override_db`, `testframes`, and
+the API's constants), on the CPU.
 
 The port imports nothing of the JAX package: no source names it, and the
 slice runs where it cannot be imported.  Each copy equals its original on
@@ -20,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from cineform_tpu import api as japi
 from cineform_tpu.bitstream import fastwalk as jfastwalk
 from cineform_tpu.bitstream import parse_sample as jparse_sample
 from cineform_tpu.entropy import native as jnative
 from cineform_tpu.models import gop_host as jgop_host
 from cineform_tpu.models import intra_host as jhost
+from cineform_tpu.models import lens as jlens
+from cineform_tpu.models import thumbnail as jthumbnail
 from cineform_tpu.models.intra import IntraCodec as JaxIntraCodec
 from cineform_tpu.ref import demosaic as jdemosaic
 from cineform_tpu.ref import gop as jgop
@@ -33,7 +37,9 @@ from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
 from cineform_tpu.spec import tags as jtags
 from cineform_tpu.utils import glibc_random as jglibc
+from cineform_tpu.utils import override_db as joverride
 from cineform_tpu.utils import testframes as jframes
+from cineform_tpu_torch import api as tapi
 from cineform_tpu_torch import native as tnative_build
 from cineform_tpu_torch import testframes as tframes
 from cineform_tpu_torch.bitstream import fastwalk as tfastwalk
@@ -41,6 +47,8 @@ from cineform_tpu_torch.bitstream import parse_sample as tparse_sample
 from cineform_tpu_torch.entropy import native as tnative
 from cineform_tpu_torch.models import gop_host as tgop_host
 from cineform_tpu_torch.models import intra_host as thost
+from cineform_tpu_torch.models import lens as tlens
+from cineform_tpu_torch.models import thumbnail as tthumbnail
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.ref import demosaic as tdemosaic
 from cineform_tpu_torch.ref import gop as tgop
@@ -49,6 +57,7 @@ from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
 from cineform_tpu_torch.spec import tags as ttags
 from cineform_tpu_torch.utils import glibc_random as tglibc
+from cineform_tpu_torch.utils import override_db as toverride
 from tests.test_formats import _raw_fill
 
 torch.set_num_threads(1)
@@ -93,13 +102,14 @@ def _plain(x):
 
 #: modules of the port that a later slice added, which the guards must see
 NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
-               "ref/gop.py")
+               "ref/gop.py", "api.py", "pool.py", "models/thumbnail.py",
+               "models/lens.py", "utils/override_db.py")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports `cineform_tpu`
-    or `jax`, at top level or inside a function; the GOP and stereo
-    modules are among those checked."""
+    or `jax`, at top level or inside a function; the GOP, stereo, API and
+    pool modules are among those checked."""
     sources = [os.path.relpath(p, PKG) for p in _port_sources()]
     assert set(NEW_MODULES) <= set(sources)
     found = []
@@ -152,8 +162,23 @@ f0, f1, fallback = GopCodec(320, 240, 4, device="cpu").decode_batch_device(
     [group])
 assert fallback == () and f0.tobytes() == open(os.path.join(
     samples, "gop_320x240_q4_p1.f0.yuy2"), "rb").read()
-for name in ("gop", "gop_host", "stereo"):
+for name in ("gop", "gop_host", "stereo", "lens", "thumbnail"):
     assert "cineform_tpu_torch.models." + name in sys.modules
+from cineform_tpu_torch import api, pool
+enc = api.Encoder("cpu")
+enc.prepare_to_encode(64, 48, api.PixelFormat.YUY2)
+enc.attach_metadata(sample_metadata(gold))
+enc.encode_sample(yuy2_frame(64, 48, 1))
+assert enc.get_sample_data() == gold
+dec = api.Decoder("cpu")
+dec.prepare_to_decode(0, 0, sample=gold)
+assert dec.decode_sample(gold).tobytes() == want
+p = pool.DecoderPool(device="cpu")
+p.prepare_to_decode(64, 48)
+p.start()
+p.decode_async_sample(1, gold)
+assert p.wait_for_frame(timeout=120).data.tobytes() == want
+p.stop()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("cineform_tpu", "jax", "jaxlib")]
 print("ok")
@@ -163,8 +188,8 @@ print("ok")
 def test_port_runs_where_the_jax_package_cannot_be_imported():
     """In a fresh interpreter where importing `cineform_tpu` or `jax`
     raises, every port module imports, the 64x48 golden encodes and
-    decodes byte for byte on both decode routes, and a GOP golden decodes
-    on the device route."""
+    decodes byte for byte on both decode routes and through the API and
+    the decoder pool, and a GOP golden decodes on the device route."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -498,3 +523,186 @@ def test_stereo_metadata_and_eye_headers_match():
         assert thost.write_sample(tchans, tp, 1, tmeta, eye=eye) == \
             jhost.write_sample(chans, jp, 1, meta, video_channels=2,
                                channel_number=eye)
+
+
+# ---------------------------------------------------------------------------
+# The API's copies: the constants users pass, and the host pieces the API
+# reads
+# ---------------------------------------------------------------------------
+
+API_ENUMS = ("ErrorCode", "PixelFormat", "EncodedFormat", "EncodingQuality",
+             "DecodedResolution", "EncodingFlags", "DecodingFlags")
+
+
+@pytest.mark.parametrize("name", API_ENUMS)
+def test_api_enums_match(name):
+    """Every member of the API's enums, by name and value, as users pass
+    them."""
+    t, j = getattr(tapi, name), getattr(japi, name)
+    assert [(m.name, int(m.value)) for m in t] == \
+        [(m.name, int(m.value)) for m in j]
+    assert dict(t.__members__.items()).keys() == j.__members__.keys()
+
+
+def test_api_error_and_sample_info_match():
+    assert [f.name for f in dataclasses.fields(tapi.SampleInfo)] == \
+        [f.name for f in dataclasses.fields(japi.SampleInfo)]
+    for code in japi.ErrorCode:
+        for msg in ("", "bad"):
+            assert str(tapi.CFHDError(tapi.ErrorCode(code), msg)) == \
+                str(japi.CFHDError(code, msg))
+    assert tapi.Decoder.OUTPUT_FORMATS == tuple(
+        tapi.PixelFormat(int(f)) for f in japi.Decoder.OUTPUT_FORMATS)
+    assert set(tapi.Encoder.INPUT_FORMATS) | set(
+        tapi.Encoder.NOT_PORTED_FORMATS) == {
+            tapi.PixelFormat(int(f)) for f in japi.Encoder.INPUT_FORMATS}
+
+
+@pytest.mark.parametrize("name", ["s_320x240_q4_p1", "s_640x360_q5_p1",
+                                  "s_112x48_q4_p1", "s_144x96_q4_p1"])
+def test_thumbnail_matches(name):
+    sample = _read(f"{name}.cfhd")
+    assert tthumbnail.extract(sample) == jthumbnail.extract(sample)
+
+
+def _tuple(tag: bytes, typ: bytes, payload: bytes) -> bytes:
+    return (tag + len(payload).to_bytes(3, "little") + typ + payload
+            + b"\0" * (-len(payload) % 4))
+
+
+def _u32(v: int) -> bytes:
+    return v.to_bytes(4, "little")
+
+
+#: metadata blocks: overrides, a proxy copy, short payloads, a zero tag
+OVERRIDE_BLOCKS = [
+    b"",
+    _tuple(b"LYUV", b"H", _u32(1)) + _tuple(b"CV67", b"H", _u32(2)),
+    _tuple(b"CLSY", b"L", _u32(2)) + _tuple(b"PRXY", b"L", _u32(1))
+    + _tuple(b"LYUV", b"H", _u32(1)),
+    _tuple(b"IGND", b"L", _u32(1)) + _tuple(b"ECRV", b"L", b"\1\2"),
+    _tuple(b"GUID", b"G", b"\xa5" * 16) + b"\0" * 8
+    + _tuple(b"BFMT", b"L", _u32(3)),
+    _tuple(b"VDCH", b"L", _u32(2)) + b"\x01\x02\x03",
+]
+
+
+def test_override_db_matches(tmp_path, monkeypatch):
+    """The paths, the disk blocks, the tuple walk and the overrides, with
+    and without disk blocks."""
+    monkeypatch.setenv("CINEFORM_OVERRIDE_PATH", str(tmp_path / "pub"))
+    monkeypatch.setenv("CINEFORM_LUT_PATH", str(tmp_path / "luts"))
+    monkeypatch.setenv("CINEFORM_DB_PATH", "db")
+    assert toverride.default_paths() == joverride.default_paths()
+    assert toverride.load_disk_blocks() == joverride.load_disk_blocks() \
+        == (b"", b"")
+    os.makedirs(tmp_path / "pub")
+    os.makedirs(tmp_path / "luts" / "db")
+    (tmp_path / "luts" / "db" / "defaults.colr").write_bytes(
+        OVERRIDE_BLOCKS[2])
+    (tmp_path / "pub" / "override.colr").write_bytes(OVERRIDE_BLOCKS[1])
+    assert toverride.load_disk_blocks() == joverride.load_disk_blocks() \
+        == (OVERRIDE_BLOCKS[2], OVERRIDE_BLOCKS[1])
+    for block in OVERRIDE_BLOCKS:
+        assert list(toverride.iter_tuples(block)) == \
+            list(joverride.iter_tuples(block))
+        assert toverride.parse_overrides(block) == \
+            joverride.parse_overrides(block)
+    assert toverride.parse_overrides(*OVERRIDE_BLOCKS) == \
+        joverride.parse_overrides(*OVERRIDE_BLOCKS)
+    assert toverride.OVERRIDE_TAGS == joverride.OVERRIDE_TAGS
+
+
+@pytest.mark.parametrize("w,h", [(320, 240), (1920, 1080), (64, 48)])
+def test_gop_stream_headers_match(w, h):
+    """The copies take a YUY2 stream, the format the API's GOP encode
+    takes: the JAX writer at that format."""
+    assert tgop_host.sequence_header(w, h) == \
+        jgop_host.sequence_header(w, h, jtags.COLOR_FORMAT_YUYV)
+    for n in (1, 3, 2 ** 20 + 1):
+        assert tgop_host.frame_header_sample(w, h, n) == \
+            jgop_host.frame_header_sample(w, h, n)
+
+
+def _f32(v: float) -> bytes:
+    return np.float32(v).tobytes()
+
+
+#: lens and framing tuples: none, each doMesh trigger, clamps, sources
+LENS_BLOCKS = [
+    b"",
+    _tuple(b"LSPH", b"L", _u32(1)),
+    _tuple(b"LGPR", b"L", _u32(0)) + _tuple(b"LSPH", b"L", _u32(1)),
+    _tuple(b"LGPR", b"L", _u32(2)) + _tuple(b"ZOOM", b"f", _f32(9.0)),
+    _tuple(b"LFIL", b"L", _u32(1)) + _tuple(b"OFFX", b"f", _f32(0.7))
+    + _tuple(b"OFFF", b"f", _f32(-120.0)),
+    _tuple(b"LFIL", b"L", _u32(1)) + _tuple(b"ZOOM", b"f", _f32(0.5)),
+    _tuple(b"OFFR", b"f", _f32(0.02)) + _tuple(b"HSCL", b"f", _f32(1.25)),
+    _tuple(b"OFFR", b"f", _f32(0.005)),
+    _tuple(b"LSPH", b"L", _u32(1)) + _tuple(b"LSRC", b"f", _f32(0.5) * 6)
+    + _tuple(b"LDST", b"f", _f32(-0.25) * 6) + _tuple(b"LSTL", b"L",
+                                                      _u32(3)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(LENS_BLOCKS)))
+def test_lens_decision_matches(i):
+    """`parse_lens_metadata` on a sample whose metadata holds the block:
+    the same doMesh decision and parameters."""
+    @dataclasses.dataclass
+    class Extra(jhost.EncoderMetadata):
+        def block(self) -> bytes:
+            return super().block() + LENS_BLOCKS[i]
+
+    sample = jhost.encode_sample(jframes.yuy2_frame(64, 48, 1), 64, 48, 4,
+                                 metadata=Extra())
+    want = jlens.parse_lens_metadata(sample)
+    got = tlens.parse_lens_metadata(sample)
+    assert (got is None) == (want is None) == (i in (0, 7))
+    if want is not None:
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tlens.parse_lens_metadata(
+        sample, tparse_sample(sample)) == got
+
+
+@pytest.mark.parametrize("quality", [4, 5, 6, 0x105, 7])
+def test_fs_rate_limiter_update_matches(quality):
+    """The per-frame limiter update over limiters, sizes and sample
+    lengths (compression ratios from 1.2 to 9 of the 4:4:4 size, so 0.8
+    to 6 of the 4:2:2 one), against the JAX function at the copy's fixed
+    frame: 3 channels, 10 bits, 4:2:2 chroma."""
+    for limiter in (0, 4, 8, 19, 20):
+        for w, h in ((320, 240), (1920, 1080)):
+            raw = w * h * 3 * 10 // 8
+            for ratio in (1.2, 1.6, 2.2, 2.7, 3.2, 3.8, 4.2, 5.0, 5.8, 6.8,
+                          7.8, 9.0, 10.5, 12.0):
+                args = (limiter, quality, int(raw / ratio), w, h)
+                assert tprod.update_fs_rate_limiter(*args) == \
+                    jprod.update_fs_rate_limiter(
+                        *args, num_channels=3, precision_bits=10,
+                        chroma_full_res=False)
+    assert tprod.update_fs_rate_limiter(8, quality, 0, 320, 240) == \
+        jprod.update_fs_rate_limiter(8, quality, 0, 320, 240)
+
+
+@pytest.mark.parametrize("quality", [5, 6])
+def test_production_params_with_the_rate_limiter_match(quality):
+    """The band quantizers at every limiter the rate control reaches, 10
+    and 12 bits, and the codec's tables built from them."""
+    for limiter in (None, 0, 3, 8, 16, 20):
+        for precision, full in ((ttags.PRECISION_10BIT, False),
+                                (ttags.PRECISION_12BIT, True)):
+            t = tprod.IntraParams(320, 240, quality, precision=precision,
+                                  chroma_full_res=full,
+                                  fs_rate_limiter=limiter)
+            j = jprod.IntraParams(320, 240, quality, precision=precision,
+                                  chroma_full_res=full,
+                                  fs_rate_limiter=limiter)
+            assert [t.band_quant(ch) for ch in range(3)] == \
+                [j.band_quant(ch) for ch in range(3)]
+        codec = IntraCodec(320, 240, quality, device=CPU,
+                           fs_rate_limiter=limiter)
+        assert codec.tables().band_quant == tuple(
+            tuple(tuple(q) for q in jprod.IntraParams(
+                320, 240, quality, fs_rate_limiter=limiter).band_quant(ch))
+            for ch in range(3))

@@ -940,3 +940,40 @@ def test_codec_on_the_card_matches_golden(cuda):
         == gold
     assert codec.decode_batch([gold]).tobytes() == \
         _golden("s_320x240_q4_p1", "yuy2")
+
+
+@pytest.mark.gpu
+def test_pools_on_the_card_equal_the_pools_on_the_cpu(cuda):
+    """An EncoderPool and a DecoderPool on the card, 320x240, batches of 3
+    frames (submitted, then harvested): the samples and frames equal the
+    same pools' with `device="cpu"`."""
+    from cineform_tpu_torch import api, pool
+    from cineform_tpu_torch.testframes import yuy2_frame
+
+    frames = [yuy2_frame(320, 240, p) for p in range(6)]
+
+    def run(device):
+        enc = api.CFHD_CreateEncoderPool(1, 3, device=device)
+        enc.prepare_to_encode(320, 240, api.PixelFormat.YUY2)
+        enc.start()
+        samples = []
+        for i, f in enumerate(frames):
+            enc.encode_async_sample(i + 1, f)
+            if i % 3 == 2:
+                samples += [enc.wait_for_sample(timeout=600)
+                            .get_encoded_sample() for _ in range(3)]
+        enc.stop()
+        decoded = {}
+        for output in (api.PixelFormat.YUY2, api.PixelFormat.BGRA):
+            dec = pool.DecoderPool(2, 3, device=device)
+            dec.prepare_to_decode(320, 240, output)
+            dec.start()
+            for i, s in enumerate(samples):
+                dec.decode_async_sample(i + 1, s)
+            decoded[output] = [dec.wait_for_frame(timeout=600).data.tobytes()
+                               for _ in samples]
+            dec.stop()
+            assert dec.fallback_frames == 0
+        return samples, decoded
+
+    assert run(cuda) == run("cpu")
