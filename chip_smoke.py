@@ -75,7 +75,18 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    fails unless that launched `dwt_forward_groups` 3 times an encode and
    no other DWT entry point; then the BYR4 and BYR5 encode goldens, the
    BYR4 decode golden and the BYR4 batch the same way (decoded to BYR4),
-   which must launch `dwt_forward_planes` 3 times an encode;
+   which must launch `dwt_forward_planes` 3 times an encode; then, counts
+   reset, the Bayer RGB path: the 320x240 Bayer decode goldens through
+   `api.Decoder` on the card to every Bayer output (RG48, b64a, WP13,
+   W13A, YUY2, UYVY, BYR2, BYR4; the COLM, WBAL, WBAL2 and SATU/EXPS
+   develop matrices) byte for byte, and the 4K BYR4 batch's samples
+   decoded to RG48, b64a, WP13 and YUY2, and to RG48 through the WBAL
+   golden's develop matrix, on both routes (equal, no frame falling back),
+   frames 0 and 7 of each equal to the port's path on the CPU; it prints
+   the demosaic's, the develop's and the YUY2 conversion's device times a
+   frame against their bounds, the decodes' ms a frame and their peak
+   device memory, beside the card's name and power limit, and fails
+   unless the decoder merge forms were launched;
 8. runs the two-frame GOP path (`GopCodec`): first each kernel against its
    plain version at the shapes of a batch of 8 1080p YUY2 groups (the two
    `dwt_forward_yuy2` launches of frames 0 and 1, `dwt_forward_groups` at
@@ -130,6 +141,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -153,6 +165,18 @@ NEW_ENCODE_GOLDENS = (("UYVY", "uyvy_320x240_q4_p1"),
                       ("BYR4", "byr4_320x240_q4_p1"), ("BYR5", "raw_BYR5"))
 NEW_DECODE_GOLDENS = (("YUY2", "s_320x240_q4_p1", "BGRA", "bgraout"),
                       ("BYR4", "byr4_320x240_q4_p1", "BYR4", "byr4out"))
+# the Bayer RGB phase's 320x240 API decode goldens: (sample, the API's
+# output format, extension)
+BAYER_API_GOLDENS = (
+    *(("byr4_320x240_q4_p1", fmt, ext) for fmt, ext in (
+        ("RG48", "rg48out"), ("B64A", "b64aout"), ("WP13", "wp13out"),
+        ("W13A", "w13aout"), ("YUY2", "yuy2out"), ("UYVY", "2vuyout"),
+        ("BYR2", "byr2out"), ("BYR4", "byr4out"))),
+    ("byr4_colm_320x240_q4", "RG48", "rg48out"),
+    ("byr4_wbal_320x240_q4", "RG48", "rg48out"),
+    ("byr4_wbal_320x240_q4", "YUY2", "yuy2out"),
+    ("byr4_wbal2_320x240_q4", "RG48", "rg48out"),
+    ("byr4_satexp_320x240_q4", "RG48", "rg48out"))
 # the Bayer batch: a 4K UHD mosaic, four 1920x1080 planes
 BAYER_WIDTH, BAYER_HEIGHT = 3840, 2160
 ALL_PATHS = ("yuy2", "rgb", "yuv10", "bayer")
@@ -221,6 +245,41 @@ def device_ms(torch, fn, reps: int = 5) -> float:
         else:
             cycles *= 2
     return statistics.median(times)
+
+
+def sync_calls(torch, fn) -> int:
+    """How many synchronizing CUDA calls one call of `fn` makes, after a
+    warm-up (torch's sync debug mode)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def queue_ms(torch, fn, reps: int = 3) -> tuple[float, bool]:
+    """(median host milliseconds to queue one call of `fn` behind a spin
+    kernel that keeps the card busy, whether the card's launch queue
+    filled and held the host until the spin ended in any of the calls)."""
+    fn()
+    torch.cuda.synchronize()
+    times, full = [], False
+    for _ in range(reps):
+        torch.cuda._sleep(64 * SPIN_CYCLES)
+        spun = torch.cuda.Event()
+        spun.record()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        full |= spun.query()
+        torch.cuda.synchronize()
+    return statistics.median(times), full
 
 
 def flat(tree) -> tuple:
@@ -304,8 +363,12 @@ def main() -> int:
     from cineform_tpu_torch.models.intra_host import EncoderMetadata
     from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
                                                   encode_batch_3d, split_3d)
+    from cineform_tpu_torch.ops import demosaic as dmops
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.pool import DecoderPool
+    from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
+                                                 curve2linear_lut,
+                                                 linear2curve_lut)
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
     from cineform_tpu_torch.ops.dwt_forward import (
@@ -392,13 +455,14 @@ def main() -> int:
             mode="low-bit-first with tgt merged by max (decoder "
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
-            paths=ALL_PATHS),
+            paths=ALL_PATHS + ("bayer_rgb",)),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="high-bit-first (decoder spread_rows, on mirrored rows): "
                  "guarded one-pass placement, network on flagged rows",
-            ms_covers=decode_calls, ops_per_elem=12, paths=ALL_PATHS),
+            ms_covers=decode_calls, ops_per_elem=12,
+            paths=ALL_PATHS + ("bayer_rgb",)),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -1235,7 +1299,142 @@ def main() -> int:
     log(f"BYR4 batch: frame 0's round-trip PSNR {psnr16:.4f} dB (16-bit "
         "peak, through the LOG-90 curve and back)")
     log_path("Bayer", encodes, launches_bayer)
+    bayer_samples = samples
     del samples, decoded, out, src
+
+    # --- 7b. Bayer to RGB: the demosaic and the develop ---------------------
+    t_phase = time.perf_counter()
+    reset_counts()
+    for name, fmt, ext in BAYER_API_GOLDENS:
+        sample = golden("cfhd", name)
+        dec = api.Decoder(dev)
+        dec.prepare_to_decode(0, 0, api.PixelFormat[fmt], sample=sample)
+        if dec.decode_sample(sample).tobytes() != golden(ext, name) \
+                or dec.fallback_frames:
+            raise AssertionError(f"api.Decoder: {name} to {fmt} differs "
+                                 f"from {name}.{ext}, or fell back")
+    log(f"Bayer API goldens: {len(BAYER_API_GOLDENS)} decodes through "
+        "api.Decoder on the card byte-equal to "
+        + ", ".join(f"{n[5:-3]}.{e}" for n, _, e in BAYER_API_GOLDENS))
+    wbal = api.bayer_develop(golden("cfhd", "byr4_wbal_320x240_q4"), None,
+                             "RG48")
+    wbal_batch = np.stack([wbal] * BATCH)
+    rgb_cases = [(o, None) for o in ("RG48", "b64a", "WP13", "YUY2")] + [
+        ("RG48", wbal_batch)]
+    picks = [0, BATCH - 1]
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rgb_ms, rgb_picks = [], []
+    for output, develop in rgb_cases:
+        host_t, dev_t = [], []
+        for it in range(3):
+            out, ms = host_ms(torch, lambda: bayer.decode_batch(
+                bayer_samples, output=output, develop=develop))
+            host_t.append(ms)
+            (dev_out, fallback), ms = host_ms(
+                torch, lambda: bayer.decode_batch_device(
+                    bayer_samples, output=output, develop=develop))
+            dev_t.append(ms)
+            if fallback or dev_out.tobytes() != out.tobytes():
+                raise AssertionError(
+                    f"BYR4 batch to {output}: decode_batch_device differs "
+                    f"from decode_batch (host fallback frames {fallback})")
+        label = output + (" (WBAL matrix)" if develop is not None else "")
+        rgb_ms.append(f"to {label} {tuple(out.shape)} {out.dtype}: "
+                      f"decode_batch {med(host_t[1:]) / BATCH:.4f} ms, "
+                      f"decode_batch_device {med(dev_t[1:]) / BATCH:.4f} ms")
+        rgb_picks.append(out[picks])
+        del out, dev_out
+    rgb_peak = torch.cuda.max_memory_allocated()
+    launches_bayer_rgb = path_launches("bayer_rgb", 0, "dwt_forward_planes")
+    t0 = time.perf_counter()
+    cpu_bayer = IntraCodec(BAYER_WIDTH, BAYER_HEIGHT, 4,
+                           device=torch.device("cpu"), input_format="BYR4")
+    for (output, develop), want in zip(rgb_cases, rgb_picks):
+        got = cpu_bayer.decode_batch(
+            [bayer_samples[i] for i in picks], output=output,
+            develop=None if develop is None else develop[picks])
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"BYR4 batch to {output}: frames {picks} "
+                                 "differ from the port's path on the CPU")
+    log(f"plain path on the CPU, BYR4 batch frames {picks}: the "
+        f"{len(rgb_cases)} RGB decodes byte-equal to the card's "
+        f"({time.perf_counter() - t0:.3f} s)")
+    # the chain's parts, on one frame's planes on the card
+    co = bayer.host_entropy_decode(bayer_samples[:1])
+    planes = bayer._row16u_planes(co)
+    c2l = torch.from_numpy(curve2linear_lut().astype(np.int32)).to(dev)
+    l2c = torch.from_numpy(linear2curve_lut().astype(np.int32)).to(dev)
+    lcm = dmops.develop_matrix_lcm(wbal[None], dev)
+    parity = torch.from_numpy(bayer_yuyv_parity(BAYER_HEIGHT)).to(dev)
+    rgb16 = dmops.demosaic_raw(*planes)
+    bilinear = dmops.demosaic_bilinear_rgb(*planes)
+    whole = {o: bayer.inverse_bayer_rgb(co, o) for o in ("RG48", "YUY2")}
+    parts = (
+        ("inverse_bayer_rgb to RG48 (the whole chain from the "
+         "coefficients)", lambda: bayer.inverse_bayer_rgb(co, "RG48"),
+         flat(co), (whole["RG48"],)),
+        ("inverse_bayer_rgb to RG48 through the WBAL matrix",
+         lambda: bayer.inverse_bayer_rgb(co, "RG48", wbal[None]), flat(co),
+         (whole["RG48"],)),
+        ("inverse_bayer_rgb to YUY2", lambda: bayer.inverse_bayer_rgb(
+            co, "YUY2"), flat(co), (whole["YUY2"],)),
+        ("Row16u planes (the whole inverse DWT)",
+         lambda: bayer._row16u_planes(co), flat(co), planes),
+        ("demosaic_raw", lambda: dmops.demosaic_raw(*planes), planes,
+         (rgb16,)),
+        ("develop_1d", lambda: dmops.develop_1d(rgb16, lcm, c2l, l2c),
+         (rgb16,), (rgb16,)),
+        ("demosaic_bilinear_rgb", lambda: dmops.demosaic_bilinear_rgb(
+            *planes), planes, (bilinear,)),
+        ("convert_rgb16_to_yuyv", lambda: dmops.convert_rgb16_to_yuyv(
+            bilinear, parity), (bilinear,),
+         (torch.empty((1, BAYER_HEIGHT, 2 * BAYER_WIDTH),
+                      dtype=torch.uint8),)))
+    # the earlier phases leave the allocator's cache near the card's size;
+    # a call that must free cached blocks to allocate synchronizes
+    torch.cuda.empty_cache()
+    part_lines, chain_syncs = [], []
+    for what, fn, ins, outs in parts:
+        bound = bound_ms(nbytes((*ins, *outs)), 0)[0]
+        syncs = sync_calls(torch, fn)
+        if syncs and what.startswith("inverse_bayer_rgb"):
+            chain_syncs.append(f"{what}: {syncs}")
+        qms, queue_full = queue_ms(torch, fn)
+        host = (f"host queues it in {qms:.4f} ms" if not queue_full else
+                f"the launch queue filled while the host queued it "
+                f"({qms:.4f} ms)")
+        try:
+            dms = device_ms(torch, fn, reps=3)
+        except AssertionError:
+            ems = cuda_ms(torch, fn, reps=3)
+            part_lines.append(f"{what}: device_ms refused; events "
+                              f"{ems:.4f} ms (bound {bound:.4f} ms); {host};"
+                              f" {syncs} synchronizing calls")
+            continue
+        part_lines.append(f"{what} {dms:.4f} ms (bound {bound:.4f} ms, "
+                          f"{100 * bound / dms:.2f}%); {host}; {syncs} "
+                          "synchronizing calls")
+    if chain_syncs:
+        raise AssertionError("inverse_bayer_rgb synchronizes the host: "
+                             + "; ".join(chain_syncs))
+    del co, planes, rgb16, bilinear, rgb_picks, whole
+    log(f"BYR4 batch {BATCH} at {BAYER_WIDTH}x{BAYER_HEIGHT} to RGB: "
+        "decode_batch_device equal to decode_batch on all frames, 0 "
+        "fallback frames. Per frame, medians of 2 batches after a warm-up: "
+        + "; ".join(rgb_ms) + f"; peak device memory over the decodes "
+        f"{rgb_peak} bytes ({rgb_peak / 2**30:.3f} GiB; {base_bytes} "
+        f"allocated before) ({card()})")
+    log("Bayer RGB chain, one frame's parts on the card (device_ms, "
+        "medians of 3; bound: the parts' inputs read and outputs written "
+        "once over the memory rate; the host's queueing time behind a "
+        "spin kernel, median of 3; the synchronizing calls of one call, "
+        "after a warm-up, none allowed in inverse_bayer_rgb): "
+        + "; ".join(part_lines)
+        + f" ({card()})")
+    log_path("Bayer RGB", 0, launches_bayer_rgb)
+    log(f"Bayer RGB phase {time.perf_counter() - t_phase:.3f} s")
 
     # --- 8. the two-frame GOP: kernels at the 1080p batch's shapes ----------
     t0 = time.perf_counter()
@@ -1782,7 +1981,8 @@ def main() -> int:
 
     log(card())
     by_path = {"yuy2": launches, "rgb": launches_rgb, "yuv10": launches_yuv10,
-               "bayer": launches_bayer, "gop": launches_gop,
+               "bayer": launches_bayer, "bayer_rgb": launches_bayer_rgb,
+               "gop": launches_gop,
                "stereo": launches_stereo, "api": launches_api,
                "pool": launches_pool}
     log(json.dumps({"kernels": [

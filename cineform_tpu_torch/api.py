@@ -35,10 +35,12 @@ import numpy as np
 import torch
 
 from cineform_tpu_torch.bitstream import parse_sample
+from cineform_tpu_torch.models import active_metadata as am
 from cineform_tpu_torch.models import gop_host, lens, stereo, thumbnail
 from cineform_tpu_torch.models.gop import GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.models.intra_host import EncoderMetadata
+from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import update_fs_rate_limiter
 from cineform_tpu_torch.utils import override_db
@@ -176,6 +178,49 @@ def _not_ported(what: str) -> CFHDError:
     """The error of a route the JAX API takes on the host and no codec of
     the port takes yet."""
     return CFHDError(ErrorCode.BADFORMAT, f"{what} is not ported yet")
+
+
+def check_bgra_source(width: int, chroma_lowpass: int) -> None:
+    """Refuse a BGRA decode of a `width`-wide 4:2:2 sample whose chroma
+    lowpass width (its last channel's, from `parse_sample` or the header
+    walk) is odd: the JAX package's device and host BGRA decoders differ
+    there (ROADMAP.md Queue 3), so the reference's bytes are an open
+    question.  `Decoder` and `pool.DecoderPool` both refuse through this
+    check."""
+    if chroma_lowpass % 2:
+        raise CFHDError(
+            ErrorCode.BADFORMAT,
+            f"BGRA decode of a {width}-wide source, whose chroma "
+            f"lowpass width {chroma_lowpass} is odd: the reference's BGRA "
+            "output there is an open question")
+
+
+def bayer_develop(sample: bytes, parsed, output: str):
+    """The develop matrix of a Bayer sample decoded to `output` (RG48,
+    b64a, WP13, W13A or YUY2), or None for the raw chain, by the gating of
+    the JAX API's host decoder (`intra_host.decode_sample_bayer_to`): the
+    PRCS-gated parameters (`active_metadata.develop_params`) and the
+    matrix NeedCube composes from them (`compose_develop_matrix`).
+
+    YUY2 takes the matrix where it is active and nothing else.  The 16-bit
+    outputs take, in the JAX order, the LOOK cube; then the matrix, the
+    vignette or the BLSH sharpening; then the gamma or contrast tweaks;
+    else the raw chain.  Those stages but the matrix are not ported: a
+    sample that turns one on raises rather than decode without it."""
+    p = am.develop_params(sample, parsed=parsed)
+    m = compose_develop_matrix(
+        p.matrix, p.saturation, p.exposure,
+        p.wb if tuple(p.wb) != (1.0, 1.0, 1.0) else None)
+    matrix_active = bool(np.any(m[:, :3] != np.eye(3)) or np.any(m[:, 3]))
+    if output != "YUY2" and p.enabled:
+        look = bool(p.flags & am.PROCESSING_LOOK_FILE) and p.look_crc
+        gamma = (tuple(p.rgb_gamma) != (1.0, 1.0, 1.0)
+                 or p.contrast != 1.0)
+        if look or p.vignette_start != 0.0 or p.blur_sharpen != 0.0 \
+                or (gamma and not matrix_active):
+            raise _not_ported("the Bayer develop's vignette, BLSH "
+                              "sharpening, LOOK cube and gamma stages")
+    return m if p.enabled and matrix_active else None
 
 
 # ---------------------------------------------------------------------------
@@ -435,7 +480,10 @@ class Decoder:
     _PORTED = {"YUV": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2",
                        PixelFormat.BGRA: "BGRA"},
                "RGB": {PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a"},
-               "BAYER": {PixelFormat.BYR4: "BYR4"},
+               "BAYER": {PixelFormat.BYR4: "BYR4", PixelFormat.BYR2: "BYR2",
+                         PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a",
+                         PixelFormat.WP13: "WP13", PixelFormat.W13A: "W13A",
+                         PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"},
                "GOP": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"}}
     _HOST_ONLY = {
         "YUV": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
@@ -447,9 +495,7 @@ class Decoder:
                 PixelFormat.CT_SHORT_2_14, PixelFormat.CT_10BIT_2_8),
         "RGB": (PixelFormat.WP13, PixelFormat.W13A, PixelFormat.BGRA,
                 PixelFormat.BGRa, PixelFormat.RG24),
-        "BAYER": (PixelFormat.RG48, PixelFormat.B64A, PixelFormat.YUY2,
-                  PixelFormat.UYVY, PixelFormat.BYR2, PixelFormat.WP13,
-                  PixelFormat.W13A),
+        "BAYER": (),
         "GOP": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
                 PixelFormat.BGRA, PixelFormat.B64A, PixelFormat.R210,
                 PixelFormat.DPX0, PixelFormat.RG30)}
@@ -459,7 +505,10 @@ class Decoder:
                   PixelFormat.RG48: lambda w: 6 * w,
                   PixelFormat.BGRA: lambda w: 4 * w,
                   PixelFormat.B64A: lambda w: 8 * w,
-                  PixelFormat.BYR4: lambda w: 2 * w}
+                  PixelFormat.BYR4: lambda w: 2 * w,
+                  PixelFormat.BYR2: lambda w: 2 * w,
+                  PixelFormat.WP13: lambda w: 6 * w,
+                  PixelFormat.W13A: lambda w: 8 * w}
     #: the outputs the reference warps when a sample's lens metadata asks
     #: (`Codec/decoder.c:9230-9242`)
     _WARPED = (PixelFormat.YUY2, PixelFormat.BGRA, PixelFormat.W13A,
@@ -625,30 +674,34 @@ class Decoder:
         return self._yuy2_or_uyvy(out)
 
     def _decode_intra(self, sample: bytes, info0, kind: str, fmt: str,
-                      scale: int = 1) -> np.ndarray:
+                      scale: int = 1, develop=None) -> np.ndarray:
         """An intra sample of a `kind` source through the device decoder of
-        an `fmt` codec (`scale` 2: a Bayer sample's mosaic)."""
+        an `fmt` codec (`scale` 2: a Bayer sample's mosaic, `develop` its
+        develop matrix or None)."""
         codec = intra_codec(info0.width * scale, info0.height * scale,
                             DECODE_QUALITY, fmt, self.device)
-        out, fallback = codec.decode_batch_device([sample],
-                                                  output=self._output(kind))
+        out, fallback = codec.decode_batch_device(
+            [sample], output=self._output(kind),
+            develop=None if develop is None else develop[None])
         self.fallback_frames += len(fallback)
         return out[0]
 
     def _decode_yuv_source(self, sample: bytes, info0) -> np.ndarray:
         """YUV 4:2:2 intra sample at its coded size."""
-        out = self._output("YUV")
-        chroma_lowpass = info0.channels[-1].lowpass_width
-        if out == "BGRA" and chroma_lowpass % 2:
-            # the JAX package's device and host BGRA decoders differ at odd
-            # chroma lowpass widths (ROADMAP.md Queue 3), so no bytes here
-            raise CFHDError(
-                ErrorCode.BADFORMAT,
-                f"BGRA decode of a {info0.width}-wide source, whose chroma "
-                f"lowpass width {chroma_lowpass} is odd: the reference's "
-                "BGRA output there is an open question")
+        if self._output("YUV") == "BGRA":
+            check_bgra_source(info0.width, info0.channels[-1].lowpass_width)
         return self._yuy2_or_uyvy(self._decode_intra(sample, info0, "YUV",
                                                      "YUY2"))
+
+    def _decode_bayer_source(self, sample: bytes, info0) -> np.ndarray:
+        """Bayer (RAW) intra sample at its mosaic's size: BYR4 and BYR2
+        undifferenced, the other outputs demosaiced through the develop
+        matrix its metadata asks for (`bayer_develop`)."""
+        out = self._output("BAYER")
+        develop = None if out in ("BYR4", "BYR2") else \
+            bayer_develop(sample, info0, out)
+        return self._yuy2_or_uyvy(self._decode_intra(
+            sample, info0, "BAYER", "BYR4", 2, develop))
 
     def _refuse_warp(self, sample: bytes, parsed=None) -> None:
         """The reference warps the output when the sample's lens metadata
@@ -693,7 +746,7 @@ class Decoder:
                     sample, info0, "RGB",
                     "B64A" if info0.encoded_format == 4 else "RG48")
             elif info0.encoded_format == 2:
-                out = self._decode_intra(sample, info0, "BAYER", "BYR4", 2)
+                out = self._decode_bayer_source(sample, info0)
             elif (self.width, self.height) != (info0.width, info0.height):
                 raise _not_ported("decodes to another size than the "
                                   "sample's")

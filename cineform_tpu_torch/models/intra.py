@@ -23,10 +23,13 @@ and host is the JAX package's:
   `ops.merge_network.merge_network_tgt` and `merge_network_highfirst`),
   then the inverse DWT and the output: YUY2 with the reference's glibc
   output dither or BGRA for 4:2:2 sources, the 16-bit RG48 and b64a rows
-  of the RGB formats, the 16-bit BYR4 mosaic of Bayer sources.  A
+  of the RGB formats; for Bayer sources the 16-bit BYR4 and BYR2
+  mosaics, and the demosaiced RG48, b64a, WP13, W13A and YUY2 outputs
+  (`ops.demosaic`, optionally through a per-frame develop matrix).  A
   frame the device route does not take (wrong dimensions, a band with
-  peaks or unaligned payload, a device overflow flag) is decoded by
-  `decode_batch`, per frame.
+  peaks or unaligned payload, a device overflow flag) takes the host
+  entropy decode instead (`decode_checked`, the one per-frame fallback,
+  which the pools and `active_metadata.decode_bayer_developed` use too).
 - decode with host entropy (`decode_batch`): the host C++ entropy decoder
   (`entropy.native`, as the reference decodes on the CPU), then the same
   inverse and output on the device.
@@ -49,11 +52,15 @@ from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.entropy import native as entropy_native
 from cineform_tpu_torch.models import intra_host
 from cineform_tpu_torch.ops import bgra
+from cineform_tpu_torch.ops import demosaic as dmops
 from cineform_tpu_torch.ops import intra_transform as ops
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_planes,
                                                 dwt_forward_yuy2)
-from cineform_tpu_torch.ref.demosaic import log2lin_lut
+from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
+                                             curve2linear_lut,
+                                             linear2curve_lut, log2lin_lut,
+                                             log90_inverse_lut)
 from cineform_tpu_torch.ref.intra import byr4_log90_curve
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
@@ -88,14 +95,23 @@ _DEVICE_FORMATS = {
 #: the decode outputs of each encoded format, the default first
 _DECODE_OUTPUTS = {"YUV": ("YUY2", "BGRA"), "RGB": ("RG48", "b64a"),
                    "RGBA": ("b64a", "RG48"), "RGBA_FULL": ("b64a", "RG48"),
-                   "BAYER": ("BYR4",)}
+                   "BAYER": ("BYR4", "RG48", "b64a", "WP13", "W13A", "BYR2",
+                             "YUY2")}
 
 
 @lru_cache(maxsize=None)
 def _table(table, device: torch.device) -> torch.Tensor:
-    """The host table `table()` of the reference (the BYR4 encode curve or
-    the BYR4 decode's log-to-linear restore) as int32 on `device`."""
+    """The host table `table()` of the reference (the BYR4 encode curve,
+    the BYR4 decode's log-to-linear restore, the develop's curve tables)
+    as int32 on `device`."""
     return torch.from_numpy(table().astype(np.int32)).to(device)
+
+
+@lru_cache(maxsize=None)
+def _yuyv_parity(height: int, device: torch.device) -> torch.Tensor:
+    """`bayer_yuyv_parity(height)`, the Bayer YUY2 output's dither parity
+    of each row, on `device`."""
+    return torch.from_numpy(bayer_yuyv_parity(height)).to(device)
 
 
 def _u16(x: torch.Tensor) -> torch.Tensor:
@@ -518,29 +534,104 @@ class IntraCodec:
             a = torch.full_like(g, 65520)
         return torch.stack([a, r, g, b], dim=-1).flatten(-2)
 
-    def inverse_byr4(self, coeffs) -> torch.Tensor:
+    def inverse_byr(self, coeffs, output: str = "BYR4") -> torch.Tensor:
         """Bayer coefficients (G, RG, BG, GD difference planes) -> (B, H,
-        W) int32 BYR4 mosaic rows of uint16 values: GenerateBYR2's
-        un-difference with the BYR4LinearRestore log-to-linear table
-        (`Codec/bayer.c:13237`)."""
+        W) int32 mosaic rows of uint16 values: GenerateBYR2's
+        un-difference (`Codec/bayer.c:13237`), for BYR4 through the
+        BYR4LinearRestore log-to-linear table, for BYR2 with the low bit
+        masked instead (`bayer.c:13322-13328`)."""
         g, rg, bg, gd = self._row16u_planes(coeffs)
-        lut = _table(log2lin_lut, g.device)
         r = (((rg - 32768) << 1) + g).clamp(0, 0xFFFF)
         b = (((bg - 32768) << 1) + g).clamp(0, 0xFFFF)
         gd = gd - 32768
         g1 = (g + gd).clamp(0, 0xFFFF)
         g2 = (g - gd).clamp(0, 0xFFFF)
-        r, g1, g2, b = (lut[(x >> 2).long()] for x in (r, g1, g2, b))
-        *lead, h, w = g.shape
-        line_a = torch.stack([r, g1], dim=-1).reshape(*lead, h, 2 * w)
-        line_b = torch.stack([g2, b], dim=-1).reshape(*lead, h, 2 * w)
-        return torch.stack([line_a, line_b], dim=-2).reshape(*lead, 2 * h,
-                                                              2 * w)
+        if output == "BYR4":
+            lut = _table(log2lin_lut, g.device)
+            r, g1, g2, b = (lut[(x >> 2).long()] for x in (r, g1, g2, b))
+        else:
+            r, g1, g2, b = (x & 0xFFFE for x in (r, g1, g2, b))
+        return dmops.interleave_sites(r, g1, g2, b)
+
+    def inverse_bayer_rgb(self, coeffs, output: str,
+                          develop=None) -> torch.Tensor:
+        """Bayer coefficients -> a demosaiced output, as the JAX package's
+        `intra_host.decode_sample_bayer_to` writes it, a frame at a time
+        (the chain's temporaries at 4K are a few hundred MB a frame):
+
+        - RG48 (B, H, 3W), b64a (B, H, 4W: alpha 0xFFFF first), WP13
+          (B, H, 3W: RG48 >> 3) and W13A (B, H, 4W: alpha 8191 last), int32
+          of 16-bit values: `ops.demosaic.demosaic_raw`, or with a matrix
+          its `develop_1d` stored << 3;
+        - YUY2 (B, H, 2W) uint8: the bilinear demosaic, then the YUYV
+          conversion at whitepoint 16, or with a matrix the develop's
+          13-bit values at whitepoint 13, the dither by mosaic row pair.
+
+        `develop`: None (the raw chain), or (B, 3, 4) float develop
+        matrices, one a frame (`ref.demosaic.compose_develop_matrix`)."""
+        planes = self._row16u_planes(coeffs)
+        dev = planes[0].device
+        lcm = None
+        if develop is not None:
+            lcm = dmops.develop_matrix_lcm(develop, dev)
+            if lcm.shape[0] != planes[0].shape[0]:
+                raise ValueError(f"{lcm.shape[0]} develop matrices for a "
+                                 f"batch of {planes[0].shape[0]}")
+            c2l = _table(curve2linear_lut, dev)
+            l2c = _table(linear2curve_lut, dev)
+        if output == "YUY2":
+            parity = _yuyv_parity(self.height, dev)
+        frames = []
+        for i in range(planes[0].shape[0]):
+            one = [p[i:i + 1] for p in planes]
+            m = None if lcm is None else lcm[i:i + 1]
+            if output == "YUY2":
+                rgb = dmops.demosaic_bilinear_rgb(*one)
+                if m is None:
+                    frames.append(dmops.convert_rgb16_to_yuyv(rgb, parity))
+                else:
+                    out13 = dmops.develop_1d(rgb.clamp(0, 65535), m, c2l,
+                                             l2c)
+                    frames.append(dmops.convert_rgb16_to_yuyv(
+                        out13, parity, whitepoint=13))
+                continue
+            rgb = dmops.demosaic_raw(*one)
+            if m is not None:
+                rgb = (dmops.develop_1d(rgb, m, c2l, l2c) << 3).clamp(0, 65535)
+            if output in ("WP13", "W13A"):
+                rgb = rgb >> 3
+            fill = {"b64a": 0xFFFF, "W13A": 8191}.get(output)
+            if fill is not None:
+                alpha = torch.full_like(rgb[..., :1], fill)
+                rgb = torch.cat([alpha, rgb] if output == "b64a"
+                                else [rgb, alpha], dim=-1)
+            frames.append(rgb.flatten(-2))
+        return torch.cat(frames)
+
+    def inverse_bayer_linear(self, coeffs) -> torch.Tensor:
+        """Bayer coefficients -> (B, h, w, 3) int32 quarter-res 12-bit
+        linear RGB, as the JAX package's `intra_host.decode_sample_bayer`
+        builds it: the production inverse of the G, RG, BG planes, their
+        un-difference, and the inverse of the LOG-90 curve."""
+        prescale = self.params.prescale
+        planes = []
+        for lowpass, bands in coeffs[:3]:
+            ll = lowpass
+            for k in (2, 1):
+                ll = ops.dwt2d_inverse(ll, *bands[k],
+                                       2 if prescale[k] == 2 else 1)
+            planes.append(ops.dwt2d_inverse(ll, *bands[0], 1))
+        g = planes[0].clamp(0, 4095)
+        r = (((planes[1] - 2048) << 1) + g).clamp(0, 4095)
+        b = (((planes[2] - 2048) << 1) + g).clamp(0, 4095)
+        inv = _table(log90_inverse_lut, g.device)
+        return torch.stack([inv[x.long()] for x in (r, g, b)], dim=-1)
 
     def decode_output(self, output: str | None) -> str:
         """The decode output `output` names, checked, or the format's
         default: YUY2 for 4:2:2 sources, RG48 for RGB, b64a for RGBA, BYR4
-        for Bayer."""
+        for Bayer (which also decode to RG48, b64a, WP13, W13A, BYR2 and
+        YUY2)."""
         outputs = _DECODE_OUTPUTS[self.encoded]
         if output is None:
             return outputs[0]
@@ -550,20 +641,31 @@ class IntraCodec:
         return output
 
     def inverse_output(self, coeffs, frame_index: int = 0,
-                       output: str | None = None) -> torch.Tensor:
+                       output: str | None = None,
+                       develop=None) -> torch.Tensor:
         """Per-channel (lowpass, bands) -> the decoded batch on the device:
         (B, H, 2W) uint8 YUY2 with the output dither of `frame_index`,
         (B, H, W, 4) uint8 BGRA, or the 16-bit RG48 (B, H, 3W), b64a (B, H,
-        4W) and BYR4 (B, H, W) rows as int16 bit patterns."""
+        4W) and BYR4 (B, H, W) rows as int16 bit patterns; Bayer sources'
+        outputs as `inverse_byr` and `inverse_bayer_rgb` give them, the
+        latter through the per-frame `develop` matrices where given."""
         output = self.decode_output(output)
+        if develop is not None and (self.encoded != "BAYER"
+                                    or output in ("BYR4", "BYR2")):
+            raise ValueError(f"a develop matrix applies to a Bayer source's "
+                             f"RGB and YUY2 outputs, not {output} of "
+                             f"{self.input_format}")
+        if output in ("BYR4", "BYR2"):
+            return _u16(self.inverse_byr(coeffs, output))
+        if self.encoded == "BAYER":
+            out = self.inverse_bayer_rgb(coeffs, output, develop)
+            return out if output == "YUY2" else _u16(out)
         if output == "YUY2":
             return self.inverse(coeffs, frame_index)
         if output == "BGRA":
             return self.inverse_bgra(coeffs)
         if output == "RG48":
             return _u16(self.inverse_rg48(coeffs))
-        if output == "BYR4":
-            return _u16(self.inverse_byr4(coeffs))
         return _u16(self.inverse_b64a(coeffs))
 
     def host_entropy_decode(self, samples: list[bytes]):
@@ -607,17 +709,22 @@ class IntraCodec:
                 for ch in range(self.num_channels)]
 
     def decode_batch(self, samples: list[bytes], frame_index: int = 0,
-                     output: str | None = None) -> np.ndarray:
+                     output: str | None = None,
+                     develop=None) -> np.ndarray:
         """Decode CFHD samples with the host C++ entropy decoder, then the
         inverse and the output on the device: (B, H, 2W) uint8 YUY2 or (B,
         H, W, 4) uint8 BGRA, or (B, H, 3W) RG48, (B, H, 4W) b64a or (B, H,
-        W) BYR4 uint16 rows (`output`, by default the source format's).
+        W) BYR4 uint16 rows (`output`, by default the source format's);
+        a Bayer source's WP13, W13A and BYR2 rows too, and its RG48, b64a,
+        WP13, W13A and YUY2 through the develop matrices `develop` ((B, 3,
+        4), or None for the raw chain).
 
         frame_index positions the YUY2 output dither within the decoder
         process's rand stream (a sequential decoder passes 0, 1, 2, ...)."""
         output = self.decode_output(output)
         coeffs = self.host_entropy_decode(samples)
-        return _download(self.inverse_output(coeffs, frame_index, output))
+        return _download(self.inverse_output(coeffs, frame_index, output,
+                                             develop))
 
     # --- decode on the device: entropy + inverse transform -----------------
 
@@ -670,19 +777,10 @@ class IntraCodec:
                   for ch in range(self.num_channels)]
         return coeffs, torch.stack(ovfs).any(dim=0)
 
-    def _decode_device_program(self, pays, nchs, qns, lins, lowpass,
-                               frame_index: int = 0,
-                               output: str | None = None):
-        """Per-class band payload rows on the device -> (the decoded batch
-        as `inverse_output` gives it, (B,) overflow flags), all on the
-        device: band entropy decode feeding the inverse DWT and the output
-        (`Codec/decoder.c:11584` DecodeSampleIntraFrame)."""
-        coeffs, ovf = self.decode_coefficients(pays, nchs, qns, lins, lowpass)
-        return self.inverse_output(coeffs, frame_index, output), ovf
-
-    def _decode_rows_host(self, samples: list[bytes]):
+    def _decode_rows_host(self, samples: list[bytes], walks=None):
         """Host header walk: samples -> per-class row tensors on the host
-        (pinned when the codec's device is CUDA).
+        (pinned when the codec's device is CUDA).  `walks`: the samples'
+        `fastwalk.walk` results where the caller has them already.
 
         Returns (pays, nchs, qns, lins, lowpass, fallback): 6-tuples of
         (R, S*4) uint8 / (R,) int32 tensors, one per _DECODE_CLASSES class
@@ -701,16 +799,15 @@ class IntraCodec:
         lws = tuple(self.plane_width(ch) >> 3 for ch in range(nch))
         #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
         parts: dict = {}
-        walks: list = [None] * batch
         fallback = set()
-        for i, sample in enumerate(samples):
-            r = fastwalk.walk(sample)
+        if walks is None:
+            walks = [fastwalk.walk(sample) for sample in samples]
+        for i, r in enumerate(walks):
             if r is None or (r.width, r.height) != (p.width, p.height) \
                     or r.nchannels != nch or 0 in r.lowpass_off \
                     or r.lowpass_h != (lh,) * nch or r.lowpass_w != lws:
                 fallback.add(i)
                 continue
-            walks[i] = r
             for (ch, bandno, subband), (off, ln, q, lin, fl) in \
                     r.bands.items():
                 if not 1 <= subband <= 9 or fl & 1 or ln % 4:
@@ -778,29 +875,52 @@ class IntraCodec:
         """`_decode_rows_host` with its tensors uploaded to the device."""
         return self._upload_rows(self._decode_rows_host(samples))
 
-    def decode_batch_device(self, samples: list[bytes], frame_index: int = 0,
-                            output: str | None = None):
-        """Decode CFHD samples with the band entropy decode, the inverse
-        DWT and the output on the device; the host only walks sample
-        headers and copies payloads.  The output is `decode_batch`'s.
+    def decode_checked(self, samples: list[bytes], finish, rows=None):
+        """The device route's one per-frame fallback: entropy-decode the
+        samples on the device and run `finish(coeffs, frames)` (a batched
+        device computation of `frames`' coefficients, `frames` a slice or
+        a list of batch indices) on them; the frames the device route does
+        not take (wrong dimensions, a band outside subbands 1-9, with
+        peaks or an unaligned payload) or that overflow their device band
+        region get `finish` of their host-decoded coefficients
+        (`host_entropy_decode`) instead.  `finish` is queued before the
+        overflow flags are read, so the device runs on while the host
+        waits.  `rows`: the samples' `_decode_rows_args`, where the caller
+        has uploaded them already.
 
-        Returns (frames, fallback): fallback is the sorted tuple of the
-        frame indices that `decode_batch` decoded instead (streams the
-        device route does not take, or that overflow their device band
-        region), byte-identical by the codec's own semantics."""
-        output = self.decode_output(output)
+        Returns (the downloaded result, fallback): fallback is the sorted
+        tuple of the frame indices that took the host entropy decode."""
         batch = len(samples)
-        *rows, fallback = self._decode_rows_args(samples)
+        *rows, fallback = rows or self._decode_rows_args(samples)
+        fallback = set(fallback)
         if len(fallback) == batch:
-            return (self.decode_batch(samples, frame_index, output),
-                    tuple(range(batch)))
-        out, ovf = self._decode_device_program(*rows, frame_index, output)
-        out = _download(out)
+            return (_download(finish(self.host_entropy_decode(samples),
+                                     slice(None))), tuple(range(batch)))
+        coeffs, ovf = self.decode_coefficients(*rows)
+        out = _download(finish(coeffs, slice(None)))
         fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
         fallback = tuple(sorted(fallback))
         if fallback:
-            host = self.decode_batch([samples[i] for i in fallback],
-                                     frame_index, output)
-            for j, i in enumerate(fallback):
-                out[i] = host[j]
+            host = self.host_entropy_decode([samples[i] for i in fallback])
+            out[list(fallback)] = _download(finish(host, list(fallback)))
         return out, fallback
+
+    def decode_batch_device(self, samples: list[bytes], frame_index: int = 0,
+                            output: str | None = None, develop=None):
+        """Decode CFHD samples with the band entropy decode, the inverse
+        DWT and the output on the device; the host only walks sample
+        headers and copies payloads.  The output (and `develop`) is
+        `decode_batch`'s.
+
+        Returns (frames, fallback): fallback is the sorted tuple of the
+        frame indices that `decode_checked` decoded on the host entropy
+        route instead (streams the device route does not take, or that
+        overflow their device band region), byte-identical by the codec's
+        own semantics."""
+        output = self.decode_output(output)
+        if develop is not None:
+            develop = np.asarray(develop, np.float64).reshape(len(samples),
+                                                              3, 4)
+        return self.decode_checked(samples, lambda coeffs, frames: (
+            self.inverse_output(coeffs, frame_index, output,
+                                None if develop is None else develop[frames])))

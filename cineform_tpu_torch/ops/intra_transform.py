@@ -397,8 +397,8 @@ def h26_inverse_to_row16u(low: torch.Tensor, high: torch.Tensor,
     shift = 16 - precision
     half = low.shape[-1]
     tail0 = (half - (half % 8) - 9) if half >= 16 else 2
-    scalar = torch.arange(half, device=low.device) >= tail0
-    scalar[0] = False
+    col = torch.arange(half, device=low.device)
+    scalar = (col >= tail0) & (col > 0)
 
     def row16u(x):
         return torch.where(scalar, ((x >> 1) << shift).clamp(0, 65535),

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from cineform_tpu_torch import api
+from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch.models import gop_host
 
 
@@ -304,14 +305,17 @@ class DecoderPool(_Batches):
     happens across batches: a parse thread walks the sample headers,
     copies the band payloads into pinned row buffers and queues their
     upload (`IntraCodec._decode_rows_args`) for batch N+1 while the device
-    thread runs the decode (`IntraCodec._decode_device_program`: band
-    entropy decode, inverse DWT, dither and output pack) of batch N.  Both
+    thread runs the decode (`IntraCodec.decode_checked`: band entropy
+    decode, inverse DWT, dither and output pack) of batch N.  Both
     threads queue their work on the device's default stream, so the
     decode of a batch runs after its uploads; the batch keeps its pinned
     rows until its decode has been fetched.  Samples the device route does
     not take (a band with peaks or an unaligned payload, other dimensions,
-    a device overflow) are decoded per frame by `decode_batch`, like
-    `decode_batch_device` does, and counted in `fallback_frames`.
+    a device overflow) take the host entropy decode there, as in
+    `decode_batch_device`, and are counted in `fallback_frames`.  A BGRA
+    job whose sample `api.Decoder` refuses (`api.check_bgra_source`) fails
+    with the same error from the parse thread; the rest of its batch
+    decodes.
     """
 
     def __init__(self, thread_count: int = 2, job_queue_length: int = 32,
@@ -368,12 +372,39 @@ class DecoderPool(_Batches):
 
     # --- pipeline stages -----------------------------------------------------
 
+    @staticmethod
+    def _refuse_bgra(jobs: list[_Job], walks: list) -> tuple[list, list]:
+        """Fail the jobs whose samples `api.check_bgra_source` refuses,
+        each reading its chroma lowpass width from its header walk
+        (`fastwalk.walk`; a sample the walker does not read is parsed
+        whole, and fails its job if it does not parse); returns the other
+        jobs and their walks."""
+        kept = []
+        for j, r in zip(jobs, walks):
+            try:
+                if r is None:
+                    info = parse_sample(j.frames[0])
+                    api.check_bgra_source(info.width,
+                                          info.channels[-1].lowpass_width)
+                else:
+                    api.check_bgra_source(r.width, r.lowpass_w[-1])
+            except Exception as exc:
+                j.future.set_exception(exc)
+                continue
+            kept.append((j, r))
+        return [j for j, _ in kept], [r for _, r in kept]
+
     def _parse_loop(self) -> None:
         """Stage 1: host header walk, pinned row fill and upload."""
         while (jobs := self._next_batch()) is not None:
             try:
+                walks = [fastwalk.walk(j.frames[0]) for j in jobs]
+                if self._output == "BGRA":
+                    jobs, walks = self._refuse_bgra(jobs, walks)
+                    if not jobs:
+                        continue
                 samples = [j.frames[0] for j in jobs]
-                rows = self._codec._decode_rows_host(samples)
+                rows = self._codec._decode_rows_host(samples, walks)
                 item = (jobs, samples, rows, self._codec._upload_rows(rows))
             except BaseException as exc:
                 self._fail(jobs, exc)
@@ -396,23 +427,10 @@ class DecoderPool(_Batches):
                     return  # the parse thread stopped and all is drained
                 jobs, samples, rows, args = self._device_queue.popleft()
             try:
-                *arrays, fallback = args
-                batch = len(samples)
-                if len(fallback) < batch:
-                    out, ovf = codec._decode_device_program(
-                        *arrays, 0, self._output)
-                    out = out.cpu().numpy()
-                    fallback |= {int(i) for i in
-                                 torch.nonzero(ovf.cpu()).flatten()}
-                else:
-                    shape = ((self.height, self.width, 4)
-                             if self._output == "BGRA"
-                             else (self.height, 2 * self.width))
-                    out = np.zeros((batch,) + shape, np.uint8)
+                out, fallback = codec.decode_checked(
+                    samples, lambda coeffs, frames: codec.inverse_output(
+                        coeffs, 0, self._output), rows=args)
                 del rows        # the uploads are done: the fetch synced
-                for i in sorted(fallback):
-                    out[i] = codec.decode_batch([samples[i]],
-                                                output=self._output)[0]
                 with self._lock:
                     self.fallback_frames += len(fallback)
                 for j, frame in zip(jobs, out):

@@ -227,7 +227,7 @@ def test_inverse_byr4_matches_jax():
     """Random coefficients of a 96x48 Bayer codec (24x12 planes)."""
     codec = IntraCodec(96, 48, 4, device=CPU, input_format="BYR4")
     coeffs, jcoeffs = _random_coeffs(codec, 5)
-    got = codec.inverse_byr4(coeffs)
+    got = codec.inverse_byr(coeffs)
     assert got.shape == (2, 48, 96) and got.dtype == torch.int32
     _eq(got, JaxIntraCodec(width=96, height=48, quality=4,
                            input_format="BYR4").inverse_byr4(jcoeffs))
@@ -332,6 +332,82 @@ def test_bgra_device_decode_matches_jax_host_decoder(fmt, w):
         got.tobytes()
 
 
+#: the Bayer outputs beside BYR4, as `IntraCodec` and the JAX host decoder
+#: `decode_sample_bayer_to` name them
+BAYER_OUTPUTS = ("RG48", "b64a", "WP13", "W13A", "BYR2", "YUY2")
+
+
+def _bayer_samples(w=128, h=64, seed=11):
+    codec = IntraCodec(w, h, 4, device=CPU, input_format="BYR4")
+    return codec, codec.encode_batch_device(
+        _random_frames("BYR4", w, h, seed))
+
+
+@pytest.mark.parametrize("output", BAYER_OUTPUTS)
+def test_bayer_outputs_equal_on_both_routes_and_the_jax_host_decoder(output):
+    """Two seeded 128x64 mosaics, encoded by the port, decode to each
+    Bayer output equal on both routes, with no frame falling back, and
+    equal to the JAX host decoder (the raw chain: no metadata)."""
+    codec, samples = _bayer_samples()
+    got, fallback = codec.decode_batch_device(samples, output=output)
+    assert fallback == ()
+    assert codec.decode_batch(samples, output=output).tobytes() == \
+        got.tobytes()
+    for i, s in enumerate(samples):
+        assert got[i].tobytes() == jhost.decode_sample_bayer_to(s, output)
+
+
+def _develop_want(sample, matrix, output):
+    """The host model of a develop matrix's output: the 16-bit chain's
+    develop stored << 3 (RG48; WP13 >> 3 of it), or the bilinear chain's
+    develop at whitepoint 13 (YUY2)."""
+    from cineform_tpu.ref import demosaic as jdm
+
+    planes = jhost.decode_sample_bayer_row16u(sample)
+    if output == "YUY2":
+        rgb = jdm.demosaic_bilinear_rgb(*planes)
+        out13 = jdm.apply_active_metadata_matrix(
+            np.clip(rgb, 0, 65535).astype(np.uint16), matrix)
+        return jdm.convert_rgb16_to_yuyv(
+            out13, parity=jdm.bayer_yuyv_parity(rgb.shape[0]), whitepoint=13)
+    rgb = np.clip(jdm.apply_active_metadata_matrix(
+        jdm.demosaic_raw_rg48(*planes), matrix) << 3, 0, 65535)
+    return (rgb if output == "RG48" else rgb >> 3).astype("<u2").tobytes()
+
+
+@pytest.mark.parametrize("output", ["RG48", "WP13", "YUY2"])
+def test_bayer_batch_with_two_develop_matrices(output):
+    """A batch whose two frames carry different develop matrices equals
+    each frame decoded alone with its own, on both routes, and the host
+    model of the matrix's chain."""
+    from cineform_tpu.ref import demosaic as jdm
+
+    codec, samples = _bayer_samples()
+    mats = np.stack([jdm.compose_develop_matrix(None, 1.0, 1.0,
+                                                (1.6, 1.0, 0.8)),
+                     jdm.compose_develop_matrix(
+                         np.array([[0.9, 0.08, 0.02, 0.0],
+                                   [0.05, 0.9, 0.05, 0.01],
+                                   [0.02, 0.08, 0.9, 0.0]]), 1.3, 1.1)])
+    got, fallback = codec.decode_batch_device(samples, output=output,
+                                              develop=mats)
+    assert fallback == ()
+    assert codec.decode_batch(samples, output=output,
+                              develop=mats).tobytes() == got.tobytes()
+    for i, s in enumerate(samples):
+        alone, _ = codec.decode_batch_device([s], output=output,
+                                             develop=mats[i:i + 1])
+        assert alone[0].tobytes() == got[i].tobytes()
+        assert got[i].tobytes() == _develop_want(s, mats[i], output)
+
+
+def test_develop_matrix_only_for_the_bayer_rgb_outputs():
+    codec, samples = _bayer_samples()
+    with pytest.raises(ValueError, match="develop matrix"):
+        codec.decode_batch(samples, output="BYR4", develop=np.stack(
+            [np.eye(3, 4)] * 2))
+
+
 def test_transform_round_trip_equals_the_codec_round_trip():
     """`inverse(dequantize(forward(frames)))`, bench.py's transform round
     trip, equals `decode_batch` of the `encode_batch` samples, on the 4:2:2
@@ -346,7 +422,8 @@ def test_transform_round_trip_equals_the_codec_round_trip():
 
 def test_outputs_of_the_new_formats_and_their_checks():
     """4:2:2 sources decode to YUY2 by default and to BGRA; Bayer sources
-    to BYR4 only; a format outside the codec's list raises."""
+    to BYR4 by default and to RG48, b64a, WP13, W13A, BYR2 and YUY2, not
+    BGRA; a format outside the codec's list raises."""
     def codec(fmt):
         return IntraCodec(96, 48, 4, device=CPU, input_format=fmt)
 
@@ -355,8 +432,10 @@ def test_outputs_of_the_new_formats_and_their_checks():
         assert codec(fmt).decode_output("BGRA") == "BGRA"
     for fmt in ("BYR4", "BYR5"):
         assert codec(fmt).decode_output(None) == "BYR4"
+        for output in BAYER_OUTPUTS:
+            assert codec(fmt).decode_output(output) == output
         with pytest.raises(ValueError, match="decodes to BYR4"):
-            codec(fmt).decode_output("YUY2")
+            codec(fmt).decode_output("BGRA")
     with pytest.raises(ValueError, match="BYR4"):
         codec("RG48").decode_output("BYR4")
     assert codec("BYR5").row_bytes == 144

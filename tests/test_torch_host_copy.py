@@ -1,8 +1,9 @@
 """The port's own copy of the host path (`cineform_tpu_torch.spec`,
 `bitstream`, `entropy.native`, `native`, `models.intra_host`,
-`models.gop_host`, `models.thumbnail`, `models.lens`, `ref.intra`,
-`ref.gop`, `utils.glibc_random`, `utils.override_db`, `testframes`, and
-the API's constants), on the CPU.
+`models.gop_host`, `models.thumbnail`, `models.lens`, `metadata`,
+`models.active_metadata`'s develop parameters, `ref.intra`, `ref.gop`,
+`ref.demosaic`, `utils.glibc_random`, `utils.override_db`, `testframes`,
+and the API's constants), on the CPU.
 
 The port imports nothing of the JAX package: no source names it, and the
 slice runs where it cannot be imported.  Each copy equals its original on
@@ -22,10 +23,12 @@ import pytest
 import torch
 
 from cineform_tpu import api as japi
+from cineform_tpu import metadata as jmetadata
 from cineform_tpu.bitstream import fastwalk as jfastwalk
 from cineform_tpu.bitstream import parse_sample as jparse_sample
 from cineform_tpu.entropy import native as jnative
 from cineform_tpu.models import gop_host as jgop_host
+from cineform_tpu.models import active_metadata as jam
 from cineform_tpu.models import intra_host as jhost
 from cineform_tpu.models import lens as jlens
 from cineform_tpu.models import thumbnail as jthumbnail
@@ -40,11 +43,13 @@ from cineform_tpu.utils import glibc_random as jglibc
 from cineform_tpu.utils import override_db as joverride
 from cineform_tpu.utils import testframes as jframes
 from cineform_tpu_torch import api as tapi
+from cineform_tpu_torch import metadata as tmetadata
 from cineform_tpu_torch import native as tnative_build
 from cineform_tpu_torch import testframes as tframes
 from cineform_tpu_torch.bitstream import fastwalk as tfastwalk
 from cineform_tpu_torch.bitstream import parse_sample as tparse_sample
 from cineform_tpu_torch.entropy import native as tnative
+from cineform_tpu_torch.models import active_metadata as tam
 from cineform_tpu_torch.models import gop_host as tgop_host
 from cineform_tpu_torch.models import intra_host as thost
 from cineform_tpu_torch.models import lens as tlens
@@ -103,13 +108,15 @@ def _plain(x):
 #: modules of the port that a later slice added, which the guards must see
 NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
                "ref/gop.py", "api.py", "pool.py", "models/thumbnail.py",
-               "models/lens.py", "utils/override_db.py")
+               "models/lens.py", "utils/override_db.py", "metadata.py",
+               "models/active_metadata.py", "ops/demosaic.py",
+               "ops/develop.py")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports `cineform_tpu`
     or `jax`, at top level or inside a function; the GOP, stereo, API and
-    pool modules are among those checked."""
+    pool modules, and the Bayer develop's, are among those checked."""
     sources = [os.path.relpath(p, PKG) for p in _port_sources()]
     assert set(NEW_MODULES) <= set(sources)
     found = []
@@ -162,7 +169,8 @@ f0, f1, fallback = GopCodec(320, 240, 4, device="cpu").decode_batch_device(
     [group])
 assert fallback == () and f0.tobytes() == open(os.path.join(
     samples, "gop_320x240_q4_p1.f0.yuy2"), "rb").read()
-for name in ("gop", "gop_host", "stereo", "lens", "thumbnail"):
+for name in ("gop", "gop_host", "stereo", "lens", "thumbnail",
+             "active_metadata"):
     assert "cineform_tpu_torch.models." + name in sys.modules
 from cineform_tpu_torch import api, pool
 enc = api.Encoder("cpu")
@@ -179,6 +187,11 @@ p.start()
 p.decode_async_sample(1, gold)
 assert p.wait_for_frame(timeout=120).data.tobytes() == want
 p.stop()
+byr = open(os.path.join(samples, "byr4_wbal_320x240_q4.cfhd"), "rb").read()
+dec = api.Decoder("cpu")
+dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=byr)
+assert dec.decode_sample(byr).tobytes() == open(os.path.join(
+    samples, "byr4_wbal_320x240_q4.rg48out"), "rb").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("cineform_tpu", "jax", "jaxlib")]
 print("ok")
@@ -189,7 +202,8 @@ def test_port_runs_where_the_jax_package_cannot_be_imported():
     """In a fresh interpreter where importing `cineform_tpu` or `jax`
     raises, every port module imports, the 64x48 golden encodes and
     decodes byte for byte on both decode routes and through the API and
-    the decoder pool, and a GOP golden decodes on the device route."""
+    the decoder pool, a GOP golden decodes on the device route, and a
+    Bayer golden with a white balance decodes to RG48."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -706,3 +720,72 @@ def test_production_params_with_the_rate_limiter_match(quality):
             tuple(tuple(q) for q in jprod.IntraParams(
                 320, 240, quality, fs_rate_limiter=limiter).band_quant(ch))
             for ch in range(3))
+
+
+# ---------------------------------------------------------------------------
+# The Bayer develop's host pieces: metadata, develop parameters, tables
+# ---------------------------------------------------------------------------
+
+#: the goldens whose metadata carries develop tuples, and two without
+DEVELOP_GOLDENS = sorted(g for g in GOLDENS if g.startswith("byr4_")) + [
+    "s_320x240_q4_p1", "gop_320x240_q4_p1"]
+
+
+def _develop_golden(name):
+    return _read(name + (".cfhd.f1" if name.startswith("gop") else ".cfhd"))
+
+
+@pytest.mark.parametrize("name", DEVELOP_GOLDENS)
+def test_metadata_reader_and_develop_params_match(name):
+    """`read_metadata` and `develop_params` of the goldens, alone and with
+    a database that overrides the PRCS flags, equal the originals."""
+    sample = _develop_golden(name)
+    got = [dataclasses.astuple(i) for i in tmetadata.read_metadata(sample)]
+    assert got == [(i.tag, i.typ, i.payload)
+                   for i in jmetadata.read_metadata(sample)]
+    assert tmetadata.read_metadata(sample, tparse_sample(sample)) == \
+        tmetadata.read_metadata(sample)
+    for flags in (None, 1, 1 | 2, 1 | 4 | 8 | 32, 0x3F):
+        db = None if flags is None else [
+            ("PRCS", b"L", flags.to_bytes(4, "little")),
+            ("WBAL", b"f", np.float32([1.5, 1.0, 1.0, 0.3]).tobytes()),
+            ("SATU", b"f", np.float32([12.0]).tobytes()),
+            ("GAMT", b"f", np.float32([0.1, 2.0]).tobytes())]
+        want = jam.develop_params(sample, None if db is None else
+                                  [jmetadata.MetadataItem(*i) for i in db])
+        got = tam.develop_params(sample, None if db is None else
+                                 [tmetadata.MetadataItem(*i) for i in db])
+        assert _plain(got) == _plain(want)
+
+
+def test_develop_tables_and_matrix_match():
+    """The curve tables, the white balance conditioning, NeedCube's
+    matrix composition over saturations, exposures, gains and COLM, the
+    row parity and the YUYV coefficients equal the originals; the inverse
+    LOG-90 table gives `decode_sample_bayer`'s quarter-res linear RGB."""
+    for fn in ("log2lin_lut", "curve2linear_lut", "linear2curve_lut"):
+        np.testing.assert_array_equal(getattr(tdemosaic, fn)(),
+                                      getattr(jdemosaic, fn)())
+    rng = np.random.default_rng(21)
+    for _ in range(20):
+        wb = rng.uniform(0.1, 12.0, 3)
+        np.testing.assert_array_equal(tdemosaic.normalize_white_balance(wb),
+                                      jdemosaic.normalize_white_balance(wb))
+    for colm in (None, rng.uniform(-1, 2, (3, 4))):
+        for sat in (0.0, 0.5, 1.0, 2.5, 11.0):
+            for exp in (0.25, 1.0, 11.0):
+                for wb in (None, (1.0, 1.0, 1.0), tuple(rng.uniform(0.3, 11,
+                                                                    3))):
+                    np.testing.assert_array_equal(
+                        tdemosaic.compose_develop_matrix(colm, sat, exp, wb),
+                        jdemosaic.compose_develop_matrix(colm, sat, exp, wb))
+    for h in (2, 64, 240, 2160):
+        np.testing.assert_array_equal(tdemosaic.bayer_yuyv_parity(h),
+                                      jdemosaic.bayer_yuyv_parity(h))
+    assert tdemosaic._RGB2YUV_709 == jdemosaic._RGB2YUV_709
+    assert tdemosaic._RGB2YUV_VS709 == jdemosaic._RGB2YUV_VS709
+    sample = _read("byr4_320x240_q4_p1.cfhd")
+    codec = IntraCodec(320, 240, 4, device=CPU, input_format="BYR4")
+    got = codec.inverse_bayer_linear(codec.host_entropy_decode([sample]))
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  jhost.decode_sample_bayer(sample)[0])

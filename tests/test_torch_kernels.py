@@ -977,3 +977,35 @@ def test_pools_on_the_card_equal_the_pools_on_the_cpu(cuda):
         return samples, decoded
 
     assert run(cuda) == run("cpu")
+
+
+@pytest.mark.gpu
+def test_bayer_rgb_outputs_on_the_card_equal_the_cpu(cuda):
+    """The Bayer outputs on the card, both decode routes, equal the same
+    decodes with `device="cpu"`: the 320x240 WBAL golden (the raw chain
+    and its develop matrix) and a seeded batch of two 256x128 mosaics."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+    from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
+
+    with open(os.path.join(REPO, "tests", "golden", "samples",
+                           "byr4_wbal_320x240_q4.cfhd"), "rb") as f:
+        golden = f.read()
+    rng = np.random.default_rng(256)
+    frames = rng.integers(0, 256, (2, 128, 512)).astype(np.uint8)
+    wbal = compose_develop_matrix(None, 1.0, 1.0, (1.7, 1.0, 0.6))
+    for w, h, samples in ((320, 240, [golden]), (256, 128, None)):
+        on = {d: IntraCodec(w, h, 4, device=d, input_format="BYR4")
+              for d in (cuda, "cpu")}
+        if samples is None:
+            samples = on["cpu"].encode_batch(frames)
+        mats = np.stack([wbal] * len(samples))
+        for output in ("RG48", "b64a", "WP13", "W13A", "BYR2", "YUY2"):
+            for develop in (None, mats if output != "BYR2" else None):
+                want = on["cpu"].decode_batch(samples, output=output,
+                                              develop=develop)
+                assert on[cuda].decode_batch(
+                    samples, output=output, develop=develop).tobytes() == \
+                    want.tobytes()
+                out, fallback = on[cuda].decode_batch_device(
+                    samples, output=output, develop=develop)
+                assert fallback == () and out.tobytes() == want.tobytes()

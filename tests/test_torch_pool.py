@@ -18,6 +18,7 @@ from cineform_tpu.ref import intra as jref
 from cineform_tpu.spec import tags as jtags
 from cineform_tpu.spec.production import IntraParams as JParams
 from cineform_tpu_torch import api, native, pool
+from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch import testframes as tframes
 from cineform_tpu_torch.models.intra import IntraCodec
 
@@ -298,6 +299,51 @@ def test_decoder_pool_batches_of_eight():
     assert fallback == () and p.fallback_frames == 0
     assert [b.data.tobytes() for b in got] == [w.tobytes() for w in want]
     assert p.batches == [1, 8, 8]
+
+
+def test_decoder_pool_refuses_the_bgra_samples_the_decoder_refuses():
+    """Two 144x48 UYVY frames (chroma lowpass width 9, odd): `api.Decoder`
+    refuses them to BGRA, and so does the pool, each job with BADFORMAT
+    from its future; the same samples to YUY2 decode, equal to the sync
+    Decoder.  In a batch that mixes such a sample with a 64-wide one, only
+    the first job fails."""
+    frames = np.random.default_rng(144).integers(0, 256, (2, 48, 288))
+    samples = IntraCodec(144, 48, 4, device=CPU,
+                         input_format="UYVY").encode_batch(
+        frames.astype(np.uint8))
+    dec = api.Decoder("cpu")
+    dec.prepare_to_decode(144, 48, api.PixelFormat.BGRA)
+    with pytest.raises(api.CFHDError) as e:
+        dec.decode_sample(samples[0])
+    assert e.value.code == api.ErrorCode.BADFORMAT
+    for output in ("BGRA", "YUY2"):
+        p = pool.DecoderPool(2, 4, device="cpu")
+        p.prepare_to_decode(144, 48, api.PixelFormat[output])
+        p.start()
+        for i, s in enumerate(samples):
+            p.decode_async_sample(i + 1, s)
+        for s in samples:
+            if output == "BGRA":
+                with pytest.raises(api.CFHDError) as e:
+                    p.wait_for_frame(timeout=120)
+                assert e.value.code == api.ErrorCode.BADFORMAT
+            else:
+                dec = api.Decoder("cpu")
+                dec.prepare_to_decode(144, 48)
+                assert p.wait_for_frame(timeout=120).data.tobytes() == \
+                    dec.decode_sample(s).tobytes()
+        p.stop()
+        assert p.fallback_frames == 0
+    jobs = [pool._Job(1, (samples[0],), None, pool.Future()),
+            pool._Job(2, (_sync("YUY2", _frames("YUY2", 1))[0],), None,
+                      pool.Future())]
+    walks = [fastwalk.walk(j.frames[0]) for j in jobs]
+    assert walks[0].lowpass_w[-1] == parse_sample(
+        samples[0]).channels[-1].lowpass_width == 9
+    assert pool.DecoderPool._refuse_bgra(jobs, walks) == (jobs[1:],
+                                                          walks[1:])
+    assert isinstance(jobs[0].future.exception(), api.CFHDError)
+    assert not jobs[1].future.done()
 
 
 # ---------------------------------------------------------------------------
