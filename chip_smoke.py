@@ -124,7 +124,24 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    frames/s over the window from the first submission to the last
    harvest and the decoder pool's peak device memory, each beside the
    card's name and power limit;
-10. fails if a module of the JAX package was imported.
+10. runs the decoder's other outputs and its reduced resolutions: with
+    the launch counts set to 0, the API phase's 8 YUY2 samples decoded on
+    the card with `decode_batch_device` to every other output of a 4:2:2
+    source (YU64, v210, NV12, the RGB family, WP13, W13A, R408, V408,
+    RG24, BGRa, yuyv, the Avid CT family) and its 8 RG48 samples to WP13,
+    W13A, BGRA, BGRa and RG24, each with its ms/frame (median of 3 after
+    a warm-up), no frame falling back, its peak device memory, frames 0
+    and 7 equal to the port's path on the CPU, and each packer's device
+    time on one frame's planes against its bound (and the RG24 dither
+    table's host build time); every output golden through `api.Decoder`
+    on the card; then, counts reset, the YUY2
+    samples at full, half, quarter and thumbnail resolution on both
+    routes (equal, frames 0 and 7 equal to the CPU path), with the parts
+    of the device route (header walk, upload, entropy decode, inverse,
+    download) and the band rows it decoded, and the half and quarter
+    goldens through `api.Decoder`; it fails unless each decoder merge
+    form ran once a band row class decoded (none at thumbnail);
+11. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -183,6 +200,35 @@ ALL_PATHS = ("yuy2", "rgb", "yuv10", "bayer")
 # the GOP phase's 320x240 quality-4 goldens: name, the yuy2_frame patterns
 # of frames 0 and 1
 GOP_GOLDENS = (("gop_320x240_q4_p1", 1, 2), ("gop2_320x240_q4_p100", 100, 100))
+# the outputs phase's API decode goldens: (sample, the API's output format,
+# extension); the two 8-bit outputs of the RGB source round to nearest
+# where the reference dithers, within +/-1 of the golden (NEAR_GOLDENS)
+OUTPUT_GOLDENS = (
+    *(("s_320x240_q4_p1", fmt, ext) for fmt, ext in (
+        ("YU64", "yu64out"), ("V210", "v210out"), ("R408", "r408out"),
+        ("V408", "v408out"), ("RG24", "rg24out"), ("WP13", "wp13out"),
+        ("W13A", "w13aout"), ("YUYV", "yuyvout"), ("CT_SHORT", "av16out"),
+        ("CT_USHORT_10_6", "a106out"), ("CT_SHORT_2_14", "a214out"),
+        ("CT_10BIT_2_8", "av28out"), ("BGRa", "bgra_sdout"))),
+    *(("s_128x96_q4_p1", fmt, ext) for fmt, ext in (
+        ("RG48", "rg48out"), ("B64A", "b64aout"), ("R210", "r210out"),
+        ("DPX0", "dpx0out"), ("RG30", "rg30out"))),
+    ("s_144x96_q4_p1", "V210", "v210out"),
+    ("s_144x96_q4_p1", "YU64", "yu64out"),
+    ("rg48_320x240_q4_p1", "WP13", "wp13out"),
+    ("rg48_320x240_q4_p1", "W13A", "w13aout"),
+    ("rg48_320x240_q4_p1", "RG24", "rg24out"),
+    ("rg48_320x240_q4_p1", "BGRa", "bgra_sdout"),
+    ("yu64_320x240_q4_p1", "RG48", "rg48out"))
+NEAR_GOLDENS = (("rg48_320x240_q4_p1", "RG24"), ("rg48_320x240_q4_p1", "BGRa"))
+# the reduced-resolution goldens: (sample, resolution, extension); the
+# port's quarter decode is the JAX package's truncated two-level inverse,
+# which differs from the reference's quarter path (ROADMAP Queue 3), so
+# the quarter goldens are held against the port's CPU path only
+SCALED_GOLDENS = tuple((name, res, ext) for name in ("s_320x240_q4_p1",
+                                                     "s_640x360_q5_p1")
+                       for res, ext in ((2, "half.yuy2"),
+                                        (3, "quarter.yuy2")))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "samples")
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
@@ -365,10 +411,12 @@ def main() -> int:
                                                   encode_batch_3d, split_3d)
     from cineform_tpu_torch.ops import demosaic as dmops
     from cineform_tpu_torch.ops import intra_transform as ops
+    from cineform_tpu_torch.ops import yuv_output
     from cineform_tpu_torch.pool import DecoderPool
     from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
                                                  curve2linear_lut,
                                                  linear2curve_lut)
+    from cineform_tpu_torch.ref.intra import rg24_dither
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
     from cineform_tpu_torch.ops.dwt_forward import (
@@ -455,14 +503,14 @@ def main() -> int:
             mode="low-bit-first with tgt merged by max (decoder "
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
-            paths=ALL_PATHS + ("bayer_rgb",)),
+            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled")),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="high-bit-first (decoder spread_rows, on mirrored rows): "
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12,
-            paths=ALL_PATHS + ("bayer_rgb",)),
+            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled")),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -1972,6 +2020,212 @@ def main() -> int:
         f"{launches_pool}; phase {time.perf_counter() - t_phase:.3f} s")
     del frames32, frames16, want32, want16, want_yuy2, want_bgra, got
 
+    # --- 10. the decoder's other outputs and reduced resolutions -----------
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    picks = [0, BATCH - 1]
+    outputs_422 = (*yuv_output.OUTPUTS_422, "BGRa", "yuyv")
+    rgb_outputs = ("WP13", "W13A", "BGRA", "BGRa", "RG24")
+    launches_outputs = dict.fromkeys(kernels, 0)
+    launches_scaled = dict.fromkeys(kernels, 0)
+
+    def decode_runs(c, samples_, output, resolution=1):
+        """decode_batch_device of `samples_`, 4 runs (a warm-up and 3
+        timed): fails on a fallback frame or a run that differs from the
+        first.  -> (frames, median ms/frame, peak device bytes of the
+        first run above what was allocated before it)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, first = [], None
+        for it in range(4):
+            (out, fallback), ms = host_ms(torch, lambda: c.decode_batch_device(
+                samples_, output=output, resolution=resolution))
+            if it == 0:
+                peak = torch.cuda.max_memory_allocated() - before
+                first = out
+            else:
+                times.append(ms / len(samples_))
+            if fallback or out.tobytes() != first.tobytes():
+                raise AssertionError(f"{output} at resolution {resolution}: "
+                                     f"fallback {fallback}, or run {it} "
+                                     "differs from the first")
+        return first, med(times), peak
+
+    def against_cpu(c_cpu, samples_, out, output, resolution=1):
+        """Frames 0 and 7 of the card's `out` against the port's path on
+        the CPU, byte for byte."""
+        want = c_cpu.decode_batch([samples_[i] for i in picks],
+                                  output=output, resolution=resolution)
+        for j, i in enumerate(picks):
+            if out[i].tobytes() != want[j].tobytes():
+                raise AssertionError(f"{output} at resolution {resolution}, "
+                                     f"frame {i}: the card's decode differs "
+                                     "from the CPU path's")
+
+    def packer_ms(name, fn, planes):
+        """A packer's device time on one frame's planes, and its bound:
+        its int32 planes read and its bytes written once; fails if it
+        makes a synchronizing call (`device_ms` could not time it)."""
+        out = fn()
+        moved = nbytes(planes) + out.numel() * out.element_size()
+        syncs = sync_calls(torch, fn)
+        if syncs:
+            raise AssertionError(f"the {name} packer made {syncs} "
+                                 "synchronizing calls")
+        return [device_ms(torch, fn), bound_ms(moved, 0)[0]]
+
+    reset_counts()
+    yuy2_cpu = IntraCodec(WIDTH, HEIGHT, 4, device=cpu)
+    rg48_cpu = IntraCodec(WIDTH, HEIGHT, 4, device=cpu, input_format="RG48")
+    rows = {}
+    for c, c_cpu, samples_, outs in (
+            (codec, yuy2_cpu, yuy2_samples, outputs_422),
+            (rg48_c, rg48_cpu, rg48_samples, rgb_outputs)):
+        for output in outs:
+            out, ms, peak = decode_runs(c, samples_, output)
+            against_cpu(c_cpu, samples_, out, output)
+            rows[(c.input_format, output)] = [ms, peak]
+    for name, fmt, ext in OUTPUT_GOLDENS:
+        sample = golden("cfhd", name)
+        dec = api.Decoder(dev)
+        dec.prepare_to_decode(0, 0, api.PixelFormat[fmt], sample=sample)
+        got = dec.decode_sample(sample).tobytes()
+        want = golden(ext, name)
+        if (name, fmt) in NEAR_GOLDENS:
+            cpu_dec = api.Decoder(cpu)
+            cpu_dec.prepare_to_decode(0, 0, api.PixelFormat[fmt],
+                                      sample=sample)
+            d = np.abs(np.frombuffer(got, np.uint8).astype(int)
+                       - np.frombuffer(want, np.uint8).astype(int))
+            ok = got == cpu_dec.decode_sample(sample).tobytes() \
+                and d.max() <= 1 and (d > 0).mean() < 0.2
+        else:
+            ok = got == want
+        if not ok or dec.fallback_frames:
+            raise AssertionError(f"api.Decoder {name} to {fmt}: differs "
+                                 f"from {ext}, or fell back")
+    book(launches_outputs)
+    # each decoder merge form once a band row class of each device decode
+    n_yuv, n_rgb = len(codec.decode_classes()), len(rg48_c.decode_classes())
+    want_each = (4 * len(outputs_422) * n_yuv + 4 * len(rgb_outputs) * n_rgb
+                 + sum(n_rgb if name.startswith("rg48") else n_yuv
+                       for name, _, _ in OUTPUT_GOLDENS))
+    if (launches_outputs["merge_network_tgt"],
+            launches_outputs["merge_network_highfirst"]) != (want_each,) * 2:
+        raise AssertionError(f"the outputs path launched {launches_outputs}:"
+                             f" expected each decoder merge form {want_each}"
+                             " times, once a band row class")
+
+    # each packer on the first frame's planes
+    co1, _ = codec.decode_coefficients(*codec._decode_rows_args(
+        yuy2_samples[:1])[:5])
+    deep = codec._row16u_planes(co1, True)
+    default = codec._row16u_planes(co1, False)
+    t0 = time.perf_counter()
+    dither = torch.from_numpy(rg24_dither(WIDTH, HEIGHT)).to(dev)
+    rg24_table_s = time.perf_counter() - t0
+    for output in yuv_output.OUTPUTS_422:
+        planes = deep if output in yuv_output.DEEP_YUV else default
+        rows[("YUY2", output)] += packer_ms(output, lambda: yuv_output.pack(
+            output, *planes, rg24_dither=dither), planes)
+    rg1, _ = rg48_c.decode_coefficients(*rg48_c._decode_rows_args(
+        rg48_samples[:1])[:5])
+    rgb1 = rg48_c.inverse_rg48(rg1).unflatten(-1, (-1, 3))
+    rgb_planes = rgb1.unbind(-1)
+    for output in rgb_outputs:
+        rows[("RG48", output)] += packer_ms(
+            output, (lambda: yuv_output.wp13_pack(rgb1 >> 3, output))
+            if output in ("WP13", "W13A") else
+            (lambda: yuv_output.rgb16_to_8bit(*rgb_planes, output)),
+            rgb_planes)
+    del co1, deep, default, dither, rg1, rgb1, rgb_planes
+    log(f"outputs at {WIDTH}x{HEIGHT} q4, batch {BATCH}: decode_batch_device"
+        " of the YUY2 and the RG48 samples to each output, 0 fallback "
+        "frames, frames 0 and 7 byte-equal to the CPU path; ms/frame "
+        "(median of 3 after a warm-up), peak device bytes above those "
+        "allocated before, and the packer's device ms on one frame's planes"
+        " (device_ms) against its bound: " + "; ".join(
+            f"{fmt} to {o} {r[0]:.4f} ms, {r[1]} B"
+            + (f", packer {r[2]:.4f} ms bound {r[3]:.4f} ms"
+               if len(r) > 2 else "") for (fmt, o), r in rows.items())
+        + f"; peak {max(r[1] for r in rows.values())} B; the RG24 dither "
+        f"table ({WIDTH * HEIGHT} glibc draws, built once a size on the "
+        f"host) {rg24_table_s:.3f} s; the "
+        f"{len(OUTPUT_GOLDENS)} output goldens through api.Decoder on the "
+        f"card; launches {launches_outputs} ({the_card})")
+
+    # the reduced resolutions, full resolution the yardstick
+    reset_counts()
+    scaled = {}
+    for res in (1, 2, 3, 4):
+        before = counts()
+        out, ms, peak = decode_runs(codec, yuy2_samples, "YUY2", res)
+        ran = {n: v - before[n] for n, v in counts().items()}
+        if codec.decode_batch(yuy2_samples,
+                              resolution=res).tobytes() != out.tobytes():
+            raise AssertionError(f"resolution {res}: the device route "
+                                 "differs from the host-entropy route")
+        against_cpu(yuy2_cpu, yuy2_samples, out, "YUY2", res)
+        kept = len(codec.decode_classes(res))
+        if (ran["merge_network_tgt"], ran["merge_network_highfirst"]) != \
+                (4 * kept, 4 * kept):
+            raise AssertionError(f"resolution {res}: launches {ran} for 4 "
+                                 f"decodes of {kept} band row classes")
+        parts = {p: [] for p in ("header walk and fill", "upload",
+                                 "entropy decode", "inverse", "download")}
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host_rows = codec._decode_rows_host(yuy2_samples,
+                                                resolution=res)
+            parts["header walk and fill"].append(
+                (time.perf_counter() - t0) * 1e3)
+            dev_rows, t = host_ms(torch, lambda: codec._upload_rows(
+                host_rows))
+            parts["upload"].append(t)
+            (co, _), t = host_ms(torch, lambda: codec.decode_coefficients(
+                *dev_rows[:5], res))
+            parts["entropy decode"].append(t)
+            yuy2, t = host_ms(torch, lambda: codec.inverse_output(
+                co, resolution=res))
+            parts["inverse"].append(t)
+            _, t = host_ms(torch, lambda: yuy2.cpu().numpy())
+            parts["download"].append(t)
+        scaled[res] = (ms, peak, sum(p.shape[0] for p in host_rows[0]),
+                       kept, {p: med(v) / BATCH for p, v in parts.items()})
+    del host_rows, dev_rows, co, yuy2
+    for name, res, ext in SCALED_GOLDENS:
+        sample = golden("cfhd", name)
+        got = []
+        for d in (dev, cpu):
+            dec = api.Decoder(d)
+            dec.prepare_to_decode(0, 0, resolution=api.DecodedResolution(res),
+                                  sample=sample)
+            got.append(dec.decode_sample(sample).tobytes())
+            if dec.fallback_frames:
+                raise AssertionError(f"api.Decoder {name} {ext}: fell back")
+        if got[0] != got[1] or (res == 2 and got[0] != golden(ext, name)):
+            raise AssertionError(f"api.Decoder {name} at resolution {res}: "
+                                 f"differs from the CPU path or from {ext}")
+    book(launches_scaled)
+    names = {1: "full", 2: "half", 3: "quarter", 4: "thumbnail"}
+    log(f"resolutions at {WIDTH}x{HEIGHT} q4, batch {BATCH}: "
+        "decode_batch_device equal to decode_batch, frames 0 and 7 to the "
+        "CPU path, 0 fallback frames; ms/frame (median of 3 after a "
+        "warm-up), peak device bytes, band rows and classes decoded, and "
+        "the device route's parts in ms a frame (medians of 3): " + "; ".join(
+            f"{names[r]} {v[0]:.4f} ms, {v[1]} B, {v[2]} rows in {v[3]} "
+            "classes (" + ", ".join(f"{p} {t:.4f}" for p, t in v[4].items())
+            + ")" for r, v in scaled.items())
+        + "; the half goldens byte-equal through api.Decoder on the card, "
+        f"the quarter goldens equal to the CPU path; launches "
+        f"{launches_scaled}; phase {time.perf_counter() - t_phase:.3f} s "
+        f"({the_card})")
+    if not all(launches_outputs[n] and launches_scaled[n]
+               for n, k in kernels.items() if "outputs" in k["paths"]):
+        raise AssertionError(f"the outputs path launched {launches_outputs},"
+                             f" the scaled path {launches_scaled}")
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -1984,7 +2238,8 @@ def main() -> int:
                "bayer": launches_bayer, "bayer_rgb": launches_bayer_rgb,
                "gop": launches_gop,
                "stereo": launches_stereo, "api": launches_api,
-               "pool": launches_pool}
+               "pool": launches_pool, "outputs": launches_outputs,
+               "scaled": launches_scaled}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

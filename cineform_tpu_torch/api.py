@@ -478,23 +478,30 @@ class Decoder:
     #: names), and the JAX API's other outputs, which it decodes on the
     #: host (`Codec/decoder.c:11584` format dispatch)
     _PORTED = {"YUV": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2",
-                       PixelFormat.BGRA: "BGRA"},
-               "RGB": {PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a"},
+                       PixelFormat.BGRA: "BGRA", PixelFormat.YU64: "YU64",
+                       PixelFormat.V210: "v210", PixelFormat.RG48: "RG48",
+                       PixelFormat.B64A: "b64a", PixelFormat.NV12: "NV12",
+                       PixelFormat.R210: "r210", PixelFormat.DPX0: "DPX0",
+                       PixelFormat.RG30: "RG30", PixelFormat.YUYV: "yuyv",
+                       PixelFormat.BGRa: "BGRa", PixelFormat.RG24: "RG24",
+                       PixelFormat.R408: "R408", PixelFormat.V408: "V408",
+                       PixelFormat.WP13: "WP13", PixelFormat.W13A: "W13A",
+                       PixelFormat.CT_SHORT: "av16",
+                       PixelFormat.CT_USHORT_10_6: "a106",
+                       PixelFormat.CT_SHORT_2_14: "a214",
+                       PixelFormat.CT_10BIT_2_8: "av28"},
+               "RGB": {PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a",
+                       PixelFormat.WP13: "WP13", PixelFormat.W13A: "W13A",
+                       PixelFormat.BGRA: "BGRA", PixelFormat.BGRa: "BGRa",
+                       PixelFormat.RG24: "RG24"},
                "BAYER": {PixelFormat.BYR4: "BYR4", PixelFormat.BYR2: "BYR2",
                          PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a",
                          PixelFormat.WP13: "WP13", PixelFormat.W13A: "W13A",
                          PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"},
                "GOP": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"}}
     _HOST_ONLY = {
-        "YUV": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
-                PixelFormat.B64A, PixelFormat.NV12, PixelFormat.R210,
-                PixelFormat.DPX0, PixelFormat.RG30, PixelFormat.YUYV,
-                PixelFormat.BGRa, PixelFormat.RG24, PixelFormat.R408,
-                PixelFormat.V408, PixelFormat.WP13, PixelFormat.W13A,
-                PixelFormat.CT_SHORT, PixelFormat.CT_USHORT_10_6,
-                PixelFormat.CT_SHORT_2_14, PixelFormat.CT_10BIT_2_8),
-        "RGB": (PixelFormat.WP13, PixelFormat.W13A, PixelFormat.BGRA,
-                PixelFormat.BGRa, PixelFormat.RG24),
+        "YUV": (),
+        "RGB": (),
         "BAYER": (),
         "GOP": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
                 PixelFormat.BGRA, PixelFormat.B64A, PixelFormat.R210,
@@ -502,13 +509,31 @@ class Decoder:
     #: output row pitch in bytes as a function of width
     _ROW_BYTES = {PixelFormat.YUY2: lambda w: 2 * w,
                   PixelFormat.UYVY: lambda w: 2 * w,
+                  PixelFormat.YU64: lambda w: 4 * w,
+                  PixelFormat.V210: lambda w: ((w + 47) // 48) * 128,
                   PixelFormat.RG48: lambda w: 6 * w,
                   PixelFormat.BGRA: lambda w: 4 * w,
                   PixelFormat.B64A: lambda w: 8 * w,
+                  PixelFormat.NV12: lambda w: 3 * w // 2,
+                  PixelFormat.R210: lambda w: 4 * w,
+                  PixelFormat.DPX0: lambda w: 4 * w,
+                  PixelFormat.RG30: lambda w: 4 * w,
                   PixelFormat.BYR4: lambda w: 2 * w,
                   PixelFormat.BYR2: lambda w: 2 * w,
+                  PixelFormat.YUYV: lambda w: 2 * w,
+                  PixelFormat.BGRa: lambda w: 4 * w,
+                  PixelFormat.RG24: lambda w: 3 * w,
+                  PixelFormat.R408: lambda w: 4 * w,
+                  PixelFormat.V408: lambda w: 4 * w,
                   PixelFormat.WP13: lambda w: 6 * w,
-                  PixelFormat.W13A: lambda w: 8 * w}
+                  PixelFormat.W13A: lambda w: 8 * w,
+                  PixelFormat.CT_SHORT: lambda w: 4 * w,
+                  PixelFormat.CT_USHORT_10_6: lambda w: 4 * w,
+                  PixelFormat.CT_SHORT_2_14: lambda w: 4 * w,
+                  PixelFormat.CT_10BIT_2_8: lambda w: 5 * w // 2}
+    #: the outputs of a reduced-resolution decode, which is YUY2 (the
+    #: JAX API hands its YUY2 bytes to UYVY too: ROADMAP Queue 3)
+    _SCALED = (PixelFormat.YUY2, PixelFormat.YUYV, PixelFormat.UYVY)
     #: the outputs the reference warps when a sample's lens metadata asks
     #: (`Codec/decoder.c:9230-9242`)
     _WARPED = (PixelFormat.YUY2, PixelFormat.BGRA, PixelFormat.W13A,
@@ -674,24 +699,44 @@ class Decoder:
         return self._yuy2_or_uyvy(out)
 
     def _decode_intra(self, sample: bytes, info0, kind: str, fmt: str,
-                      scale: int = 1, develop=None) -> np.ndarray:
+                      scale: int = 1, develop=None,
+                      output: str | None = None) -> np.ndarray:
         """An intra sample of a `kind` source through the device decoder of
         an `fmt` codec (`scale` 2: a Bayer sample's mosaic, `develop` its
-        develop matrix or None)."""
+        develop matrix or None) to the prepared output, at the prepared
+        resolution; `output` names it where the caller has checked it."""
         codec = intra_codec(info0.width * scale, info0.height * scale,
                             DECODE_QUALITY, fmt, self.device)
         out, fallback = codec.decode_batch_device(
-            [sample], output=self._output(kind),
-            develop=None if develop is None else develop[None])
+            [sample], output=output or self._output(kind),
+            develop=None if develop is None else develop[None],
+            resolution=int(self.resolution))
         self.fallback_frames += len(fallback)
         return out[0]
 
     def _decode_yuv_source(self, sample: bytes, info0) -> np.ndarray:
         """YUV 4:2:2 intra sample at its coded size."""
-        if self._output("YUV") == "BGRA":
+        if self._output("YUV") in ("BGRA", "BGRa"):
             check_bgra_source(info0.width, info0.channels[-1].lowpass_width)
         return self._yuy2_or_uyvy(self._decode_intra(sample, info0, "YUV",
                                                      "YUY2"))
+
+    def _decode_scaled(self, sample: bytes, info0) -> np.ndarray:
+        """A 4:2:2 intra sample at half, quarter or thumbnail resolution:
+        YUY2 (UYVY its pair swap) from the bands of the levels it reads
+        (`intra_host.decode_sample_scaled`).  The JAX API's scaled decode
+        packs YUY2 for every source, so an RGB or Bayer sample, or another
+        output, fails its size check there: the same BADSAMPLE here."""
+        if info0.encoded_format in (2, 3, 4):
+            raise CFHDError(ErrorCode.BADSAMPLE,
+                            "a reduced-resolution decode takes a 4:2:2 "
+                            "sample")
+        if self.output_format not in self._SCALED:
+            raise CFHDError(ErrorCode.BADSAMPLE,
+                            f"a reduced-resolution decode outputs YUY2, "
+                            f"not {self.output_format!r}")
+        return self._yuy2_or_uyvy(self._decode_intra(
+            sample, info0, "YUV", "YUY2", output="YUY2"))
 
     def _decode_bayer_source(self, sample: bytes, info0) -> np.ndarray:
         """Bayer (RAW) intra sample at its mosaic's size: BYR4 and BYR2
@@ -740,7 +785,7 @@ class Decoder:
             if info0.sample_type == tags.SAMPLE_TYPE_GROUP:
                 out = self._decode_group(sample, info0)
             elif self.resolution != DecodedResolution.FULL:
-                raise _not_ported("reduced-resolution decodes")
+                out = self._decode_scaled(sample, info0)
             elif info0.encoded_format in (3, 4):
                 out = self._decode_intra(
                     sample, info0, "RGB",

@@ -256,7 +256,7 @@ class GopCodec:
         w = c.lowpass.shape[1]
         off = (intra_host.lowpass_channel_offset(w, num_frames=2)
                if progressive else
-               intra_host.lowpass_offset_absolute(w, num_frames=2))
+               intra_host.lowpass_offset_absolute(w, False, num_frames=2))
         return c.lowpass.astype(np.int32) + off
 
     @staticmethod

@@ -21,9 +21,14 @@ and host is the JAX package's:
   (`bitstream.fastwalk`); on the device the band entropy decoder
   (`entropy.device_decode.decode_band_rows`, kernels
   `ops.merge_network.merge_network_tgt` and `merge_network_highfirst`),
-  then the inverse DWT and the output: YUY2 with the reference's glibc
-  output dither or BGRA for 4:2:2 sources, the 16-bit RG48 and b64a rows
-  of the RGB formats; for Bayer sources the 16-bit BYR4 and BYR2
+  then the inverse DWT and the output: for 4:2:2 sources YUY2 with the
+  reference's glibc output dither, BGRA, and every deep and 8-bit output
+  of the JAX package's host decoder (YU64, v210, NV12, the RGB family,
+  WP13, R408, RG24, the Avid CT family: `ops.yuv_output` on the Row16u
+  planes), or at half, quarter or thumbnail resolution YUY2 from the
+  bands of the levels it reads (the others are not entropy-decoded);
+  the 16-bit RG48 and b64a rows of the RGB formats, and their WP13, W13A,
+  BGRA, BGRa and RG24; for Bayer sources the 16-bit BYR4 and BYR2
   mosaics, and the demosaiced RG48, b64a, WP13, W13A and YUY2 outputs
   (`ops.demosaic`, optionally through a per-frame develop matrix).  A
   frame the device route does not take (wrong dimensions, a band with
@@ -54,6 +59,7 @@ from cineform_tpu_torch.models import intra_host
 from cineform_tpu_torch.ops import bgra
 from cineform_tpu_torch.ops import demosaic as dmops
 from cineform_tpu_torch.ops import intra_transform as ops
+from cineform_tpu_torch.ops import yuv_output as yout
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_planes,
                                                 dwt_forward_yuy2)
@@ -61,7 +67,7 @@ from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
                                              curve2linear_lut,
                                              linear2curve_lut, log2lin_lut,
                                              log90_inverse_lut)
-from cineform_tpu_torch.ref.intra import byr4_log90_curve
+from cineform_tpu_torch.ref.intra import byr4_log90_curve, rg24_dither
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
@@ -92,11 +98,22 @@ _DEVICE_FORMATS = {
              "encoded": "BAYER"},
 }
 
-#: the decode outputs of each encoded format, the default first
-_DECODE_OUTPUTS = {"YUV": ("YUY2", "BGRA"), "RGB": ("RG48", "b64a"),
-                   "RGBA": ("b64a", "RG48"), "RGBA_FULL": ("b64a", "RG48"),
+#: the 8-bit and 13-bit outputs of the RGB formats (`decode_sample_rgb`)
+_RGB_OUTPUTS = ("WP13", "W13A", "BGRA", "BGRa", "RG24")
+#: the decode outputs of each encoded format, the default first, by the
+#: JAX package's fourcc names (`intra_host.decode_sample_to`); a 4:2:2
+#: source's every output but avu8, which the reference rejects at decode
+_DECODE_OUTPUTS = {"YUV": ("YUY2", "BGRA", "BGRa", "yuyv",
+                           *yout.OUTPUTS_422),
+                   "RGB": ("RG48", "b64a", *_RGB_OUTPUTS),
+                   "RGBA": ("b64a", "RG48", *_RGB_OUTPUTS),
+                   "RGBA_FULL": ("b64a", "RG48", *_RGB_OUTPUTS),
                    "BAYER": ("BYR4", "RG48", "b64a", "WP13", "W13A", "BYR2",
                              "YUY2")}
+#: the reduced resolutions of a 4:2:2 decode (CFHD_DECODED_RESOLUTION_*):
+#: the inverse levels each runs; the band row classes k >= resolution - 1
+#: are the ones it reads
+_SCALED_LEVELS = {2: 2, 3: 1, 4: 0}
 
 
 @lru_cache(maxsize=None)
@@ -114,11 +131,12 @@ def _yuyv_parity(height: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(bayer_yuyv_parity(height)).to(device)
 
 
-def _u16(x: torch.Tensor) -> torch.Tensor:
-    """int32 values in [0, 65535] -> int16 of the same bit patterns (the
-    CPU build of torch lacks most uint16 ops; `_download` views them as
-    uint16)."""
-    return torch.where(x >= 32768, x - 65536, x).to(torch.int16)
+@lru_cache(maxsize=None)
+def _rg24_dither(width: int, height: int,
+                 device: torch.device) -> torch.Tensor:
+    """`rg24_dither(width, height)`, the RG24 output's per-pixel draws, on
+    `device`: built once a size (2,073,600 glibc draws at 1080p)."""
+    return torch.from_numpy(rg24_dither(width, height)).to(device)
 
 
 def _download(t: torch.Tensor) -> np.ndarray:
@@ -484,27 +502,48 @@ class IntraCodec:
             for ch, (lowpass, bands) in enumerate(coeffs)]
         return ops.pack_yuy2(*planes)
 
-    def inverse_bgra(self, coeffs) -> torch.Tensor:
+    def inverse_bgra(self, coeffs, output: str = "BGRA") -> torch.Tensor:
         """4:2:2 coefficients -> (B, H, W, 4) uint8 BGRA rows, bottom row
-        first: the fused final-level inverse and YUV->RGB conversion
-        (`ops.bgra`), fed the strips with the default +24 lowpass channel
-        offset (+5 at odd lowpass widths, `Codec/decoder.c:12258`)."""
+        first, or BGRa rows, top row first: the fused final-level inverse
+        and YUV->RGB conversion (`ops.bgra`), fed the strips with the
+        default +24 lowpass channel offset (+5 at odd lowpass widths,
+        `Codec/decoder.c:12258`).  BGRA adds it on top of the 8-bit bias
+        the lowpass carries, as the JAX package's device decode does
+        (ROADMAP Queue 3); BGRa, the JAX host decoder's output, in place
+        of it."""
         p = self.params
-        (yl, yh), (c1l, c1h), (c2l, c2h) = [ops.inverse_channel_strips(
-            lowpass + intra_host.lowpass_offset_absolute(lowpass.shape[-1]),
-            bands, p.prescale)
-            for lowpass, bands in coeffs]
-        return bgra.strip_to_bgra(yl, yh, c2l, c2h, c1l, c1h,
-                                  p.precision).flip(-3)
 
-    def _row16u_planes(self, coeffs):
-        """Per-channel Row16u reconstruction (the deep paths take no
-        lowpass offset, `decoder.c:12296-12319`): (B, H, W) int32 planes
-        of uint16 values."""
+        def offset(w):
+            off = intra_host.lowpass_offset_absolute(w, False)
+            if output == "BGRa":
+                off -= intra_host.lowpass_channel_offset(w)
+            return off
+
+        (yl, yh), (c1l, c1h), (c2l, c2h) = [ops.inverse_channel_strips(
+            lowpass + offset(lowpass.shape[-1]), bands, p.prescale)
+            for lowpass, bands in coeffs]
+        out = bgra.strip_to_bgra(yl, yh, c2l, c2h, c1l, c1h, p.precision)
+        return out.flip(-3) if output == "BGRA" else out
+
+    def _row16u_planes(self, coeffs, deep_yuv: bool | None = None):
+        """Per-channel Row16u reconstruction: (B, H, W) int32 planes of
+        uint16 values.  The deep RGB and Bayer paths take no lowpass
+        offset (`decoder.c:12296-12319`); a 4:2:2 source's outputs
+        (`deep_yuv` True for YU64, v210 and NV12, False for the others)
+        take the absolute offset of `_decode_row16u_planes` in place of the
+        8-bit bias its lowpass carries: +4 or +24, +5 at odd widths."""
         p = self.params
-        return [ops.h26_inverse_to_row16u(
-            *ops.inverse_channel_strips(lowpass, bands, p.prescale),
-            p.precision) for lowpass, bands in coeffs]
+        planes = []
+        for lowpass, bands in coeffs:
+            if deep_yuv is not None:
+                w = lowpass.shape[-1]
+                lowpass = lowpass + (
+                    intra_host.lowpass_offset_absolute(w, deep_yuv)
+                    - intra_host.lowpass_channel_offset(w))
+            planes.append(ops.h26_inverse_to_row16u(
+                *ops.inverse_channel_strips(lowpass, bands, p.prescale),
+                p.precision))
+        return planes
 
     def inverse_rg48(self, coeffs) -> torch.Tensor:
         """RGB or RGBA coefficients (channels G, R, B[, A]) -> (B, H, 3W)
@@ -627,12 +666,22 @@ class IntraCodec:
         inv = _table(log90_inverse_lut, g.device)
         return torch.stack([inv[x.long()] for x in (r, g, b)], dim=-1)
 
-    def decode_output(self, output: str | None) -> str:
+    def decode_output(self, output: str | None, resolution: int = 1) -> str:
         """The decode output `output` names, checked, or the format's
         default: YUY2 for 4:2:2 sources, RG48 for RGB, b64a for RGBA, BYR4
-        for Bayer (which also decode to RG48, b64a, WP13, W13A, BYR2 and
-        YUY2)."""
+        for Bayer (`_DECODE_OUTPUTS` lists each format's outputs).  A
+        reduced `resolution` (2 half, 3 quarter, 4 thumbnail) is a 4:2:2
+        source's, and outputs YUY2."""
         outputs = _DECODE_OUTPUTS[self.encoded]
+        if resolution != 1:
+            if resolution not in _SCALED_LEVELS or self.encoded != "YUV":
+                raise ValueError(
+                    f"resolution {resolution}: a 4:2:2 source decodes at 1 "
+                    f"(full), 2, 3 or 4, a {self.input_format} source at 1")
+            if output not in (None, "YUY2"):
+                raise ValueError(f"decode output {output!r}: a "
+                                 "reduced-resolution decode outputs YUY2")
+            return "YUY2"
         if output is None:
             return outputs[0]
         if output not in outputs:
@@ -642,36 +691,59 @@ class IntraCodec:
 
     def inverse_output(self, coeffs, frame_index: int = 0,
                        output: str | None = None,
-                       develop=None) -> torch.Tensor:
-        """Per-channel (lowpass, bands) -> the decoded batch on the device:
-        (B, H, 2W) uint8 YUY2 with the output dither of `frame_index`,
-        (B, H, W, 4) uint8 BGRA, or the 16-bit RG48 (B, H, 3W), b64a (B, H,
-        4W) and BYR4 (B, H, W) rows as int16 bit patterns; Bayer sources'
-        outputs as `inverse_byr` and `inverse_bayer_rgb` give them, the
-        latter through the per-frame `develop` matrices where given."""
-        output = self.decode_output(output)
+                       develop=None, resolution: int = 1) -> torch.Tensor:
+        """Per-channel (lowpass, bands) -> the decoded batch on the device,
+        the `output` of `decode_output`'s list: (B, H, 2W) uint8 YUY2 with
+        the output dither of `frame_index`, (B, H, W, 4) uint8 BGRA, the
+        other 8-bit outputs as (B, H, row_bytes) uint8, the 16-bit ones
+        (RG48, b64a, BYR4, YU64, WP13, ...) as int16 bit patterns; Bayer
+        sources' outputs as `inverse_byr` and `inverse_bayer_rgb` give
+        them, the latter through the per-frame `develop` matrices where
+        given.  At a reduced `resolution` the bands of the levels it skips
+        may be None: (B, H >> (r - 1), 2W >> (r - 1)) uint8 YUY2."""
+        output = self.decode_output(output, resolution)
         if develop is not None and (self.encoded != "BAYER"
                                     or output in ("BYR4", "BYR2")):
             raise ValueError(f"a develop matrix applies to a Bayer source's "
                              f"RGB and YUY2 outputs, not {output} of "
                              f"{self.input_format}")
         if output in ("BYR4", "BYR2"):
-            return _u16(self.inverse_byr(coeffs, output))
+            return yout.u16(self.inverse_byr(coeffs, output))
         if self.encoded == "BAYER":
             out = self.inverse_bayer_rgb(coeffs, output, develop)
-            return out if output == "YUY2" else _u16(out)
-        if output == "YUY2":
+            return out if output == "YUY2" else yout.u16(out)
+        if resolution != 1:
+            levels = _SCALED_LEVELS[resolution]
+            return ops.pack_yuy2(*(ops.inverse_channel_scaled(
+                lowpass, bands, self.params.prescale, levels)
+                for lowpass, bands in coeffs))
+        if self.encoded != "YUV":
+            if output == "b64a":
+                return yout.u16(self.inverse_b64a(coeffs))
+            rgb = self.inverse_rg48(coeffs)
+            if output == "RG48":
+                return yout.u16(rgb)
+            rgb = rgb.unflatten(-1, (-1, 3))
+            if output in ("WP13", "W13A"):
+                return yout.wp13_pack(rgb >> 3, output)
+            return yout.rgb16_to_8bit(*rgb.unbind(-1), output)
+        if output in ("YUY2", "yuyv"):
             return self.inverse(coeffs, frame_index)
-        if output == "BGRA":
-            return self.inverse_bgra(coeffs)
-        if output == "RG48":
-            return _u16(self.inverse_rg48(coeffs))
-        return _u16(self.inverse_b64a(coeffs))
+        if output in ("BGRA", "BGRa"):
+            return self.inverse_bgra(coeffs, output)
+        planes = self._row16u_planes(coeffs, output in yout.DEEP_YUV)
+        dither = (_rg24_dither(self.width, self.height, planes[0].device)
+                  if output == "RG24" else None)
+        return yout.pack(output, *planes, rg24_dither=dither)
 
-    def host_entropy_decode(self, samples: list[bytes]):
+    def host_entropy_decode(self, samples: list[bytes],
+                            resolution: int = 1):
         """Parse the samples and entropy-decode every band on the host (C++
         decoder); returns the batched per-channel (lowpass, bands) int32
-        tensors on the device."""
+        tensors on the device.  A reduced `resolution` decodes only the
+        bands of the levels k >= resolution - 1, as the JAX package's
+        `decode_sample_scaled` does, and gives None for the others."""
+        kmin = resolution - 1
         per_frame = []
         for sample in samples:
             s = parse_sample(sample)
@@ -680,6 +752,8 @@ class IntraCodec:
                 bands: list[dict] = [dict() for _ in range(3)]
                 for b in c.bands:
                     widx = 2 - (b.subband - 1) // 3
+                    if widx < kmin:
+                        continue
                     pitchw = intra_host.align16_pixels(b.width)
                     vals, _ = entropy_native.decode_band(
                         b.data, pitchw * b.height, codeset=17,
@@ -696,7 +770,7 @@ class IntraCodec:
                         c.lowpass.shape[1])
                 chans.append((lowpass,
                               [(bands[k][1], bands[k][2], bands[k][3])
-                               for k in range(3)]))
+                               if k >= kmin else None for k in range(3)]))
             per_frame.append(chans)
 
         def batched(arrays):
@@ -704,27 +778,29 @@ class IntraCodec:
                 np.stack(arrays).astype(np.int32)).to(self.device)
 
         return [(batched([f[ch][0] for f in per_frame]),
-                 [tuple(batched([f[ch][1][k][b] for f in per_frame])
+                 [None if k < kmin else
+                  tuple(batched([f[ch][1][k][b] for f in per_frame])
                         for b in range(3)) for k in range(3)])
                 for ch in range(self.num_channels)]
 
     def decode_batch(self, samples: list[bytes], frame_index: int = 0,
                      output: str | None = None,
-                     develop=None) -> np.ndarray:
+                     develop=None, resolution: int = 1) -> np.ndarray:
         """Decode CFHD samples with the host C++ entropy decoder, then the
-        inverse and the output on the device: (B, H, 2W) uint8 YUY2 or (B,
-        H, W, 4) uint8 BGRA, or (B, H, 3W) RG48, (B, H, 4W) b64a or (B, H,
-        W) BYR4 uint16 rows (`output`, by default the source format's);
-        a Bayer source's WP13, W13A and BYR2 rows too, and its RG48, b64a,
-        WP13, W13A and YUY2 through the develop matrices `develop` ((B, 3,
-        4), or None for the raw chain).
+        inverse and the output on the device: the `output` of
+        `decode_output`'s list (by default the source format's) as
+        `inverse_output` gives it, downloaded (the 16-bit outputs as
+        uint16 rows); a Bayer source's RG48, b64a, WP13, W13A and YUY2
+        through the develop matrices `develop` ((B, 3, 4), or None for the
+        raw chain).  A 4:2:2 source also decodes at `resolution` 2 (half),
+        3 (quarter) or 4 (thumbnail) to YUY2.
 
         frame_index positions the YUY2 output dither within the decoder
         process's rand stream (a sequential decoder passes 0, 1, 2, ...)."""
-        output = self.decode_output(output)
-        coeffs = self.host_entropy_decode(samples)
+        output = self.decode_output(output, resolution)
+        coeffs = self.host_entropy_decode(samples, resolution)
         return _download(self.inverse_output(coeffs, frame_index, output,
-                                             develop))
+                                             develop, resolution))
 
     # --- decode on the device: entropy + inverse transform -----------------
 
@@ -735,6 +811,14 @@ class IntraCodec:
         so they decode as separate classes; the other formats' channels
         share one class a level."""
         return tuple((k, planes) for k in range(3) for planes in self.groups)
+
+    def decode_classes(self, resolution: int = 1):
+        """The band row classes a decode at `resolution` reads, as (index
+        into `_DECODE_CLASSES`, k, planes): k >= resolution - 1 (k = 0 is
+        the finest level); none at thumbnail."""
+        return [(ci, k, planes)
+                for ci, (k, planes) in enumerate(self._DECODE_CLASSES)
+                if k >= resolution - 1]
 
     #: floor of a class's row capacity in 32-bit chunks; capacities double
     #: from here to fit the class's longest band payload
@@ -762,39 +846,47 @@ class IntraCodec:
         batch = pay.shape[0] // (len(planes) * 3)
         return self._class_reshape(co, ovf, ci, batch)
 
-    def decode_coefficients(self, pays, nchs, qns, lins, lowpass):
-        """Per-class band payload rows on the device -> (per-channel
-        (lowpass, bands) as `inverse` takes them, (B,) overflow flags)."""
+    def decode_coefficients(self, pays, nchs, qns, lins, lowpass,
+                            resolution: int = 1):
+        """Per-class band payload rows on the device, one entry a class of
+        `decode_classes(resolution)` -> (per-channel (lowpass, bands) as
+        `inverse_output` takes them, the bands of the classes not read
+        None, (B,) overflow flags)."""
         coeffs_by = {}
-        ovfs = []
-        for ci, (k, planes) in enumerate(self._DECODE_CLASSES):
-            co, ovf = self._decode_class_program(pays[ci], nchs[ci], qns[ci],
-                                                 lins[ci], ci)
+        ovf = torch.zeros(lowpass[0].shape[0], dtype=torch.bool,
+                          device=lowpass[0].device)
+        for (ci, k, planes), pay, nch, qn, lin in zip(
+                self.decode_classes(resolution), pays, nchs, qns, lins):
+            co, class_ovf = self._decode_class_program(pay, nch, qn, lin, ci)
             for pi, ch in enumerate(planes):
                 coeffs_by[(ch, k)] = tuple(co[:, pi, b] for b in range(3))
-            ovfs.append(ovf)
-        coeffs = [(lowpass[ch], [coeffs_by[(ch, k)] for k in range(3)])
+            ovf = ovf | class_ovf
+        coeffs = [(lowpass[ch], [coeffs_by.get((ch, k)) for k in range(3)])
                   for ch in range(self.num_channels)]
-        return coeffs, torch.stack(ovfs).any(dim=0)
+        return coeffs, ovf
 
-    def _decode_rows_host(self, samples: list[bytes], walks=None):
+    def _decode_rows_host(self, samples: list[bytes], walks=None,
+                          resolution: int = 1):
         """Host header walk: samples -> per-class row tensors on the host
         (pinned when the codec's device is CUDA).  `walks`: the samples'
-        `fastwalk.walk` results where the caller has them already.
+        `fastwalk.walk` results where the caller has them already.  The
+        bands of the classes a `resolution` does not read are neither
+        checked nor copied.
 
-        Returns (pays, nchs, qns, lins, lowpass, fallback): 6-tuples of
-        (R, S*4) uint8 / (R,) int32 tensors, one per _DECODE_CLASSES class
-        (rows ordered frame, channel, band), the lowpass planes (B, lh, lw)
-        int32 with the decoder's lowpass bias, and the set of frame
-        indices the device route does not take (wrong dimensions, a band
-        outside subbands 1-9, with peaks or with an unaligned payload);
-        those frames get empty rows.  The native walker finds the bands in
-        one C pass per sample and copies their payloads straight into the
-        row buffers."""
+        Returns (pays, nchs, qns, lins, lowpass, fallback): tuples of
+        (R, S*4) uint8 / (R,) int32 tensors, one per class of
+        `decode_classes(resolution)` (rows ordered frame, channel, band),
+        the lowpass planes (B, lh, lw) int32 with the decoder's lowpass
+        bias, and the set of frame indices the device route does not take
+        (wrong dimensions, a band outside subbands 1-9, with peaks or with
+        an unaligned payload); those frames get empty rows.  The native
+        walker finds the bands in one C pass per sample and copies their
+        payloads straight into the row buffers."""
         batch = len(samples)
         pin = self.device.type == "cuda"
         nch = self.num_channels
         p = self.params
+        kmin = resolution - 1
         lh = p.height >> 3
         lws = tuple(self.plane_width(ch) >> 3 for ch in range(nch))
         #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
@@ -810,19 +902,21 @@ class IntraCodec:
                 continue
             for (ch, bandno, subband), (off, ln, q, lin, fl) in \
                     r.bands.items():
+                k = 2 - (subband - 1) // 3
+                if 1 <= subband <= 9 and k < kmin:
+                    continue
                 if not 1 <= subband <= 9 or fl & 1 or ln % 4:
                     fallback.add(i)
                     break
-                parts[(ch, 2 - (subband - 1) // 3, bandno, i)] = \
-                    (off, ln, q, lin)
+                parts[(ch, k, bandno, i)] = (off, ln, q, lin)
             if i not in fallback and any(
                     (ch, k, band, i) not in parts for ch in range(nch)
-                    for k in range(3) for band in (1, 2, 3)):
+                    for k in range(kmin, 3) for band in (1, 2, 3)):
                 fallback.add(i)
         live = [i for i in range(batch) if i not in fallback]
 
         pays, nchs, qns, lins = [], [], [], []
-        for k, planes in self._DECODE_CLASSES:
+        for _, k, planes in self.decode_classes(resolution):
             rows = [(0, 0, 1, 0) if i in fallback else parts[(ch, k, band, i)]
                     for i in range(batch) for ch in planes
                     for band in (1, 2, 3)]
@@ -871,11 +965,13 @@ class IntraCodec:
         return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
                   for g in groups), fallback)
 
-    def _decode_rows_args(self, samples: list[bytes]):
+    def _decode_rows_args(self, samples: list[bytes], resolution: int = 1):
         """`_decode_rows_host` with its tensors uploaded to the device."""
-        return self._upload_rows(self._decode_rows_host(samples))
+        return self._upload_rows(self._decode_rows_host(
+            samples, resolution=resolution))
 
-    def decode_checked(self, samples: list[bytes], finish, rows=None):
+    def decode_checked(self, samples: list[bytes], finish, rows=None,
+                       resolution: int = 1):
         """The device route's one per-frame fallback: entropy-decode the
         samples on the device and run `finish(coeffs, frames)` (a batched
         device computation of `frames`' coefficients, `frames` a slice or
@@ -886,41 +982,46 @@ class IntraCodec:
         (`host_entropy_decode`) instead.  `finish` is queued before the
         overflow flags are read, so the device runs on while the host
         waits.  `rows`: the samples' `_decode_rows_args`, where the caller
-        has uploaded them already.
+        has uploaded them already.  Both entropy decodes read only the
+        bands of `decode_classes(resolution)`.
 
         Returns (the downloaded result, fallback): fallback is the sorted
         tuple of the frame indices that took the host entropy decode."""
         batch = len(samples)
-        *rows, fallback = rows or self._decode_rows_args(samples)
+        *rows, fallback = rows or self._decode_rows_args(samples, resolution)
         fallback = set(fallback)
         if len(fallback) == batch:
-            return (_download(finish(self.host_entropy_decode(samples),
-                                     slice(None))), tuple(range(batch)))
-        coeffs, ovf = self.decode_coefficients(*rows)
+            return (_download(finish(self.host_entropy_decode(
+                samples, resolution), slice(None))), tuple(range(batch)))
+        coeffs, ovf = self.decode_coefficients(*rows, resolution)
         out = _download(finish(coeffs, slice(None)))
         fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
         fallback = tuple(sorted(fallback))
         if fallback:
-            host = self.host_entropy_decode([samples[i] for i in fallback])
+            host = self.host_entropy_decode([samples[i] for i in fallback],
+                                            resolution)
             out[list(fallback)] = _download(finish(host, list(fallback)))
         return out, fallback
 
     def decode_batch_device(self, samples: list[bytes], frame_index: int = 0,
-                            output: str | None = None, develop=None):
+                            output: str | None = None, develop=None,
+                            resolution: int = 1):
         """Decode CFHD samples with the band entropy decode, the inverse
         DWT and the output on the device; the host only walks sample
-        headers and copies payloads.  The output (and `develop`) is
-        `decode_batch`'s.
+        headers and copies payloads.  The output, `develop` and
+        `resolution` are `decode_batch`'s; a reduced resolution
+        entropy-decodes only the bands it reads.
 
         Returns (frames, fallback): fallback is the sorted tuple of the
         frame indices that `decode_checked` decoded on the host entropy
         route instead (streams the device route does not take, or that
         overflow their device band region), byte-identical by the codec's
         own semantics."""
-        output = self.decode_output(output)
+        output = self.decode_output(output, resolution)
         if develop is not None:
             develop = np.asarray(develop, np.float64).reshape(len(samples),
                                                               3, 4)
         return self.decode_checked(samples, lambda coeffs, frames: (
             self.inverse_output(coeffs, frame_index, output,
-                                None if develop is None else develop[frames])))
+                                None if develop is None else develop[frames],
+                                resolution)), resolution=resolution)

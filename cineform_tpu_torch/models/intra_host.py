@@ -4,9 +4,9 @@ A copy of the parts of the JAX package's `models/intra_host.py` that the
 intra codec uses: the band pitch, the encode-time metadata block, the
 sample writer for a 4:2:2, RGB 4:4:4, RGBA 4:4:4:4 or Bayer intra frame,
 the host band encoder (the C++ coder, for bands that overflow the device's
-capacity, and the two-frame group's coder) and the decoder's lowpass
-offsets.  Its samples equal the reference
-SDK's byte for byte (tests/golden/samples).
+capacity, and the two-frame group's coder), the decoder's lowpass
+offsets and the R408 output's dither lanes.  Its samples equal the
+reference SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
 intra branch) + `Codec/codec.c:1369-1584` (PutVideoIntraFrameHeader et al.).
@@ -266,28 +266,50 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     return w.getvalue()
 
 
-def lowpass_channel_offset(lowpass_width: int, num_frames: int = 1) -> int:
-    """The reference decoder's per-channel lowpass load bias for an 8-bit
-    output (`DecodeLowPassBand`, `Codec/decoder.c:12258-12505`, precision
-    10), relative to the pinned 8-bit decode models; `num_frames` 1 is an
-    intra frame, 2 a two-frame group.
+def lowpass_channel_offset(lowpass_width: int, deep: bool = False,
+                           num_frames: int = 1) -> int:
+    """The reference decoder's per-channel lowpass load bias
+    (`DecodeLowPassBand`, `Codec/decoder.c:12258-12505`, precision 10),
+    expressed RELATIVE to this codebase's pinned decode models.
 
-    The reference adds `channeloffset` to every deepest-lowpass coefficient
-    as it parses the band.  At even lowpass widths the 8-bit models absorb
-    its +24 (a group's +48) in their output-stage constants, so the bias is
-    0; at odd widths (chroma at w % 32 == 16 frame widths, e.g. 144) the
-    generic path adds +5 (+10), which does not propagate exactly: the bias
-    is 5 - 24 (10 - 48)."""
-    if lowpass_width % 2 == 0:
-        return 0
-    return 10 - 48 if num_frames == 2 else 5 - 24
+    The reference adds `channeloffset` to every deepest-lowpass
+    coefficient as it parses the band.  For EVEN lowpass widths (the
+    16-bit fast path) the offset is format-dependent: +24 intra / +48
+    two-frame GOP for 8-bit outputs, +4 / +14 for the deep YU64/YR16/v210
+    outputs.  For ODD lowpass widths (chroma at w%32==16 frame widths,
+    e.g. 144) the generic path applies +5 intra / +10 GOP for EVERY
+    output format.  Even offsets propagate exactly through the inverse
+    pyramid's shift arithmetic, so our byte-exact 8-bit models absorb the
+    +24/+48 in their empirically pinned output-stage constants; odd
+    offsets do not, which was the long-unexplained narrow-width chroma
+    +-1.  Hence: 8-bit paths get 0 (even) or 5-24 / 10-48 (odd); deep
+    paths get the reference values verbatim."""
+    if lowpass_width % 2:
+        base = 10 if num_frames == 2 else 5
+        if deep:
+            return base
+        return base - (48 if num_frames == 2 else 24)
+    if deep:
+        return 14 if num_frames == 2 else 4
+    return 0
 
 
-def lowpass_offset_absolute(lowpass_width: int, num_frames: int = 1) -> int:
-    """The absolute channeloffset (`decoder.c:12258-12505`, precision 10)
-    of an 8-bit reconstruction built from scratch, as the BGRA output and
-    the interlaced group output are: +24 (a two-frame group's +48), or +5
-    (+10) at odd lowpass widths."""
+def lowpass_offset_absolute(lowpass_width: int, deep_yuv: bool,
+                            num_frames: int = 1) -> int:
+    """Absolute channeloffset values (`decoder.c:12258-12505`, precision
+    10) for reconstructions built from scratch (the 16-bit planar
+    paths): deep YUV outputs (YU64/YR16/v210) get +4/+14, every other
+    format (incl. the RGB outputs) +24/+48; odd lowpass widths always
+    +5/+10."""
     if lowpass_width % 2:
         return 10 if num_frames == 2 else 5
+    if deep_yuv:
+        return 14 if num_frames == 2 else 4
     return 48 if num_frames == 2 else 24
+
+
+#: ConvertLinesToOutput's fixed 5-bit dither lanes (`Codec/bayer.c:3528`,
+#: _mm_set_epi16 order reversed to lane order); Y/U share one pattern, V
+#: takes the other, and the patterns swap on odd rows
+_R408_DITHER_EVEN = np.array([2, 30, 6, 26, 10, 22, 14, 18], np.int64)
+_R408_DITHER_ODD = np.array([18, 14, 22, 10, 26, 6, 30, 2], np.int64)

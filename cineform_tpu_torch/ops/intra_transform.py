@@ -383,6 +383,23 @@ def inverse_channel_to_8bit(lowpass, bands, prescale, dither=None):
     return h26_inverse_to_output(low, high, dither=dither)
 
 
+def inverse_channel_scaled(lowpass, bands, prescale,
+                           levels: int) -> torch.Tensor:
+    """The reduced-resolution inverse (`intra_host.decode_sample_scaled`):
+    `levels` (0, 1 or 2) inverse levels from the deepest up, `descale` 2
+    where the level's prescale is 2, then the 8-bit output without dither,
+    clamp((ll + 2^(shift-1) - 1) >> shift), shift 6 at 0 levels (the
+    deepest lowpass carries x16 over the 10-bit pixels) and 4 after one
+    or two (x4).  `bands[k]` is read only for the levels run.  Returns
+    uint8 planes."""
+    ll = lowpass
+    for k in range(2, 2 - levels, -1):
+        ll = dwt2d_inverse(ll, *bands[k], 2 if prescale[k] == 2 else 1)
+    shift = 6 if levels == 0 else 4
+    return ((ll + (1 << (shift - 1)) - 1) >> shift).clamp(0, 255).to(
+        torch.uint8)
+
+
 def h26_inverse_to_row16u(low: torch.Tensor, high: torch.Tensor,
                           precision: int = 10) -> torch.Tensor:
     """Final horizontal 2-6 inverse for the deep (16-bit) output paths,

@@ -449,15 +449,14 @@ NOT_PORTED = {
     "lyuv-override": lambda: _not_ported_encode(metadata=_ExtraMetadata(
         extra=_tuple("LYUV", b"H", (1).to_bytes(4, "little")))),
     "interlaced-gop": lambda: _not_ported_encode(flags=GOP | 1),
-    "yuv-to-yu64": lambda: _not_ported_decode(
-        _golden("s_320x240_q4_p1.cfhd"), "YU64"),
-    "rgb-to-wp13": lambda: _not_ported_decode(
-        _golden("rgb444_320x240_q4.cfhd"), "WP13"),
+    "gop-to-yu64": lambda: _not_ported_decode(
+        _golden("gop_320x240_q4_p1.cfhd.f1"), "YU64"),
+    "gop-to-v210": lambda: _not_ported_decode(
+        _golden("gop_320x240_q4_p1.cfhd.f1"), "V210"),
     "bayer-to-rg48": lambda: _not_ported_decode(
         _golden("byr4_vgn_96x64_q4.cfhd"), "RG48"),
-    "half-resolution": lambda: _not_ported_decode(
-        _golden("s_320x240_q4_p1.cfhd"),
-        resolution=api.DecodedResolution.HALF),
+    "gop-to-bgra": lambda: _not_ported_decode(
+        _golden("gop_320x240_q4_p1.cfhd.f1"), "BGRA"),
     "scaled-size": lambda: _not_ported_decode(
         _golden("s_320x240_q4_p1.cfhd"), w=160, h=120),
     "gop-deep-output": lambda: _not_ported_decode(

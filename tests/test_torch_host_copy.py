@@ -303,13 +303,41 @@ def test_new_format_host_tables_match():
     got, want = tdemosaic.log2lin_lut(), jdemosaic.log2lin_lut()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    # the port keeps the not-deep-YUV offsets that its BGRA and interlaced
-    # group outputs take
-    for frames in (1, 2):
-        assert [thost.lowpass_offset_absolute(w, frames)
-                for w in range(1, 40)] == \
-            [jhost.lowpass_offset_absolute(w, False, frames)
-             for w in range(1, 40)]
+    for deep_yuv in (False, True):
+        for frames in (1, 2):
+            assert [thost.lowpass_offset_absolute(w, deep_yuv, frames)
+                    for w in range(1, 40)] == \
+                [jhost.lowpass_offset_absolute(w, deep_yuv, frames)
+                 for w in range(1, 40)]
+
+
+def test_output_host_tables_match():
+    """The decoder outputs' host tables: the lowpass offsets of the deep
+    outputs, the YUV->RGB multipliers (and the function that makes them),
+    the 10-bit RGB word layouts, the R408 dither lanes, and the RG24 dither
+    table that `_decode_sample_rg24` draws inline."""
+    for deep in (False, True):
+        for frames in (1, 2):
+            assert [thost.lowpass_channel_offset(w, deep, frames)
+                    for w in range(1, 300)] == \
+                [jhost.lowpass_channel_offset(w, deep, frames)
+                 for w in range(1, 300)]
+    assert tref._YUV2RGB_CG709 == jref._YUV2RGB_CG709
+    assert tref._YUV2RGB_CG601 == jref._YUV2RGB_CG601
+    args = (1.2, 1.5, 0.7, 0.3, 2.2, (1, -2, 3, -4, 5, -6, 7, -8))
+    assert tref._yuv2rgb_coeffs(*args) == jref._yuv2rgb_coeffs(*args)
+    assert tref.RGB10_INPUT_FORMATS == jref.RGB10_INPUT_FORMATS
+    for lanes in ("_R408_DITHER_EVEN", "_R408_DITHER_ODD"):
+        got, want = getattr(thost, lanes), getattr(jhost, lanes)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    for w, h in ((64, 48), (176, 6)):
+        draws = jglibc.glibc_rand_sequence(w * h) & 0x7FFF
+        order = [0, 1, h - 2, h - 1] + list(range(2, h - 2))
+        want = np.empty((h, w), np.int64)
+        for blk, r in enumerate(order):
+            want[r] = draws[w * blk:w * (blk + 1)]
+        np.testing.assert_array_equal(tref.rg24_dither(w, h), want)
 
 
 @pytest.mark.parametrize("pattern", [0, 1, 2])
@@ -489,7 +517,7 @@ def test_gop_host_helpers_match():
     assert tgop_host.SUBBAND_MAP == jgop_host.SUBBAND_MAP
     assert tgop_host.BANDEND_MARKER == jgop_host._bandend_marker()
     for frames in (1, 2):
-        assert [thost.lowpass_channel_offset(w, frames)
+        assert [thost.lowpass_channel_offset(w, num_frames=frames)
                 for w in range(1, 300)] == \
             [jhost.lowpass_channel_offset(w, num_frames=frames)
              for w in range(1, 300)]

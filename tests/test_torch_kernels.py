@@ -1009,3 +1009,35 @@ def test_bayer_rgb_outputs_on_the_card_equal_the_cpu(cuda):
                 out, fallback = on[cuda].decode_batch_device(
                     samples, output=output, develop=develop)
                 assert fallback == () and out.tobytes() == want.tobytes()
+
+
+@pytest.mark.gpu
+def test_outputs_and_scaled_decodes_on_the_card_equal_the_cpu(cuda):
+    """Every decode output of a 4:2:2 and of an RGB source (the packers of
+    `ops.yuv_output` on the card), and the half, quarter and thumbnail
+    decodes, on both routes, equal the same decodes with `device="cpu"`:
+    the 144x96 golden (an odd chroma lowpass width), the 320x240 one (a
+    partial v210 group) and the RG48 one."""
+    from cineform_tpu_torch.models.intra import _DECODE_OUTPUTS, IntraCodec
+
+    for name, fmt, w, h in (("s_144x96_q4_p1", "YUY2", 144, 96),
+                            ("s_320x240_q4_p1", "YUY2", 320, 240),
+                            ("rg48_320x240_q4_p1", "RG48", 320, 240)):
+        with open(os.path.join(REPO, "tests", "golden", "samples",
+                               name + ".cfhd"), "rb") as f:
+            samples = [f.read()]
+        on = {d: IntraCodec(w, h, 4, device=d, input_format=fmt)
+              for d in (cuda, "cpu")}
+        cases = [(output, 1) for output in _DECODE_OUTPUTS[on["cpu"].encoded]]
+        if fmt == "YUY2":
+            cases += [("YUY2", res) for res in (2, 3, 4)]
+        for output, res in cases:
+            want = on["cpu"].decode_batch(samples, output=output,
+                                          resolution=res)
+            assert on[cuda].decode_batch(
+                samples, output=output, resolution=res).tobytes() == \
+                want.tobytes(), (name, output, res)
+            out, fallback = on[cuda].decode_batch_device(
+                samples, output=output, resolution=res)
+            assert fallback == () and out.tobytes() == want.tobytes(), \
+                (name, output, res)

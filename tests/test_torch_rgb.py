@@ -220,7 +220,7 @@ def test_default_outputs_and_their_checks():
             for f in ("YUY2", "RG48", "B64A", "RG64")] == \
         ["YUY2", "RG48", "b64a", "b64a"]
     with pytest.raises(ValueError, match="decodes to"):
-        codec("YUY2").decode_output("RG48")
+        codec("YUY2").decode_output("BYR4")
     with pytest.raises(ValueError, match="decodes to"):
         codec("RG48").decode_output("YUY2")
 
