@@ -141,7 +141,27 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     download) and the band rows it decoded, and the half and quarter
     goldens through `api.Decoder`; it fails unless each decoder merge
     form ran once a band row class decoded (none at thumbnail);
-11. fails if a module of the JAX package was imported.
+11. runs the decoder's geometry stage: with the launch counts set to 0,
+    the API phase's 8 YUY2 samples through `api.Decoder` at 1280x720 and
+    3840x2160 to YUY2, b64a and RG48 (the YU64 decode Lanczos-scaled on
+    the card, `ops.scaler`), with ms/frame, peak device memory and the
+    scaling stage's device time on one frame against its bound; 1080p
+    lens samples (sphere_stack, planar_rotate, and sphere_stack with
+    LFIL=1) decoded to YUY2 through the WP13 detour, to RG48 and to BGRA
+    (`models.lens`, `ops.warp`), with ms/frame, each mesh's host build
+    time, the apply's device time against its bound and the fill
+    recurrences' device times and dispatched ops apart; the GOP phase's
+    groups to YU64, v210, RG48 and BGRA (`GopCodec.decode_batch_device_to`)
+    and through `api.Decoder` to 1280x720; `ops.scaler.scale_image` of an
+    (8, 1080, 1920, 3) float32 batch to 720p (TF32 off in its products)
+    and `ops.warp.warp_bilinear` by `mesh_gopro_preset`, against their
+    bounds.  Every decode's frames 0 and 7 (a lens sample's only frame)
+    must equal the port's CPU path, the float ops within rtol 1e-5, atol
+    1e-4; the scaler goldens, the warp `apply_*` goldens (driven from the
+    copied cache) and the `gopstream` frame-1 RG48 and YU64 goldens must
+    be byte-equal on the card; 0 frames may fall back; each decoder merge
+    form must run 6 times a device decode;
+12. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -151,6 +171,7 @@ and `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -230,6 +251,24 @@ SCALED_GOLDENS = tuple((name, res, ext) for name in ("s_320x240_q4_p1",
                        for res, ext in ((2, "half.yuy2"),
                                         (3, "quarter.yuy2")))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden", "samples")
+# the warp goldens' cases (tests/test_warp_geomesh.py's): name -> (mesh
+# width, mesh height, the transform stack); the `apply_*` goldens (case,
+# format, backgroundfill), the two fill goldens last, in the order that
+# generated them from one rand stream
+WARP_CASES = {
+    "defish_pos": (39, 29, [("defish", (60.0,))]),
+    "repoint_h4_h4": (39, 29, [("repoint_src_to_dst",
+                                (0.9, 0.2, -0.1, 0.05, 4, 4))]),
+    "scale_out": (39, 29, [("scale", (0.6, 0.6))]),
+}
+WARP_APPLY = (*(("defish_pos", fmt, 0) for fmt in ("yuy2", "bgra", "rg48",
+                                                    "b64a", "wp13", "w13a")),
+              ("repoint_h4_h4", "yuy2", 0), ("repoint_h4_h4", "rg48", 0),
+              ("scale_out", "yuy2", 0), ("scale_out", "rg48", 0),
+              ("scale_out", "yuy2", 1), ("scale_out", "bgra", 1))
+WARP_FORMATS = {"yuy2": "FORMAT_YUY2", "bgra": "FORMAT_32BGRA",
+                "b64a": "FORMAT_64ARGB", "rg48": "FORMAT_RG48",
+                "wp13": "FORMAT_WP13", "w13a": "FORMAT_W13A"}
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
 OVERFLOWED_BANDS, PSNR_DB, RATIO = 57, 47.26, 2.93
@@ -383,6 +422,21 @@ def card() -> str:
     return smi.splitlines()[0] if smi else "nvidia-smi: no output"
 
 
+def warp_test_image(w: int, h: int, fmt: str) -> np.ndarray:
+    """The warp goldens' source frame (seed 12345) as (1, bytes) uint8."""
+    rng = np.random.default_rng(12345)
+    if fmt in ("yuy2", "bgra"):
+        a = rng.integers(0, 256, (h, (2 if fmt == "yuy2" else 4) * w),
+                         np.uint8)
+    elif fmt in ("rg48", "b64a"):
+        a = rng.integers(0, 65536, (h, (3 if fmt == "rg48" else 4) * w),
+                         np.uint16).astype("<u2")
+    else:
+        a = rng.integers(-1024, 8192, (h, (3 if fmt == "wp13" else 4) * w),
+                         np.int16).astype("<i2")
+    return a.view(np.uint8).reshape(1, -1)
+
+
 def golden(ext: str, name: str = GOLDEN) -> bytes:
     with open(os.path.join(GOLDEN_DIR, f"{name}.{ext}"), "rb") as f:
         return f.read()
@@ -406,16 +460,20 @@ def main() -> int:
     from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models.gop import GopCodec
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
+    from cineform_tpu_torch.models import lens
     from cineform_tpu_torch.models.intra_host import EncoderMetadata
     from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
                                                   encode_batch_3d, split_3d)
     from cineform_tpu_torch.ops import demosaic as dmops
     from cineform_tpu_torch.ops import intra_transform as ops
+    from cineform_tpu_torch.ops import scaler as scaler_ops
+    from cineform_tpu_torch.ops import warp as warp_ops
     from cineform_tpu_torch.ops import yuv_output
     from cineform_tpu_torch.pool import DecoderPool
     from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
                                                  curve2linear_lut,
                                                  linear2curve_lut)
+    from cineform_tpu_torch.ref import geomesh
     from cineform_tpu_torch.ref.intra import rg24_dither
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
@@ -429,6 +487,7 @@ def main() -> int:
                                                raw_fill, rg48_frame,
                                                uyvy_frame, v210_frame,
                                                yu64_frame, yuy2_frame)
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"expected one visible card, found "
@@ -503,14 +562,16 @@ def main() -> int:
             mode="low-bit-first with tgt merged by max (decoder "
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
-            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled")),
+            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
+                               "geometry")),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="high-bit-first (decoder spread_rows, on mirrored rows): "
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12,
-            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled")),
+            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
+                               "geometry")),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -2226,6 +2287,371 @@ def main() -> int:
         raise AssertionError(f"the outputs path launched {launches_outputs},"
                              f" the scaled path {launches_scaled}")
 
+    # --- 11. the geometry stage: other sizes, the lens warp, GOP outputs ---
+    t_phase = time.perf_counter()
+    launches_geometry = dict.fromkeys(kernels, 0)
+    geo_lines = []
+    # device decodes of the phase: each runs the 6 band row classes of a
+    # 1080p or 320x240 4:2:2 frame or group once, so each decoder merge
+    # form 6 times
+    geo_decodes = [0]
+
+    def geo_log(msg):
+        geo_lines.append(msg)
+        log(f"{msg} ({the_card})")
+
+    def as_i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+
+    def as_bytes(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
+
+    def equal_frames(what, got, want):
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"{what}: the card's bytes differ from the "
+                                 "CPU path's")
+
+    def api_decodes(samples_, fmt, size, what, warm=None):
+        """One api.Decoder on the card over `samples_` after a warm-up
+        decode of `warm` in a decoder of its own: (the frames, median
+        ms/frame, peak device bytes above those allocated before); fails
+        on a fallback frame."""
+        if warm is not None:
+            dec = api.Decoder(dev)
+            dec.prepare_to_decode(*size, api.PixelFormat[fmt], sample=warm)
+            dec.decode_sample(warm)
+            geo_decodes[0] += 1
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dec = api.Decoder(dev)
+        dec.prepare_to_decode(*size, api.PixelFormat[fmt], sample=samples_[0])
+        frames_, times = [], []
+        for s in samples_:
+            out, ms = host_ms(torch, lambda: dec.decode_sample(s))
+            frames_.append(out)
+            times.append(ms)
+        geo_decodes[0] += len(samples_)
+        if dec.fallback_frames:
+            raise AssertionError(f"{what}: {dec.fallback_frames} frames "
+                                 "fell back")
+        return frames_, med(times), torch.cuda.max_memory_allocated() - before
+
+    def stage_ms(name, fn, inputs):
+        """A stage's device time (`device_ms`) and its bytes' bound: its
+        inputs read and its output written once; fails if it makes a
+        synchronizing call."""
+        out = fn()
+        syncs = sync_calls(torch, fn)
+        if syncs:
+            raise AssertionError(f"{name} made {syncs} synchronizing calls")
+        moved = nbytes(inputs) + out.numel() * out.element_size()
+        return device_ms(torch, fn), bound_ms(moved, 0)[0]
+
+    reset_counts()
+
+    # the scaled decode: the API samples at 1280x720 and 3840x2160
+    yu64_ref = as_i32(yuy2_cpu.decode_batch([yuy2_samples[i] for i in picks],
+                                            output="YU64"))
+    co1, _ = codec.decode_coefficients(*codec._decode_rows_args(
+        yuy2_samples[:1])[:5])
+    geo_decodes[0] += 1
+    yu64_dev = codec.inverse_output(co1, output="YU64")
+    del co1
+    sized = []
+    for w, h in ((1280, 720), (3840, 2160)):
+        for fmt, fourcc in (("YUY2", "YUY2"), ("B64A", "b64a"),
+                            ("RG48", "RG48")):
+            what = f"{fmt} at {w}x{h}"
+            got, ms, peak = api_decodes(yuy2_samples, fmt, (w, h), what,
+                                        warm=yuy2_samples[0])
+            want = scaler_ops.scale_yu64_to(yu64_ref, WIDTH, HEIGHT, w, h,
+                                            fourcc)
+            for j, i in enumerate(picks):
+                equal_frames(f"{what}, frame {i}", got[i], want[j].numpy())
+            dev_ms, bnd = stage_ms(
+                what, lambda: scaler_ops.scale_yu64_to(
+                    yu64_dev.to(torch.int32) & 0xFFFF, WIDTH, HEIGHT, w, h,
+                    fourcc), [yu64_dev])
+            sized.append(f"{what} {ms:.4f} ms/frame, peak {peak} B, the "
+                         f"scaling stage {dev_ms:.4f} ms (bound {bnd:.4f})")
+    taps = max(scaler_ops.tap_table(a, b, 3, dev)[0].shape[1]
+               for a, b in ((1920, 1280), (960, 1280), (1080, 720),
+                            (1920, 3840), (960, 3840), (1080, 2160)))
+    del yu64_ref
+    geo_log(f"decode to another size, api.Decoder on the {BATCH} 1080p YUY2 "
+            "samples (batch 1, median of 8 after a warm-up; frames 0 and 7 "
+            "byte-equal to the CPU path's YU64 decode and scale, 0 fallback "
+            "frames; the scaling stage's device_ms on one frame's YU64 "
+            f"against its bytes' bound; the widest tap table {taps} taps): "
+            + "; ".join(sized))
+
+    # the lens warp: 1080p lens samples through api.Decoder
+    @dataclasses.dataclass
+    class LensMetadata(EncoderMetadata):
+        extra: bytes = b""
+
+        def block(self) -> bytes:
+            return super().block() + self.extra
+
+    def lens_tuple(name, value):
+        payload = (value.to_bytes(4, "little") if isinstance(value, int)
+                   else np.float32(value).tobytes())
+        return (name.encode() + len(payload).to_bytes(3, "little")
+                + (b"L" if isinstance(value, int) else b"f") + payload)
+
+    sphere = {"LSPH": 1, "ZOOM": 1.2, "OFFX": 0.1, "OFFY": -0.05,
+              "OFFR": 0.1}
+    lens_cases = {"sphere_stack": sphere, "planar_rotate": {"OFFR": 0.2},
+                  "sphere_stack LFIL=1": {**sphere, "LFIL": 1}}
+    lens_samples = {}
+    book(launches_geometry)             # the encodes below are not booked
+    for name, tags_ in lens_cases.items():
+        enc = api.Encoder(dev)
+        enc.prepare_to_encode(WIDTH, HEIGHT, api.PixelFormat.YUY2)
+        enc.attach_metadata(LensMetadata(extra=b"".join(
+            lens_tuple(t, v) for t, v in tags_.items())))
+        enc.encode_sample(base)
+        lens_samples[name] = enc.get_sample_data()
+    reset_counts()
+    warps = []
+    for name, fmt in (("sphere_stack", "YUY2"), ("sphere_stack", "RG48"),
+                      ("sphere_stack", "BGRA"), ("planar_rotate", "YUY2"),
+                      ("planar_rotate", "RG48"), ("planar_rotate", "BGRA"),
+                      ("sphere_stack LFIL=1", "YUY2")):
+        sample = lens_samples[name]
+        params = lens.parse_lens_metadata(sample)
+        what = f"{name} to {fmt}"
+        got, ms, peak = api_decodes([sample] * 3, fmt, (0, 0), what,
+                                    warm=sample)
+        # the CPU path: the host-entropy decode of the direct or WP13
+        # output, warped on the CPU
+        if fmt == "YUY2":
+            want = lens.warp_decode(params, as_bytes(yuy2_cpu.decode_batch(
+                [sample], output="WP13")), WIDTH, HEIGHT, "YUY2", {})
+        else:
+            want = lens.warp_output(params, as_bytes(yuy2_cpu.decode_batch(
+                [sample], output=fmt)), WIDTH, HEIGHT, fmt, {})
+        equal_frames(what, got[0], want[0].numpy())
+        if any(g.tobytes() != got[0].tobytes() for g in got):
+            raise AssertionError(f"{what}: repeated decodes differ")
+        warps.append(f"{what} {ms:.4f} ms/frame, peak {peak} B")
+    # the mesh builds, the apply and the recurrences, on the WP13 frame
+    wp13 = as_bytes(yuy2_cpu.decode_batch([lens_samples["sphere_stack"]],
+                                          output="WP13")).to(dev)
+    parts = []
+
+    class OpCount(TorchDispatchMode):
+        """Counts the ops one call dispatches, views excluded: each one
+        kernel launch or more."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 0 if func.is_view else 1
+            return func(*args, **(kwargs or {}))
+
+    for name in lens_cases:
+        params = lens.parse_lens_metadata(lens_samples[name])
+        t0 = time.perf_counter()
+        mesh = lens.build_mesh(params, WIDTH, HEIGHT, 6 * WIDTH, "WP13")
+        build_s = time.perf_counter() - t0
+        dm = warp_ops.upload(mesh, dev)
+        plain = dataclasses.replace(dm, blend_columns=[])
+        apply_ms, apply_bound = stage_ms(
+            f"the apply of {name}", lambda: warp_ops.apply_bilinear(plain,
+                                                                    wp13),
+            [wp13])
+        part = (f"{name}: mesh build {build_s:.3f} s (host), apply "
+                f"{apply_ms:.4f} ms (bound {apply_bound:.4f})")
+        if params.lens_fill:
+            # the recurrences' steps are a few small launches each, queued
+            # more slowly than the card runs them: CUDA events around the
+            # whole call (`cuda_ms`) time them, the host's queueing in
+            warped = warp_ops.apply_bilinear(dm, wp13)
+            calls = (lambda: warp_ops.apply_bilinear(dm, wp13),
+                     lambda: warp_ops.apply_bilinear(plain, wp13),
+                     lambda: warp_ops.blur_vertical(dm, warped))
+            events, counted = [], []
+            for fn in calls:
+                events.append(cuda_ms(torch, fn))
+                with OpCount() as c:
+                    fn()
+                counted.append(c.n)
+            part += (f", the fill recurrences apart (CUDA events around a "
+                     f"call): the apply with the blend's "
+                     f"{len(dm.blend_columns)} column steps {events[0]:.4f} "
+                     f"ms against {events[1]:.4f} ms without, "
+                     f"{counted[0] - counted[1]} ops more; the blur's "
+                     f"{dm.recurrence_steps['blur_rows']} row steps "
+                     f"{events[2]:.4f} ms and {counted[2]} ops")
+        parts.append(part)
+    del wp13, dm, plain
+    geo_log("the lens warp, api.Decoder on 1080p YUY2 lens samples (median "
+            "of 3 decodes after a warm-up, which builds the mesh; byte-equal "
+            "to the CPU path's host-entropy decode warped on the CPU, 0 "
+            "fallback frames): " + "; ".join(warps) + "; on one frame's WP13 "
+            "(the apply by device_ms against the bytes' bound; ops "
+            "dispatched, views excluded, each one kernel launch or more): "
+            + "; ".join(parts))
+
+    # the GOP outputs: the GOP phase's groups
+    gop_cpu = GopCodec(WIDTH, HEIGHT, 4, device=cpu)
+    gop_picks = [gop_samples[i] for i in picks]
+    gops = []
+    for output, frame in (("YU64", 0), ("v210", 0), ("RG48", 0),
+                          ("BGRA", 0), ("RG48", 1)):
+        times = []
+        for it in range(3):
+            (got, fallback), ms = host_ms(
+                torch, lambda: gop.decode_batch_device_to(gop_samples,
+                                                          output, frame))
+            geo_decodes[0] += 1
+            if fallback:
+                raise AssertionError(f"GOP to {output}: fallback {fallback}")
+            times.append(ms / BATCH)
+        want = gop_cpu.decode_batch_to(gop_picks, output, frame)
+        for j, i in enumerate(picks):
+            equal_frames(f"GOP frame {frame} to {output}, group {i}",
+                         got[i], want[j])
+        gops.append(f"frame {frame} to {output} {med(times[1:]):.4f}")
+    got, ms, peak = api_decodes(gop_samples, "YUY2", (1280, 720),
+                                "GOP to 1280x720", warm=gop_samples[0])
+    want = scaler_ops.scale_yu64_to(as_i32(gop_cpu.decode_batch_to(
+        gop_picks, "YU64")), WIDTH, HEIGHT, 1280, 720, "YUY2")
+    for j, i in enumerate(picks):
+        equal_frames(f"GOP to 1280x720, group {i}", got[i], want[j].numpy())
+    del gop_cpu, want
+    geo_log(f"GOP outputs, the {BATCH} 1080p groups: decode_batch_device_to "
+            "ms a group (median of 2 after a warm-up, 0 fallback; groups 0 "
+            "and 7 byte-equal to the CPU path's host-entropy route): "
+            + "; ".join(gops) + f"; api.Decoder to YUY2 at 1280x720 "
+            f"{ms:.4f} ms a group (median of 8), peak {peak} B")
+
+    # the float image ops
+    img = torch.rand((BATCH, HEIGHT, WIDTH, 3), device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+    tf32 = []
+    einsum = torch.einsum
+
+    def spy(*args, **kwargs):
+        tf32.append(torch.backends.cuda.matmul.allow_tf32)
+        return einsum(*args, **kwargs)
+
+    torch.backends.cuda.matmul.allow_tf32 = True    # a caller's setting
+    torch.einsum = spy
+    try:
+        scaled_img = scaler_ops.scale_image(img, 720, 1280)
+    finally:
+        torch.einsum = einsum
+    if not tf32 or any(tf32) or not torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"scale_image ran its products with TF32 "
+                             f"{tf32}, or lost the caller's setting")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_t = torch.from_numpy(warp_ops.mesh_gopro_preset(HEIGHT,
+                                                         WIDTH)).to(dev)
+    warped_img = warp_ops.warp_bilinear(img, mesh_t)
+    floats = []
+    for what, got, fn, cpu_fn, inputs, ops_n in (
+            ("scale_image to 720p", scaled_img,
+             lambda: scaler_ops.scale_image(img, 720, 1280),
+             lambda x: scaler_ops.scale_image(x, 720, 1280), [img],
+             2 * 720 * HEIGHT * WIDTH * 3 * BATCH
+             + 2 * 1280 * WIDTH * 720 * 3 * BATCH),
+            ("warp_bilinear by mesh_gopro_preset", warped_img,
+             lambda: warp_ops.warp_bilinear(img, mesh_t),
+             lambda x: warp_ops.warp_bilinear(x, mesh_t.cpu()),
+             [img, mesh_t], 9 * img.numel())):
+        want = cpu_fn(img[picks].cpu())
+        err = float((got[picks].cpu() - want).abs().max())
+        if not torch.allclose(got[picks].cpu(), want, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"{what}: differs from the CPU by {err}")
+        ms = device_ms(torch, fn)
+        moved = nbytes(inputs) + got.numel() * got.element_size()
+        bound, by = bound_ms(moved, ops_n)
+        floats.append(f"{what} {ms:.4f} ms (bound {bound:.4f}, {by}; max "
+                      f"difference from the CPU {err:.3g})")
+    del img, scaled_img, warped_img, mesh_t
+    geo_log(f"float image ops on ({BATCH}, {HEIGHT}, {WIDTH}, 3) float32, "
+            "device_ms, frames 0 and 7 within rtol 1e-5, atol 1e-4 of the "
+            "CPU's; TF32 off in scale_image's products though the caller "
+            "had it on: " + "; ".join(floats))
+
+    # the goldens on the card
+    def scaler_golden(name):
+        with open(os.path.join(ROOT, "tests", "golden", "scaler", name),
+                  "rb") as f:
+            return f.read()
+
+    yu = as_i32(np.frombuffer(golden("yu64out", "s_320x240_q4_p1"),
+                              "<u2").reshape(1, 240, 640)).to(dev)
+    argb = as_i32(np.frombuffer(golden("b64aout", "s_128x96_q4_p1"),
+                                ">u2").reshape(1, 96, 128, 4)).to(dev)
+    checks = [(f"scale_yu64_{w}x{h}.bgra64",
+               lambda w=w, h=h: scaler_ops.scale_yu64_to_bgra64(
+                   yu, 320, 240, w, h))
+              for w, h in ((200, 150), (480, 360), (211, 157), (200, 240))]
+    checks += [(f"scale_b64a_{w}x{h}.b64a",
+                lambda w=w, h=h: scaler_ops.scale_b64a_to_b64a(
+                    argb, 128, 96, w, h))
+               for w, h in ((80, 60), (200, 150), (81, 63))]
+    checks += [(f"scale_bgra_{w}x{h}.bgra",
+                lambda w=w, h=h: scaler_ops.scale_b64a_to_bgra(
+                    argb, 128, 96, w, h)) for w, h in ((80, 60), (81, 63))]
+    for name, fn in checks:
+        if fn().cpu().numpy().tobytes() != scaler_golden(name):
+            raise AssertionError(f"the scaler on the card differs from {name}")
+    rand = geomesh.GlibcRand()
+    for name, fmt, fill in WARP_APPLY:
+        w, h = (320, 240) if fmt == "yuy2" else (128, 96)
+        mw, mh, steps = WARP_CASES[name]
+        f = getattr(geomesh, WARP_FORMATS[fmt])
+        bpp = geomesh._FMTINFO[f][0]
+        mesh = geomesh.GeoMesh(mw, mh)
+        mesh.init(w, h, w * bpp, f, w, h, w * bpp, f, fill)
+        for t, args in steps:
+            getattr(mesh, "transform_" + t)(*args)
+        # the fill goldens were generated back to back: one rand stream
+        mesh.cache_init_bilinear_range(0, h, rand if fill else
+                                       geomesh.GlibcRand())
+        got = warp_ops.apply_bilinear(warp_ops.upload(mesh, dev),
+                                      torch.from_numpy(warp_test_image(
+                                          w, h, fmt)).to(dev))
+        with open(os.path.join(ROOT, "tests", "golden", "warp",
+                               f"apply_{name}_{fmt}_{w}x{h}_f{fill}.bin"),
+                  "rb") as fh:
+            if got.cpu().numpy().tobytes() != fh.read():
+                raise AssertionError(f"the warp on the card differs from "
+                                     f"apply_{name}_{fmt}_{w}x{h}_f{fill}")
+    small_gop = GopCodec(320, 240, 4, device=dev)
+    for output, ext in (("RG48", "rg48out"), ("YU64", "yu64out")):
+        got, fallback = small_gop.decode_batch_device_to(
+            [golden("s1", "gopstream_320x240_q4")], output, 1)
+        geo_decodes[0] += 1
+        if fallback or got.tobytes() != golden(f"f1true.{ext}",
+                                               "gopstream_320x240_q4"):
+            raise AssertionError(f"GOP frame 1 to {output}: differs from "
+                                 f"gopstream_320x240_q4.f1true.{ext}")
+    del yu, argb
+    book(launches_geometry)
+    want_each = 6 * geo_decodes[0]
+    if (launches_geometry["merge_network_tgt"],
+            launches_geometry["merge_network_highfirst"]) != (want_each,) * 2:
+        raise AssertionError(f"the geometry path launched {launches_geometry}:"
+                             f" expected each decoder merge form {want_each} "
+                             f"times, 6 for each of {geo_decodes[0]} device "
+                             "decodes")
+    geo_log(f"geometry goldens on the card: {len(checks)} scaler, "
+            f"{len(WARP_APPLY)} warp apply and the 2 gopstream frame-1 deep "
+            f"outputs byte-equal; launches {launches_geometry} "
+            f"({geo_decodes[0]} device decodes); phase "
+            f"{time.perf_counter() - t_phase:.3f} s")
+    if not all(launches_geometry[n]
+               for n, k in kernels.items() if "geometry" in k["paths"]):
+        raise AssertionError(f"the geometry path launched {launches_geometry}")
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -2239,7 +2665,7 @@ def main() -> int:
                "gop": launches_gop,
                "stereo": launches_stereo, "api": launches_api,
                "pool": launches_pool, "outputs": launches_outputs,
-               "scaled": launches_scaled}
+               "scaled": launches_scaled, "geometry": launches_geometry}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,6 +41,7 @@ from cineform_tpu_torch.models import gop_host, lens, stereo, thumbnail
 from cineform_tpu_torch.models.gop import GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.models.intra_host import EncoderMetadata
+from cineform_tpu_torch.ops import scaler
 from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import update_fs_rate_limiter
@@ -474,9 +476,8 @@ class Decoder:
                       PixelFormat.CT_SHORT_2_14, PixelFormat.CT_10BIT_2_8,
                       PixelFormat.CT_UCHAR)
 
-    #: per source kind, the outputs the port decodes to (the codec's
-    #: names), and the JAX API's other outputs, which it decodes on the
-    #: host (`Codec/decoder.c:11584` format dispatch)
+    #: per source kind, the outputs the port decodes to, by the codec's
+    #: names (`Codec/decoder.c:11584` format dispatch)
     _PORTED = {"YUV": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2",
                        PixelFormat.BGRA: "BGRA", PixelFormat.YU64: "YU64",
                        PixelFormat.V210: "v210", PixelFormat.RG48: "RG48",
@@ -498,14 +499,18 @@ class Decoder:
                          PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a",
                          PixelFormat.WP13: "WP13", PixelFormat.W13A: "W13A",
                          PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"},
-               "GOP": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2"}}
-    _HOST_ONLY = {
-        "YUV": (),
-        "RGB": (),
-        "BAYER": (),
-        "GOP": (PixelFormat.YU64, PixelFormat.V210, PixelFormat.RG48,
-                PixelFormat.BGRA, PixelFormat.B64A, PixelFormat.R210,
-                PixelFormat.DPX0, PixelFormat.RG30)}
+               "GOP": {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "YUY2",
+                       PixelFormat.YU64: "YU64", PixelFormat.V210: "v210",
+                       PixelFormat.RG48: "RG48", PixelFormat.BGRA: "BGRA",
+                       PixelFormat.B64A: "b64a", PixelFormat.R210: "r210",
+                       PixelFormat.DPX0: "DPX0", PixelFormat.RG30: "RG30"}}
+    #: the outputs of a decode to another size than the sample's, which
+    #: Lanczos-scales the YU64 decode (`ops.scaler.scale_yu64_to`)
+    _SIZED = {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "2vuy",
+              PixelFormat.YU64: "YU64", PixelFormat.V210: "v210",
+              PixelFormat.RG48: "RG48", PixelFormat.BGRA: "BGRA",
+              PixelFormat.B64A: "b64a", PixelFormat.R210: "r210",
+              PixelFormat.DPX0: "DPX0", PixelFormat.RG30: "RG30"}
     #: output row pitch in bytes as a function of width
     _ROW_BYTES = {PixelFormat.YUY2: lambda w: 2 * w,
                   PixelFormat.UYVY: lambda w: 2 * w,
@@ -535,15 +540,17 @@ class Decoder:
     #: JAX API hands its YUY2 bytes to UYVY too: ROADMAP Queue 3)
     _SCALED = (PixelFormat.YUY2, PixelFormat.YUYV, PixelFormat.UYVY)
     #: the outputs the reference warps when a sample's lens metadata asks
-    #: (`Codec/decoder.c:9230-9242`)
-    _WARPED = (PixelFormat.YUY2, PixelFormat.BGRA, PixelFormat.W13A,
-               PixelFormat.WP13, PixelFormat.RG48, PixelFormat.B64A)
+    #: (`Codec/decoder.c:9230-9242`), by `models.lens`' names
+    _WARPED = {PixelFormat.YUY2: "YUY2", PixelFormat.BGRA: "BGRA",
+               PixelFormat.W13A: "W13A", PixelFormat.WP13: "WP13",
+               PixelFormat.RG48: "RG48", PixelFormat.B64A: "b64a"}
 
     def __init__(self, device: torch.device | str = "cuda") -> None:
         self.device = torch.device(device)
         self._prepared = False
         self._channels_active = 1
         self._held_group = None
+        self._warp_mesh_cache: dict = {}
         self.fallback_frames = 0
 
     # CFHD_GetOutputFormats
@@ -619,8 +626,6 @@ class Decoder:
         out = self._PORTED[kind].get(self.output_format)
         if out is not None:
             return out
-        if self.output_format in self._HOST_ONLY[kind]:
-            raise _not_ported(f"{kind} decode to {self.output_format!r}")
         raise CFHDError(ErrorCode.BADFORMAT,
                         f"{kind} decode to {self.output_format!r}")
 
@@ -657,42 +662,66 @@ class Decoder:
         self.fallback_frames += len(fallback)
         return f0[0], f1[0]
 
-    def _decode_frame_sample(self) -> tuple[bytes, np.ndarray]:
+    def _gop_output(self, sample: bytes, info, what: str, frame: int,
+                    then=None) -> np.ndarray:
+        """Frame `frame` of a group to a deep or RGB output (YU64, v210,
+        RG48, BGRA, b64a, r210, DPX0, RG30: `GopCodec.inverse_to`), `then`
+        on the device before the download."""
+        out = self._PORTED["GOP"].get(self.output_format)
+        if out is None:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            f"{what} decode to {self.output_format!r}")
+        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
+                          self.device)
+        frames, fallback = codec.decode_batch_device_to([sample], out, frame,
+                                                        then)
+        self.fallback_frames += len(fallback)
+        return frames[0]
+
+    def _decode_frame_sample(self, then=None) -> np.ndarray:
         """24-byte SAMPLE_TYPE_FRAME sample: emit the TRUE second frame of
         the group this decoder holds (`DecodeSampleFrame` ->
         ReconstructSampleFrameToBuffer(frame_index=1),
-        decoder.c:11482/11546), with the second dither window.  Returns
-        (held, out)."""
+        decoder.c:11482/11546), with the second dither window, or scaled
+        to the prepared size.  `then`: the warp of the deep and RGB
+        outputs, on the device."""
         held = self._held_group
         if held is None:
             raise CFHDError(ErrorCode.BADSAMPLE,
                             "FRAME sample without a decoded group")
         info = parse_sample(held)
         if (self.width, self.height) != (info.width, info.height):
-            raise _not_ported("GOP decodes to another size than the "
-                              "group's")
-        self._output("GOP")
+            return self._decode_to_size(held, info, frame=1, then=then)
+        if self.output_format not in (PixelFormat.YUY2, PixelFormat.UYVY):
+            return self._gop_output(held, info, "FRAME sample", 1, then)
         # the rand() dither stream persists across samples in one
         # decoder instance: this frame takes the NEXT window after
         # everything already emitted
         base = getattr(self, "_gop_dither_count", 1) - 1
         self._gop_dither_count = base + 2
         _, out = self._gop_frames(held, False, base)
-        return held, self._yuy2_or_uyvy(out)
+        return self._yuy2_or_uyvy(out)
 
-    def _decode_group(self, sample: bytes, info0) -> np.ndarray:
+    def _decode_group(self, sample: bytes, info0, then=None) -> np.ndarray:
         """GROUP (2-frame GOP) sample: decode frame 1 and hold the group
         for a following SAMPLE_TYPE_FRAME sample; consecutive calls on the
         same group return frame 1 then frame 1 with the next dither
-        window, like the reference decoder."""
+        window, like the reference decoder.  At another size than the
+        group's, consecutive calls on the same group alternate its frames
+        0 and 1, each scaled; the deep and RGB outputs are frame 0's, and
+        `then` their warp on the device."""
         self._held_group = sample
         if self.resolution != DecodedResolution.FULL:
             raise CFHDError(ErrorCode.BADFORMAT,
                             "scaled GOP decode is not supported")
         if (self.width, self.height) != (info0.width, info0.height):
-            raise _not_ported("GOP decodes to another size than the "
-                              "group's")
-        self._output("GOP")
+            key = hashlib.sha256(sample).digest()
+            cache = getattr(self, "_gop_scale_cache", None)
+            idx = cache[1] if cache is not None and cache[0] == key else 0
+            self._gop_scale_cache = (key, 1 - idx)
+            return self._decode_to_size(sample, info0, frame=idx, then=then)
+        if self.output_format not in (PixelFormat.YUY2, PixelFormat.UYVY):
+            return self._gop_output(sample, info0, "GOP", 0, then)
         base = getattr(self, "_gop_dither_count", 0)
         self._gop_dither_count = base + 1
         out, _ = self._gop_frames(sample, True, base)
@@ -700,26 +729,60 @@ class Decoder:
 
     def _decode_intra(self, sample: bytes, info0, kind: str, fmt: str,
                       scale: int = 1, develop=None,
-                      output: str | None = None) -> np.ndarray:
+                      output: str | None = None, then=None) -> np.ndarray:
         """An intra sample of a `kind` source through the device decoder of
         an `fmt` codec (`scale` 2: a Bayer sample's mosaic, `develop` its
         develop matrix or None) to the prepared output, at the prepared
-        resolution; `output` names it where the caller has checked it."""
+        resolution; `output` names it where the caller has checked it,
+        `then` runs on the decoded frame on the device."""
         codec = intra_codec(info0.width * scale, info0.height * scale,
                             DECODE_QUALITY, fmt, self.device)
         out, fallback = codec.decode_batch_device(
             [sample], output=output or self._output(kind),
             develop=None if develop is None else develop[None],
-            resolution=int(self.resolution))
+            resolution=int(self.resolution), then=then)
         self.fallback_frames += len(fallback)
         return out[0]
 
-    def _decode_yuv_source(self, sample: bytes, info0) -> np.ndarray:
+    def _decode_yuv_source(self, sample: bytes, info0,
+                           then=None) -> np.ndarray:
         """YUV 4:2:2 intra sample at its coded size."""
         if self._output("YUV") in ("BGRA", "BGRa"):
             check_bgra_source(info0.width, info0.channels[-1].lowpass_width)
-        return self._yuy2_or_uyvy(self._decode_intra(sample, info0, "YUV",
-                                                     "YUY2"))
+        return self._yuy2_or_uyvy(self._decode_intra(
+            sample, info0, "YUV", "YUY2", then=then))
+
+    def _decode_to_size(self, sample: bytes, info, frame: int = 0,
+                        then=None) -> np.ndarray:
+        """A 4:2:2 intra sample, or frame `frame` of a group, decoded to YU64
+        on the device and Lanczos-scaled there to the prepared size
+        (`ops.scaler.scale_yu64_to`: the reference's 8.8 fixed-point
+        CLanczosScaler, ConvertLib/ImageScaler.cpp, which the JAX API
+        applies to its byte-exact YU64 reconstruction), then `then`."""
+        fourcc = self._SIZED.get(self.output_format)
+        if fourcc is None:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            f"scaled decode to {self.output_format!r}")
+
+        def scale(yu64: torch.Tensor) -> torch.Tensor:
+            out = scaler.scale_yu64_to(
+                yu64.to(torch.int32) & 0xFFFF, info.width, info.height,
+                self.width, self.height, fourcc)
+            return out if then is None else then(out)
+
+        if info.sample_type == tags.SAMPLE_TYPE_GROUP:
+            codec = gop_codec(info.width, info.height, DECODE_QUALITY,
+                              self.device)
+            out, fallback = codec.decode_batch_device_to(
+                [sample], "YU64", frame, scale)
+        else:
+            codec = intra_codec(info.width, info.height, DECODE_QUALITY,
+                                "YUY2", self.device)
+            out, fallback = codec.decode_batch_device([sample],
+                                                      output="YU64",
+                                                      then=scale)
+        self.fallback_frames += len(fallback)
+        return out[0]
 
     def _decode_scaled(self, sample: bytes, info0) -> np.ndarray:
         """A 4:2:2 intra sample at half, quarter or thumbnail resolution:
@@ -738,7 +801,8 @@ class Decoder:
         return self._yuy2_or_uyvy(self._decode_intra(
             sample, info0, "YUV", "YUY2", output="YUY2"))
 
-    def _decode_bayer_source(self, sample: bytes, info0) -> np.ndarray:
+    def _decode_bayer_source(self, sample: bytes, info0,
+                             then=None) -> np.ndarray:
         """Bayer (RAW) intra sample at its mosaic's size: BYR4 and BYR2
         undifferenced, the other outputs demosaiced through the develop
         matrix its metadata asks for (`bayer_develop`)."""
@@ -746,15 +810,50 @@ class Decoder:
         develop = None if out in ("BYR4", "BYR2") else \
             bayer_develop(sample, info0, out)
         return self._yuy2_or_uyvy(self._decode_intra(
-            sample, info0, "BAYER", "BYR4", 2, develop))
+            sample, info0, "BAYER", "BYR4", 2, develop, then=then))
 
-    def _refuse_warp(self, sample: bytes, parsed=None) -> None:
-        """The reference warps the output when the sample's lens metadata
-        asks (`WarpFrame`, `Codec/decoder.c:11140`); the port has no warp,
-        so such a decode raises rather than hand out unwarped bytes."""
-        if self.output_format in self._WARPED and \
-                lens.parse_lens_metadata(sample, parsed) is not None:
-            raise _not_ported("the lens-correction warp")
+    def _lens(self, sample: bytes, parsed=None):
+        """(the lens parameters, the warp's format name) where the sample's
+        lens metadata asks the reference to warp the prepared output
+        (`WarpFrame`, `Codec/decoder.c:11140`), else None."""
+        fourcc = self._WARPED.get(self.output_format)
+        if fourcc is None:
+            return None
+        params = lens.parse_lens_metadata(sample, parsed)
+        return None if params is None else (params, fourcc)
+
+    def _warp(self, params, fourcc: str):
+        """The warp of the decoded frames on the device (`then` of the
+        decodes): the frames as bytes through `lens.warp_output`."""
+        def then(out: torch.Tensor) -> torch.Tensor:
+            return lens.warp_output(
+                params, out.contiguous().view(torch.uint8).reshape(
+                    out.shape[0], -1), self.width, self.height, fourcc,
+                self._warp_mesh_cache)
+        return then
+
+    def _warp_decode(self, sample: bytes, info0, params,
+                     fourcc: str) -> np.ndarray:
+        """The YUY2 and WP13 outputs' warp (`lens.warp_decode`): the
+        sample's WP13 decode warped on the device, converted to YUY2 where
+        asked."""
+        def then(wp13: torch.Tensor) -> torch.Tensor:
+            return lens.warp_decode(params, wp13.contiguous().view(
+                torch.uint8), self.width, self.height, fourcc,
+                self._warp_mesh_cache)
+        return self._decode_intra(sample, info0, "YUV", "YUY2",
+                                  output="WP13", then=then)
+
+    def _takes_warp_decode(self, info0) -> bool:
+        """Whether the WP13 detour of `lens.warp_decode` takes the sample:
+        a 4:2:2 intra sample decoded whole at its coded size.  On any other
+        (a group, an RGB or Bayer source, another size or resolution) the
+        JAX package's detour fails in its intra WP13 decode or its reshape
+        to the prepared size: BADSAMPLE."""
+        return (info0.sample_type == tags.SAMPLE_TYPE_IFRAME
+                and info0.encoded_format not in (2, 3, 4)
+                and self.resolution == DecodedResolution.FULL
+                and (self.width, self.height) == (info0.width, info0.height))
 
     # CFHD_DecodeSample
     def decode_sample(self, sample: bytes) -> np.ndarray | None:
@@ -774,29 +873,30 @@ class Decoder:
                 return None
             if sample[:4] == b"\x00\x01\x00\x01":
                 # FRAME samples carry no pixel data; the held group's
-                # warp metadata applies
-                held, out = self._decode_frame_sample()
-                self._refuse_warp(held)
-                return out.reshape(self.height, -1)
+                # warp metadata applies, with no size check
+                held = self._held_group
+                warp = None if held is None else self._lens(held)
+                detour = warp is not None and warp[1] in ("YUY2", "WP13")
+                out = self._decode_frame_sample(
+                    None if warp is None or detour else self._warp(*warp))
+                if detour:
+                    raise self._no_warp_decode()
+                return np.ascontiguousarray(out).view(np.uint8).reshape(
+                    self.height, -1)
             if info0 is None:
                 info0 = parse_sample(sample)
             if not info0.channels:
                 raise CFHDError(ErrorCode.BADSAMPLE, "no coded channel")
-            if info0.sample_type == tags.SAMPLE_TYPE_GROUP:
-                out = self._decode_group(sample, info0)
-            elif self.resolution != DecodedResolution.FULL:
-                out = self._decode_scaled(sample, info0)
-            elif info0.encoded_format in (3, 4):
-                out = self._decode_intra(
-                    sample, info0, "RGB",
-                    "B64A" if info0.encoded_format == 4 else "RG48")
-            elif info0.encoded_format == 2:
-                out = self._decode_bayer_source(sample, info0)
-            elif (self.width, self.height) != (info0.width, info0.height):
-                raise _not_ported("decodes to another size than the "
-                                  "sample's")
+            warp = self._lens(sample, info0)
+            # the YUY2 and WP13 outputs warp through the WP13 detour, the
+            # others their own output
+            detour = warp is not None and warp[1] in ("YUY2", "WP13")
+            if detour and self._takes_warp_decode(info0):
+                out = self._warp_decode(sample, info0, *warp)
             else:
-                out = self._decode_yuv_source(sample, info0)
+                out = self._decode_route(
+                    sample, info0,
+                    None if warp is None or detour else self._warp(*warp))
             row_bytes = self._ROW_BYTES[self.output_format](self.width)
             out = np.ascontiguousarray(out).view(np.uint8)
             if out.size != self.height * row_bytes:
@@ -804,12 +904,40 @@ class Decoder:
                     ErrorCode.BADSAMPLE,
                     f"decoded {out.size} bytes, expected "
                     f"{self.height * row_bytes}")
-            self._refuse_warp(sample, info0)
+            if detour and not self._takes_warp_decode(info0):
+                raise self._no_warp_decode()
             return out.reshape(self.height, row_bytes)
         except CFHDError:
             raise
         except Exception as exc:
             raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
+
+    def _decode_route(self, sample: bytes, info0, then=None) -> np.ndarray:
+        """The decode of an intra or GROUP sample by its kind, the
+        prepared output, size and resolution, with `then` (the warp) on
+        the device where the route takes it."""
+        if info0.sample_type == tags.SAMPLE_TYPE_GROUP:
+            return self._decode_group(sample, info0, then)
+        if self.resolution != DecodedResolution.FULL:
+            return self._decode_scaled(sample, info0)
+        if info0.encoded_format in (3, 4):
+            return self._decode_intra(
+                sample, info0, "RGB",
+                "B64A" if info0.encoded_format == 4 else "RG48", then=then)
+        if info0.encoded_format == 2:
+            return self._decode_bayer_source(sample, info0, then)
+        if (self.width, self.height) != (info0.width, info0.height):
+            # decoded size != requested size: the Lanczos scaler, as the
+            # reference's ConvertLib path (`SampleDecoder.cpp:1669-1725`)
+            return self._decode_to_size(sample, info0, then=then)
+        return self._decode_yuv_source(sample, info0, then)
+
+    @staticmethod
+    def _no_warp_decode() -> CFHDError:
+        return CFHDError(ErrorCode.BADSAMPLE,
+                         "the lens warp of a YUY2 or WP13 output decodes "
+                         "the WP13 of a 4:2:2 intra sample at its coded "
+                         "size")
 
     # CFHD_CloseDecoder
     def close(self) -> None:

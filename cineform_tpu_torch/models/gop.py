@@ -48,7 +48,10 @@ from cineform_tpu_torch.bitstream import parse_sample
 from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.entropy import native as entropy_native
 from cineform_tpu_torch.models import gop_host, intra_host
+from cineform_tpu_torch.models.intra import _download
+from cineform_tpu_torch.ops import bgra
 from cineform_tpu_torch.ops import intra_transform as ops
+from cineform_tpu_torch.ops import yuv_output as yout
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_yuy2)
 from cineform_tpu_torch.ref import gop as gxf
@@ -57,6 +60,9 @@ from cineform_tpu_torch.state import dither_rows
 
 #: the channels by group of equal plane shape: Y, then V and U
 GROUPS = ((0,), (1, 2))
+#: a group's deep and RGB outputs (`gop_host.decode_group_to`), by the
+#: JAX package's fourcc names; YUY2 and UYVY are `inverse`'s
+OUTPUTS = ("YU64", "v210", "RG48", "BGRA", "b64a", "r210", "DPX0", "RG30")
 
 
 @lru_cache(maxsize=16)
@@ -260,10 +266,11 @@ class GopCodec:
         return c.lowpass.astype(np.int32) + off
 
     @staticmethod
-    def _host_bands(c) -> dict:
+    def _host_bands(c, peaks: bool = True) -> dict:
         """A channel's bands, entropy-decoded and dequantized on the host
-        (C++ decoder, codesets 17 and 18), the peaks substituted, the raw
-        16-bit bands read: {wavelet k: bands by slot}."""
+        (C++ decoder, codesets 17 and 18), the peaks substituted where
+        `peaks` (the deep outputs' decode, as the JAX package's, leaves
+        them), the raw 16-bit bands read: {wavelet k: bands by slot}."""
         bands: dict[int, dict] = {0: {}, 1: {}, 3: {}, 4: {}, 5: {}}
         for b in c.bands:
             if b.subband in (0, 255):
@@ -278,7 +285,7 @@ class GopCodec:
                 codeset=18 if b.coding_flags == 18 else 17,
                 quant=b.quantization)
             vals = vals.reshape(b.height, pitch)[:, :b.width]
-            if b.peaks is not None and b.peak_level:
+            if peaks and b.peaks is not None and b.peak_level:
                 # peaks substitution (`Codec/decoder.c:19808`
                 # DecodeBandFSM16sNoGapWithPeaks): decoded values beyond
                 # PEAK_LEVEL take the next value of the band's peak table,
@@ -358,7 +365,9 @@ class GopCodec:
         class (rows ordered frame, channel, entry), the lowpass planes (B,
         lh, lw) with the decoder's load bias and w3's raw LL (B, h, w)
         int32 by channel, and the set of frame indices the device route
-        does not take; those frames get empty rows."""
+        does not take (another size, interlaced, not of the 10-bit
+        precision the deep outputs assume, a band it cannot decode);
+        those frames get empty rows."""
         batch = len(samples)
         pin = self.device.type == "cuda"
         parts: dict = {}
@@ -367,7 +376,8 @@ class GopCodec:
         fallback = set()
         for i, sample in enumerate(samples):
             s = parse_sample(sample)
-            if not self._is_group(s) or not s.progressive:
+            if not self._is_group(s) or not s.progressive or \
+                    s.precision != tags.PRECISION_10BIT:
                 fallback.add(i)
                 continue
             for ch, c in enumerate(s.channels):
@@ -493,3 +503,92 @@ class GopCodec:
             f0[list(fallback)] = h0
             f1[list(fallback)] = h1
         return f0, f1, fallback
+
+    # --- decode to the deep and RGB outputs --------------------------------
+
+    def inverse_to(self, coeffs, output: str, frame: int = 0,
+                   precision: int = tags.PRECISION_10BIT) -> torch.Tensor:
+        """Per-channel (lowpass with the progressive load bias, bands) on
+        the device -> frame `frame` of the groups as `output` (one of
+        `OUTPUTS`): the GOP pyramid down to the final v26 strips
+        (`gop_host.decode_group_deep16`: frame 0 the temporal low minus
+        the high with w0's bands, frame 1 the sum with w1's; the lowpass
+        with the absolute offset, +14 for YU64 and v210, +48 for the
+        others, +10 at odd widths), then the Row16u rows
+        (`h26_inverse_to_row16u`) packed as `ops.yuv_output.pack` packs a
+        4:2:2 intra frame's, or BGRA through `ops.bgra.strip_to_bgra`
+        (`gop_host.decode_group_bgra`), rows bottom-up.  Returns the
+        16-bit outputs as int16 bit patterns (B, H, row_bytes / 2), the
+        others as uint8 rows, BGRA (B, H, W, 4)."""
+        if output not in OUTPUTS:
+            raise ValueError(f"a group decodes to {', '.join(OUTPUTS)}, "
+                             f"not {output!r}")
+        deep_yuv = output in yout.DEEP_YUV
+        strips = []
+        for lowpass, b in coeffs:
+            w = lowpass.shape[-1]
+            lowpass = lowpass + (
+                intra_host.lowpass_offset_absolute(w, deep_yuv, num_frames=2)
+                - intra_host.lowpass_channel_offset(w, num_frames=2))
+            ll4 = ops.dwt2d_inverse(lowpass, *b[5], descale=1,
+                                    bottom_shift=True)
+            tlow = ops.dwt2d_inverse(ll4, *b[4], descale=2)
+            thigh = ops.dwt2d_inverse(*b[3], descale=1, bottom_shift=True)
+            if frame == 0:
+                ll, (lh, hl, hh) = ops.sat16(tlow - thigh) >> 1, b[0]
+            else:
+                ll, (lh, hl, hh) = ops.sat16(tlow + thigh) >> 1, b[1]
+            strips.append((ops.v26_inverse(ll, hl), ops.v26_inverse(lh, hh)))
+        if output == "BGRA":
+            (yl, yh), (c1l, c1h), (c2l, c2h) = strips
+            return bgra.strip_to_bgra(yl, yh, c2l, c2h, c1l, c1h,
+                                      precision).flip(-3)
+        planes = [ops.h26_inverse_to_row16u(low, high, precision)
+                  for low, high in strips]
+        return yout.pack(output, *planes)
+
+    def decode_batch_to(self, samples: list[bytes], output: str,
+                        frame: int = 0, then=None) -> np.ndarray:
+        """Decode GROUP samples to frame `frame` as `output` with the host
+        C++ entropy decoder (the peaks not substituted, as the JAX
+        package's deep decode leaves them; every group through the
+        progressive pyramid, at its own precision), a group at a time,
+        then `inverse_to` on the device, and `then` (a function of the
+        frames on the device, or None) before the download."""
+        out = []
+        for sample in samples:
+            s = self._parse(sample)
+            coeffs = [(torch.from_numpy(self._lowpass(c, True)[None])
+                       .to(self.device),
+                       {k: tuple(torch.from_numpy(b[None]).to(self.device)
+                                 for b in bs)
+                        for k, bs in self._host_bands(c, False).items()})
+                      for c in s.channels]
+            frames = self.inverse_to(coeffs, output, frame, s.precision)
+            out.append(_download(frames if then is None else then(frames)))
+        return np.concatenate(out)
+
+    def decode_batch_device_to(self, samples: list[bytes], output: str,
+                               frame: int = 0, then=None):
+        """Decode GROUP samples to frame `frame` as `output` with the band
+        entropy decode, the pyramid and the packing on the device, and
+        `then` before the download, as `decode_batch_to` does.
+
+        Returns (frames, fallback): fallback is the sorted tuple of the
+        frame indices that `decode_batch_to` decoded instead (a group the
+        device route does not take, of another precision than 10 bits, or
+        that overflows its device band region)."""
+        batch = len(samples)
+        *rows, fallback = self._decode_rows_args(samples)
+        if len(fallback) == batch:
+            return (self.decode_batch_to(samples, output, frame, then),
+                    tuple(range(batch)))
+        coeffs, ovf = self.decode_coefficients(*rows)
+        frames = self.inverse_to(coeffs, output, frame)
+        out = _download(frames if then is None else then(frames))
+        fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+        fallback = tuple(sorted(fallback))
+        if fallback:
+            out[list(fallback)] = self.decode_batch_to(
+                [samples[i] for i in fallback], output, frame, then)
+        return out, fallback

@@ -1005,12 +1005,15 @@ class IntraCodec:
 
     def decode_batch_device(self, samples: list[bytes], frame_index: int = 0,
                             output: str | None = None, develop=None,
-                            resolution: int = 1):
+                            resolution: int = 1, then=None):
         """Decode CFHD samples with the band entropy decode, the inverse
         DWT and the output on the device; the host only walks sample
         headers and copies payloads.  The output, `develop` and
         `resolution` are `decode_batch`'s; a reduced resolution
-        entropy-decodes only the bands it reads.
+        entropy-decodes only the bands it reads.  `then`, where given, is
+        a function of the decoded batch on the device (as `inverse_output`
+        gives it) that runs there before the download: the decoder's
+        geometry stage (a scale or a warp).
 
         Returns (frames, fallback): fallback is the sorted tuple of the
         frame indices that `decode_checked` decoded on the host entropy
@@ -1021,7 +1024,11 @@ class IntraCodec:
         if develop is not None:
             develop = np.asarray(develop, np.float64).reshape(len(samples),
                                                               3, 4)
-        return self.decode_checked(samples, lambda coeffs, frames: (
-            self.inverse_output(coeffs, frame_index, output,
-                                None if develop is None else develop[frames],
-                                resolution)), resolution=resolution)
+
+        def finish(coeffs, frames):
+            out = self.inverse_output(
+                coeffs, frame_index, output,
+                None if develop is None else develop[frames], resolution)
+            return out if then is None else then(out)
+
+        return self.decode_checked(samples, finish, resolution=resolution)

@@ -7,7 +7,8 @@ both APIs; every comparison is exact (tolerance 0).  The goldens' GUID,
 DATE and TIME are random per reference run, so each encode attaches the
 golden's own metadata on both sides.  The routes the JAX API takes on the
 host and no codec of the port takes yet raise `CFHDError(BADFORMAT)`, one
-case each.
+case each; the geometry routes (a decode to another size, the lens warp,
+a group's deep and RGB outputs) decode as the JAX API decodes them.
 """
 
 import dataclasses
@@ -449,24 +450,11 @@ NOT_PORTED = {
     "lyuv-override": lambda: _not_ported_encode(metadata=_ExtraMetadata(
         extra=_tuple("LYUV", b"H", (1).to_bytes(4, "little")))),
     "interlaced-gop": lambda: _not_ported_encode(flags=GOP | 1),
-    "gop-to-yu64": lambda: _not_ported_decode(
-        _golden("gop_320x240_q4_p1.cfhd.f1"), "YU64"),
-    "gop-to-v210": lambda: _not_ported_decode(
-        _golden("gop_320x240_q4_p1.cfhd.f1"), "V210"),
     "bayer-to-rg48": lambda: _not_ported_decode(
         _golden("byr4_vgn_96x64_q4.cfhd"), "RG48"),
-    "gop-to-bgra": lambda: _not_ported_decode(
-        _golden("gop_320x240_q4_p1.cfhd.f1"), "BGRA"),
-    "scaled-size": lambda: _not_ported_decode(
-        _golden("s_320x240_q4_p1.cfhd"), w=160, h=120),
-    "gop-deep-output": lambda: _not_ported_decode(
-        _golden("gop_320x240_q4_p1.cfhd.f1"), "RG48"),
-    "gop-scaled-size": lambda: _not_ported_decode(
-        _golden("gop_320x240_q4_p1.cfhd.f1"), w=160, h=120),
     "stereo-composite": lambda: _not_ported_decode(_stereo_sample(),
                                                    mask=3),
     "stereo-blend-mode": lambda: api.Decoder("cpu").set_channel_blend(1),
-    "lens-warp": lambda: _not_ported_decode(_lens_sample()),
 }
 
 
@@ -478,6 +466,36 @@ def test_routes_not_ported_raise_badformat(route, monkeypatch, tmp_path):
         NOT_PORTED[route]()
     assert e.value.code == api.ErrorCode.BADFORMAT
     assert "not ported yet" in str(e.value)
+
+
+#: the geometry routes, which the port's API refused until they were
+#: ported: (sample, output, width, height), 0 x 0 the sample's size
+GEOMETRY = {
+    "scaled-size": (lambda: _golden("s_320x240_q4_p1.cfhd"), "YUY2", 160,
+                    120),
+    "gop-scaled-size": (lambda: _golden("gop_320x240_q4_p1.cfhd.f1"), "YUY2",
+                        160, 120),
+    "lens-warp": (_lens_sample, "YUY2", 0, 0),
+    "gop-to-yu64": (lambda: _golden("gop_320x240_q4_p1.cfhd.f1"), "YU64", 0,
+                    0),
+    "gop-to-v210": (lambda: _golden("gop_320x240_q4_p1.cfhd.f1"), "V210", 0,
+                    0),
+    "gop-to-bgra": (lambda: _golden("gop_320x240_q4_p1.cfhd.f1"), "BGRA", 0,
+                    0),
+    "gop-deep-output": (lambda: _golden("gop_320x240_q4_p1.cfhd.f1"),
+                        "RG48", 0, 0),
+}
+
+
+@pytest.mark.parametrize("route", list(GEOMETRY))
+def test_geometry_routes_match_jax(route, jax_host):
+    """A decode to another size, a lens warp and a group to the deep and
+    RGB outputs decode as the JAX API decodes them."""
+    make, fmt, w, h = GEOMETRY[route]
+    sample = make()
+    got = _decode(api, {"device": "cpu"}, [sample], fmt, w=w, h=h)
+    assert got == _decode(jax_host, {}, [sample], fmt, w=w, h=h)
+    assert isinstance(got[0], bytes)
 
 
 def test_the_lens_sample_decodes_unwarped_to_other_outputs():

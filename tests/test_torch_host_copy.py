@@ -2,8 +2,8 @@
 `bitstream`, `entropy.native`, `native`, `models.intra_host`,
 `models.gop_host`, `models.thumbnail`, `models.lens`, `metadata`,
 `models.active_metadata`'s develop parameters, `ref.intra`, `ref.gop`,
-`ref.demosaic`, `utils.glibc_random`, `utils.override_db`, `testframes`,
-and the API's constants), on the CPU.
+`ref.demosaic`, `ref.scaler`, `ref.geomesh`, `utils.glibc_random`,
+`utils.override_db`, `testframes`, and the API's constants), on the CPU.
 
 The port imports nothing of the JAX package: no source names it, and the
 slice runs where it cannot be imported.  Each copy equals its original on
@@ -34,8 +34,10 @@ from cineform_tpu.models import lens as jlens
 from cineform_tpu.models import thumbnail as jthumbnail
 from cineform_tpu.models.intra import IntraCodec as JaxIntraCodec
 from cineform_tpu.ref import demosaic as jdemosaic
+from cineform_tpu.ref import geomesh as jgeomesh
 from cineform_tpu.ref import gop as jgop
 from cineform_tpu.ref import intra as jref
+from cineform_tpu.ref import scaler as jscaler
 from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
 from cineform_tpu.spec import tags as jtags
@@ -56,14 +58,17 @@ from cineform_tpu_torch.models import lens as tlens
 from cineform_tpu_torch.models import thumbnail as tthumbnail
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.ref import demosaic as tdemosaic
+from cineform_tpu_torch.ref import geomesh as tgeomesh
 from cineform_tpu_torch.ref import gop as tgop
 from cineform_tpu_torch.ref import intra as tref
+from cineform_tpu_torch.ref import scaler as tscaler
 from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
 from cineform_tpu_torch.spec import tags as ttags
 from cineform_tpu_torch.utils import glibc_random as tglibc
 from cineform_tpu_torch.utils import override_db as toverride
 from tests.test_formats import _raw_fill
+from tests.test_warp_geomesh import CASES as WARP_CASES
 
 torch.set_num_threads(1)
 
@@ -110,7 +115,8 @@ NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
                "ref/gop.py", "api.py", "pool.py", "models/thumbnail.py",
                "models/lens.py", "utils/override_db.py", "metadata.py",
                "models/active_metadata.py", "ops/demosaic.py",
-               "ops/develop.py")
+               "ops/develop.py", "ops/scaler.py", "ops/warp.py",
+               "ref/scaler.py", "ref/geomesh.py")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
@@ -192,6 +198,15 @@ dec = api.Decoder("cpu")
 dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=byr)
 assert dec.decode_sample(byr).tobytes() == open(os.path.join(
     samples, "byr4_wbal_320x240_q4.rg48out"), "rb").read()
+dec = api.Decoder("cpu")
+dec.prepare_to_decode(40, 30, api.PixelFormat.RG48)
+assert dec.decode_sample(gold).shape == (30, 240)
+dec = api.Decoder("cpu")
+dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=group)
+assert dec.decode_sample(group).tobytes() == open(os.path.join(
+    samples, "gop_320x240_q4_p1.rg48out"), "rb").read()
+for name in ("scaler", "warp"):
+    assert "cineform_tpu_torch.ops." + name in sys.modules
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("cineform_tpu", "jax", "jaxlib")]
 print("ok")
@@ -817,3 +832,119 @@ def test_develop_tables_and_matrix_match():
     got = codec.inverse_bayer_linear(codec.host_entropy_decode([sample]))
     np.testing.assert_array_equal(got[0].numpy(),
                                   jhost.decode_sample_bayer(sample)[0])
+
+
+# ---------------------------------------------------------------------------
+# The geometry stage's host pieces: the Lanczos taps and the GeoMesh
+# ---------------------------------------------------------------------------
+
+#: (input, output) lengths of the scaler goldens' axes and of the 1080p
+#: geometry phase's scales
+SCALES = [(320, 200), (240, 150), (320, 480), (240, 360), (320, 211),
+          (240, 157), (128, 80), (96, 60), (128, 81), (96, 63), (128, 200),
+          (96, 150), (160, 200), (1920, 1280), (1920, 3840), (1080, 720),
+          (1080, 2160), (2000, 333), (7, 5)]
+
+
+@pytest.mark.parametrize("n_in,n_out", SCALES)
+def test_lanczos_tap_tables_match(n_in, n_out):
+    """The device scaler's padded tap table of every output line equals
+    the JAX package's `lanczos_coeff` taps, the padding index 0 with mix
+    0; the copy's own `lanczos_coeff` and factor wrappers equal theirs."""
+    index, mix = tscaler.tap_table(n_in, n_out, 3, CPU)
+    for line in range(n_out):
+        want = jscaler.lanczos_coeff(n_in, n_out, line)
+        n = len(want)
+        assert [(int(a), int(b)) for a, b in zip(index[line, :n],
+                                                 mix[line, :n])] == want
+        assert not mix[line, n:].any() and not index[line, n:].any()
+    for line in range(0, n_out, max(1, n_out // 5)):
+        assert tscaler.lanczos_coeff(n_in, n_out, line) == \
+            jscaler.lanczos_coeff(n_in, n_out, line)
+        assert tscaler.column_scale_factors(line, n_in, n_out) == \
+            jscaler.column_scale_factors(line, n_in, n_out)
+        assert tscaler.column_scale_factors(line, n_in, n_out, 1) == \
+            jscaler.column_scale_factors(line, n_in, n_out, 1)
+
+
+def test_scaler_factor_wrappers_match():
+    assert tscaler.row_scale_factors(160, 211) == \
+        jscaler.row_scale_factors(160, 211)
+    for args in ((1920, 1080, 960, 540), (1920, 1080, 961, 540),
+                 (1920, 1080, 100, 100), (320, 240, 480, 360)):
+        assert tscaler.decoded_scale(*args) == jscaler.decoded_scale(*args)
+
+
+def _geomesh(mod, name, fill=0, fmt="YUY2"):
+    (w, h), mw, mh, steps = WARP_CASES[name]
+    f = getattr(mod, "FORMAT_" + fmt)
+    bpp = mod._FMTINFO[f][0]
+    g = mod.GeoMesh(mw, mh)
+    g.init(w, h, w * bpp, f, w, h, w * bpp, f, fill)
+    for t, args in steps:
+        if t == "set_custom_lens":
+            g.set_custom_lens(*args)
+        else:
+            getattr(g, "transform_" + t)(*args)
+    return g, w, h
+
+
+@pytest.mark.parametrize("name", sorted(WARP_CASES))
+def test_geomesh_matches_and_meets_the_mesh_goldens(name):
+    """Every transform stack of the warp goldens: the copy's mesh nodes
+    equal the JAX model's and the reference's `mesh_*.f32` goldens, bit
+    for bit; its `interp_bilinear` on every destination pixel and both
+    cache inits (without and with backgroundfill, RG48 and YUY2) equal
+    the JAX model's."""
+    ours, w, h = _geomesh(tgeomesh, name)
+    want, _, _ = _geomesh(jgeomesh, name)
+    with open(os.path.join(REPO, "tests", "golden", "warp",
+                           f"mesh_{name}_{w}x{h}.f32"), "rb") as f:
+        raw = f.read()
+    n = ours.meshwidth * ours.meshheight
+    assert ours.meshx.tobytes() == raw[:4 * n] == want.meshx.tobytes()
+    assert ours.meshy.tobytes() == raw[4 * n:] == want.meshy.tobytes()
+    rows, cols = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing="ij")
+    for a, b in zip(ours.interp_bilinear(rows, cols),
+                    want.interp_bilinear(rows, cols)):
+        assert a.tobytes() == b.tobytes()
+    assert np.array_equal(ours.cache_init_bilinear().cache,
+                          want.cache_init_bilinear().cache)
+    for fill in (0, 1):
+        for fmt in ("RG48", "YUY2"):
+            ours, _, _ = _geomesh(tgeomesh, name, fill, fmt)
+            want, _, _ = _geomesh(jgeomesh, name, fill, fmt)
+            ours.cache_init_bilinear_range(0, h, tgeomesh.GlibcRand())
+            want.cache_init_bilinear_range(0, h, jgeomesh.GlibcRand())
+            assert np.array_equal(ours.cache, want.cache)
+
+
+def test_glibc_rand_stream_matches():
+    ours, want = tgeomesh.GlibcRand(5, prefetch=8), jgeomesh.GlibcRand(
+        5, prefetch=8)
+    assert [ours.next() for _ in range(40)] == [want.next() for _ in range(40)]
+
+
+@pytest.mark.parametrize("i", range(len(LENS_BLOCKS)))
+@pytest.mark.parametrize("w,h", [(96, 64), (160, 80), (128, 96)])
+def test_lens_build_mesh_matches(i, w, h):
+    """`build_mesh` of each lens block's parameters, at a 16:9-ish, a 2:1
+    (equirect) and a 4:3 size: the same mesh and cache."""
+    @dataclasses.dataclass
+    class Extra(jhost.EncoderMetadata):
+        def block(self) -> bytes:
+            return super().block() + LENS_BLOCKS[i]
+
+    sample = jhost.encode_sample(jframes.yuy2_frame(64, 48, 1), 64, 48, 4,
+                                 metadata=Extra())
+    want = jlens.parse_lens_metadata(sample)
+    if want is None:
+        return
+    got = tlens.parse_lens_metadata(sample)
+    a = jlens.build_mesh(want, w, h, 6 * w, "RG48")
+    b = tlens.build_mesh(got, w, h, 6 * w, "RG48")
+    assert a.meshx.tobytes() == b.meshx.tobytes()
+    assert a.meshy.tobytes() == b.meshy.tobytes()
+    assert np.array_equal(a.cache, b.cache)
+

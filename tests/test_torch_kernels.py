@@ -1041,3 +1041,44 @@ def test_outputs_and_scaled_decodes_on_the_card_equal_the_cpu(cuda):
                 samples, output=output, resolution=res)
             assert fallback == () and out.tobytes() == want.tobytes(), \
                 (name, output, res)
+
+
+@pytest.mark.gpu
+def test_geometry_on_the_card_equals_the_cpu(cuda):
+    """The geometry stage on the card equals it with `device="cpu"`:
+    api.Decoder's decode to another size (an intra sample, a group), a
+    group's deep outputs, and the warp (the fill blends and blur) of a
+    mesh with backgroundfill in every format."""
+    from cineform_tpu_torch import api
+    from cineform_tpu_torch.ops import warp
+    from cineform_tpu_torch.ref import geomesh
+
+    gold = os.path.join(REPO, "tests", "golden", "samples")
+    for name, fmt, size in (("s_320x240_q4_p1.cfhd", "RG48", (211, 157)),
+                            ("s_320x240_q4_p1.cfhd", "YUY2", (480, 360)),
+                            ("gop_320x240_q4_p1.cfhd.f1", "B64A", (200, 150)),
+                            ("gop_320x240_q4_p1.cfhd.f1", "V210", (0, 0)),
+                            ("gop_320x240_q4_p1.cfhd.f1", "BGRA", (0, 0))):
+        with open(os.path.join(gold, name), "rb") as f:
+            sample = f.read()
+        got = []
+        for d in (cuda, "cpu"):
+            dec = api.Decoder(d)
+            dec.prepare_to_decode(*size, api.PixelFormat[fmt], sample=sample)
+            got.append(dec.decode_sample(sample).tobytes())
+            assert dec.fallback_frames == 0
+        assert got[0] == got[1], (name, fmt, size)
+    rng = np.random.default_rng(2)
+    for fmt, bpp in (("YUY2", 2), ("32BGRA", 4), ("RG48", 6), ("W13A", 8)):
+        f = getattr(geomesh, "FORMAT_" + fmt)
+        mesh = geomesh.GeoMesh(39, 29)
+        mesh.init(96, 64, 96 * bpp, f, 96, 64, 96 * bpp, f, 1)
+        mesh.transform_scale(0.7, 0.7)
+        mesh.transform_rotate(9.0)
+        mesh.cache_init_bilinear_range(0, 64, geomesh.GlibcRand())
+        frames = torch.from_numpy(rng.integers(0, 256, (2, 64 * 96 * bpp),
+                                               np.uint8))
+        out = [warp.blur_vertical(m, warp.apply_bilinear(m, frames.to(d)))
+               .cpu() for m, d in ((warp.upload(mesh, cuda), cuda),
+                                   (warp.upload(mesh, "cpu"), "cpu"))]
+        assert torch.equal(out[0], out[1]), fmt
