@@ -161,7 +161,30 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     copied cache) and the `gopstream` frame-1 RG48 and YU64 goldens must
     be byte-equal on the card; 0 frames may fall back; each decoder merge
     form must run 6 times a device decode;
-12. fails if a module of the JAX package was imported.
+12. runs the encoder's other inputs and options: first, not counted, the
+    DWT kernels at the phase's new shapes and quantizers against their
+    plain versions (`dwt_forward_planes`' three levels of a 1080p R210
+    batch of noise, with every chunk_pack and merge call of its encode
+    and decode, and of the 4096x2160 DPX0 batch; `dwt_forward_yuy2` and
+    `dwt_forward_groups` at the custom quantizers of an all-1 and of the
+    largest 16-bit caller table) and the plain unpacks' device times
+    against their bounds; then, with the launch counts set to 0, the 13
+    320x240 `raw_*` encode goldens through `api.Encoder` on the card (RG24
+    at 0.999 of the bytes, the others byte for byte), a batch of 8 1080p
+    frames of each of the 13 formats (the probe's raw fill, rolled one row
+    a frame) and of 4 4096x2160 DPX0 frames encoded on the card (frames 0
+    and the last equal to the CPU path; the overflowed bands, the ratio,
+    the encode's device part and host tail a frame, medians of 3 after a
+    warm-up) and decoded on the card (no frame falling back; the PSNR
+    against the unpacked input); a custom-quantization YUY2 batch (equal
+    to the CPU path, smaller than the preset's), LYUV, CV67 and both from
+    override.colr, a 12-frame 1080p V210 passthrough series at 0x0404
+    (both kinds of frame) through `api.Encoder` on the card and the CPU
+    (equal), a batch of 8 interlaced 1080i groups through `GopCodec`
+    (equal to the CPU path) and `ilace_320x240_q4_p1.cfhd.f1` re-encoded
+    byte for byte through `api.Encoder`; it fails unless that launched
+    every kernel;
+13. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -178,6 +201,7 @@ from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -269,6 +293,20 @@ WARP_APPLY = (*(("defish_pos", fmt, 0) for fmt in ("yuy2", "bgra", "rg48",
 WARP_FORMATS = {"yuy2": "FORMAT_YUY2", "bgra": "FORMAT_32BGRA",
                 "b64a": "FORMAT_64ARGB", "rg48": "FORMAT_RG48",
                 "wp13": "FORMAT_WP13", "w13a": "FORMAT_W13A"}
+# the encoder inputs phase: the 320x240 raw_* encode goldens (input
+# format, golden, bytes a pixel), each the probe's raw fill pattern 1; the
+# film-scan batch (DPX0); the custom quantization tables whose quantizers
+# the DWT kernels are held at (all 1, and the largest a 16-bit caller entry
+# gives)
+RAW_GOLDENS = (("R210", "raw_r210", 4), ("DPX0", "raw_DPX0", 4),
+               ("RG30", "raw_RG30", 4), ("AB10", "raw_AB10", 4),
+               ("AR10", "raw_AR10", 4), ("BGRA", "raw_BGRA", 4),
+               ("BGRa", "raw_BGRa", 4), ("RG24", "raw_RG24", 3),
+               ("CT_UCHAR", "raw_avu8", 2), ("CT_10BIT_2_8", "raw_av28", 2.5),
+               ("CT_SHORT_2_14", "raw_a214", 4),
+               ("CT_USHORT_10_6", "raw_a106", 4), ("CT_SHORT", "raw_av16", 4))
+SCAN_WIDTH, SCAN_HEIGHT, SCAN_BATCH = 4096, 2160, 4
+CUSTOM_TABLES = {"all 1": [1] * 17, "largest": [0xFFFF] * 17}
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
 # quality 4, cap_bits 8): the codec is integer, so the port repeats them
 OVERFLOWED_BANDS, PSNR_DB, RATIO = 57, 47.26, 2.93
@@ -475,6 +513,7 @@ def main() -> int:
                                                  linear2curve_lut)
     from cineform_tpu_torch.ref import geomesh
     from cineform_tpu_torch.ref.intra import rg24_dither
+    from cineform_tpu_torch.spec.production import custom_quant_tables
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
     from cineform_tpu_torch.ops import dwt_forward as dwt
     from cineform_tpu_torch.ops.dwt_forward import (
@@ -520,7 +559,8 @@ def main() -> int:
             also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
             mode="level 1 from the YUY2 bytes (the unpack fused), Y, V, U "
                  "in one launch, bands in the entropy coder's layout",
-            ops_per_elem=40, paths=("yuy2",), library_note=dwt_library),
+            ops_per_elem=40, paths=("yuy2", "encoder_inputs"),
+            library_note=dwt_library),
         "dwt_forward_groups": dict(
             wrapper=dwt_forward_groups, route="cuda", source=dwt_src,
             replaces="cineform_tpu/ops/pallas_dwt2.py:99",
@@ -529,7 +569,8 @@ def main() -> int:
                  "coder's layout: levels 2 and 3 of every 4:2:2 format, "
                  "level 1 of UYVY, YU64 and V210 from the group buffers the "
                  "plain unpack builds", ops_per_elem=40,
-            paths=("yuy2", "yuv10"), library_note=dwt_library,
+            paths=("yuy2", "yuv10", "encoder_inputs"),
+            library_note=dwt_library,
             ms_covers=f"levels 2 and 3 of one batch-{BATCH} 1080p YUY2 "
                       "encode"),
         "dwt_forward_planes": dict(
@@ -540,7 +581,7 @@ def main() -> int:
                  "4 (RGBA, Bayer) equal-size int32 planes in one launch a "
                  "level, level 1 from the planes the plain unpack builds, "
                  "bands in the entropy coder's layout", ops_per_elem=40,
-            paths=("rgb", "bayer"),
+            paths=("rgb", "bayer", "encoder_inputs"),
             library_note=dwt_library,
             ms_covers=f"the 3 levels of one batch-{BATCH} 1080p RG48 "
                       "encode"),
@@ -548,13 +589,13 @@ def main() -> int:
             wrapper=chunk_pack, route="cuda",
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
             replaces="cineform_tpu/ops/pallas_pack.py:135",
-            ops_per_elem=8 * 16, paths=ALL_PATHS),
+            ops_per_elem=8 * 16, paths=ALL_PATHS + ("encoder_inputs",)),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="low-bit-first (encoder concat): guarded OR placement, "
                  "network on flagged rows", ops_per_elem=20,
-            paths=ALL_PATHS),
+            paths=ALL_PATHS + ("encoder_inputs",)),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -563,7 +604,7 @@ def main() -> int:
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry")),
+                               "geometry", "encoder_inputs")),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -571,7 +612,7 @@ def main() -> int:
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry")),
+                               "geometry", "encoder_inputs")),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -2474,19 +2515,19 @@ def main() -> int:
             calls = (lambda: warp_ops.apply_bilinear(dm, wp13),
                      lambda: warp_ops.apply_bilinear(plain, wp13),
                      lambda: warp_ops.blur_vertical(dm, warped))
-            events, counted = [], []
+            events, op_counts = [], []
             for fn in calls:
                 events.append(cuda_ms(torch, fn))
                 with OpCount() as c:
                     fn()
-                counted.append(c.n)
+                op_counts.append(c.n)
             part += (f", the fill recurrences apart (CUDA events around a "
                      f"call): the apply with the blend's "
                      f"{len(dm.blend_columns)} column steps {events[0]:.4f} "
                      f"ms against {events[1]:.4f} ms without, "
-                     f"{counted[0] - counted[1]} ops more; the blur's "
+                     f"{op_counts[0] - op_counts[1]} ops more; the blur's "
                      f"{dm.recurrence_steps['blur_rows']} row steps "
-                     f"{events[2]:.4f} ms and {counted[2]} ops")
+                     f"{events[2]:.4f} ms and {op_counts[2]} ops")
         parts.append(part)
     del wp13, dm, plain
     geo_log("the lens warp, api.Decoder on 1080p YUY2 lens samples (median "
@@ -2652,6 +2693,288 @@ def main() -> int:
                for n, k in kernels.items() if "geometry" in k["paths"]):
         raise AssertionError(f"the geometry path launched {launches_geometry}")
 
+    # --- 12. the encoder inputs: the other formats and the encoder options --
+    t_phase = time.perf_counter()
+    launches_inputs = dict.fromkeys(kernels, 0)
+    in_lines = []
+
+    def in_log(msg):
+        in_lines.append(msg)
+        log(f"{msg} ({the_card})")
+
+    # the probe's raw fill at the film-scan size; its prefix is the fill
+    # of any smaller frame
+    t0 = time.perf_counter()
+    fill = np.frombuffer(raw_fill(SCAN_WIDTH * SCAN_HEIGHT * 4, 1), np.uint8)
+    log(f"raw fill of {fill.nbytes} bytes ({time.perf_counter() - t0:.3f} s)")
+
+    def raw_frames(c, n):
+        """n frames of the raw fill at the codec's size, rolled one row a
+        frame."""
+        one = fill[:c.height * c.row_bytes].reshape(c.height, c.row_bytes)
+        return np.stack([np.roll(one, i, axis=0) for i in range(n)])
+
+    # kernel checks at the phase's new shapes and quantizers (not counted)
+    log("kernel checks, encoder inputs (tolerance 0)")
+    scan = IntraCodec(SCAN_WIDTH, SCAN_HEIGHT, 4, device=dev,
+                      input_format="DPX0")
+    scan_frames = raw_frames(scan, SCAN_BATCH)
+    for fmt, c, frames_ in (("R210", IntraCodec(WIDTH, HEIGHT, 4, device=dev,
+                                                input_format="R210"), None),
+                            ("DPX0", scan, scan_frames)):
+        up = c._upload(raw_frames(c, BATCH) if frames_ is None else frames_)
+        x = unpack_timed(fmt, c, up)
+        t = c.tables()
+        levels = []
+        for lev in range(3):
+            q = [t.band_quant[ch][lev] for ch in range(3)]
+            ps = t.prescale[lev]
+            ll, highs = compare(
+                "dwt_forward_planes", lambda: dwt_forward_planes(x, ps, q),
+                lambda: dwt.plain_planes(x, ps, q),
+                f"{fmt} level {lev + 1} {tuple(x.shape)} prescale {ps} "
+                f"quants {q}", (x,), tally=False, timed=False)
+            levels.append(((ll,), (highs,)))
+            x = ll
+        if fmt == "R210":
+            # noise: chunks that take chunk_pack's tree, rows that take
+            # merge_network's network
+            encode_checks(c, levels, tally=False, timed=False)
+            decode_checks(c, c.encode_batch_device(
+                raw_frames(c, BATCH)), tally=False, timed=False)
+        del up, x, levels, ll, highs
+    for fmt in ("BGRA", "RG24", "CT_SHORT_2_14", "CT_10BIT_2_8"):
+        c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format=fmt)
+        unpack_timed(fmt, c, c._upload(raw_frames(c, BATCH)))
+    yuy2_frames = frames
+    for name, table in CUSTOM_TABLES.items():
+        tables_ = tuple(map(tuple, custom_quant_tables(table, table, 10)))
+        t = IntraCodec(WIDTH, HEIGHT, 4, device=dev,
+                       custom_quant=tables_).tables()
+        up = torch.from_numpy(yuy2_frames).to(dev)
+        q = [t.band_quant[ch][0] for ch in range(3)]
+        x = compare("dwt_forward_yuy2",
+                    lambda: dwt_forward_yuy2(up, 10, 0, q),
+                    lambda: dwt.plain_groups(ops.unpack_yuy2(up), 0, q),
+                    f"custom quantization {name} level 1 quants {q}", (up,),
+                    tally=False, timed=False)[:2]
+        for lev in (1, 2):
+            q = [t.band_quant[ch][lev] for ch in range(3)]
+            ps = t.prescale[lev]
+            x = compare(
+                "dwt_forward_groups", lambda: dwt_forward_groups(x, ps, q),
+                lambda: dwt.plain_groups((x[0][:, 0], x[1][:, 0],
+                                          x[1][:, 1]), ps, q),
+                f"custom quantization {name} level {lev + 1} quants {q}", x,
+                tally=False, timed=False)[:2]
+        del up, x
+    reset_counts()
+
+    # the 320x240 raw_* goldens through api.Encoder on the card
+    near = []
+    for fmt, name, bpp in RAW_GOLDENS:
+        gold = golden("cfhd", name)
+        enc = api.Encoder(dev)
+        enc.prepare_to_encode(320, 240, api.PixelFormat[fmt])
+        enc.attach_metadata(sample_metadata(gold))
+        enc.encode_sample(fill[:int(320 * 240 * bpp)].tobytes())
+        got = enc.get_sample_data()
+        same = sum(a == b for a, b in zip(got, gold)) / min(len(got),
+                                                             len(gold))
+        if got != gold and (fmt != "RG24" or not same > 0.999):
+            raise AssertionError(f"{fmt} through api.Encoder differs from "
+                                 f"{name}.cfhd ({same:.6f} of the bytes)")
+        if got != gold:
+            near.append(f"{fmt} {same:.6f}")
+    in_log(f"the {len(RAW_GOLDENS)} raw_* encode goldens through "
+           f"api.Encoder on the card: byte-equal but "
+           f"{', '.join(near) or 'none'} of the bytes (bound 0.999)")
+
+    def input_batch(fmt, w, h, n, per_decode):
+        """n raw-fill frames of `fmt` at w x h encoded on the card 4 times
+        (a warm-up and 3 timed, the device part and the host tail apart),
+        frames 0 and n-1 equal to the port's CPU path, decoded on the card
+        `per_decode` frames a call with no frame falling back; logs a
+        figures line."""
+        c = IntraCodec(w, h, 4, device=dev, input_format=fmt)
+        frames_ = raw_frames(c, n)
+        enc_dev, enc_host = [], []
+        for it in range(4):
+            packed, ms = host_ms(torch, lambda: c.forward_packed(
+                c._upload(frames_)))
+            enc_dev.append(ms)
+            t0 = time.perf_counter()
+            samples = c.write_samples(frames_, packed)
+            enc_host.append((time.perf_counter() - t0) * 1e3)
+            if it == 0:
+                first = samples
+                overflowed = sum(int(o.sum()) for _, levels in packed
+                                 for _, _, o, _ in levels)
+            elif samples != first:
+                raise AssertionError(f"{fmt}: the encodes differ")
+            del packed
+        ends = [0, n - 1]
+        want = IntraCodec(w, h, 4, device=cpu, input_format=fmt).encode_batch(
+            frames_[ends], frame_numbers=[1, n])
+        if [samples[i] for i in ends] != want:
+            raise AssertionError(f"{fmt}: frames 0 and {n - 1} differ from "
+                                 "the CPU path")
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, dec_ms = [], 0.0
+        for i in range(0, n, per_decode):
+            part = samples[i:i + per_decode]
+            (part, fallback), ms = host_ms(
+                torch, lambda: c.decode_batch_device(part))
+            if fallback:
+                raise AssertionError(f"{fmt}: frames {fallback} of "
+                                     f"{i}..{i + per_decode - 1} fell back")
+            out.append(part)
+            dec_ms += ms
+        out = np.concatenate(out)
+        peak = torch.cuda.max_memory_allocated() - before
+        # PSNR of the decode against the unpacked input, frames 0 and n-1,
+        # at the codec's precision: 12-bit RGB (RG48 >> 4), 10-bit 4:2:2
+        src = c._unpack(torch.from_numpy(frames_[ends]))
+        if c.encoded == "RGB":
+            back = ops.unpack_rg48(torch.from_numpy(
+                np.ascontiguousarray(out[ends]).view(np.uint8)))
+            peak_value = 4095.0
+        else:
+            back = ops.unpack_yuy2(torch.from_numpy(out[ends]))
+            peak_value = 1023.0
+        mse = np.mean([np.mean((a.numpy().astype(np.float64)
+                                - b.numpy()) ** 2)
+                       for a, b in zip(src, back)])
+        ratio = frames_.nbytes / sum(len(s) for s in samples)
+        in_log(f"{fmt} {w}x{h} batch {n}: {overflowed} of "
+               f"{n * c.num_channels * 9} bands overflowed, ratio "
+               f"{ratio:.4f}, PSNR {10 * np.log10(peak_value ** 2 / mse):.4f}"
+               f" dB ({int(peak_value) + 1} levels), encode device "
+               f"{med(enc_dev[1:]) / n:.4f} ms/frame, host tail "
+               f"{med(enc_host[1:]) / n:.4f} ms/frame, decode_batch_device "
+               f"{dec_ms / n:.4f} ms/frame ({per_decode} frames a call), "
+               f"peak {peak} B")
+
+    log("the new input formats, raw fill rolled one row a frame, q4, on "
+        "the card (encode: medians of 3 after a warm-up; frames 0 and the "
+        "last equal to the CPU path; decode: one run, 0 fallback frames)")
+    for fmt, _, _ in RAW_GOLDENS:
+        input_batch(fmt, WIDTH, HEIGHT, BATCH, BATCH)
+    # the film-scan batch's noise needs more than the card's 80 GB decoded
+    # in one call: two frames a call
+    input_batch("DPX0", SCAN_WIDTH, SCAN_HEIGHT, SCAN_BATCH, 2)
+
+    # the encoder options at 1080p
+    yuy2_c = IntraCodec(WIDTH, HEIGHT, 4, device=dev)
+    preset = yuy2_c.encode_batch_device(yuy2_frames, metadata=meta)
+    coarse = tuple(map(tuple, custom_quant_tables(*[[4] + [40] * 16] * 2,
+                                                  10)))
+    custom_c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, custom_quant=coarse)
+    custom, ms = host_ms(torch, lambda: custom_c.encode_batch_device(
+        yuy2_frames, metadata=meta))
+    want = IntraCodec(WIDTH, HEIGHT, 4, device=cpu,
+                      custom_quant=coarse).encode_batch(
+        yuy2_frames[[0, BATCH - 1]], metadata=meta,
+        frame_numbers=[1, BATCH])
+    if [custom[0], custom[-1]] != want or not all(
+            len(a) < len(b) for a, b in zip(custom, preset)):
+        raise AssertionError("custom quantization: differs from the CPU path "
+                             "or is not smaller than the preset's samples")
+    in_log(f"custom quantization [4] + [40] * 16, batch {BATCH}: frames 0 "
+           f"and {BATCH - 1} equal to the CPU path, {sum(map(len, custom))} "
+           "bytes "
+           f"against the preset's {sum(map(len, preset))}, "
+           f"{ms / BATCH:.4f} ms/frame")
+
+    def api_both(fmt, w, h, frames_, quality=4, flags=0, metadata=None):
+        """The frames through api.Encoder on the card and on the CPU: the
+        card's samples, equal to the CPU's, and their ms/frame."""
+        out, times = [], []
+        for d in (dev, cpu):
+            enc = api.Encoder(d)
+            enc.prepare_to_encode(w, h, api.PixelFormat[fmt],
+                                  encoding_flags=api.EncodingFlags(flags),
+                                  quality=quality)
+            enc.attach_metadata(metadata)
+            samples = []
+            for f in frames_:
+                _, ms = host_ms(torch, lambda: enc.encode_sample(f))
+                samples.append(enc.get_sample_data())
+                if d == dev:
+                    times.append(ms)
+            out.append(samples)
+        if out[0] != out[1]:
+            raise AssertionError(f"api.Encoder {fmt} quality {quality:#x} "
+                                 f"flags {flags}: the card differs from the "
+                                 "CPU")
+        return out[0], med(times)
+
+    override_dir = tempfile.mkdtemp()
+    os.environ["CINEFORM_OVERRIDE_PATH"] = override_dir
+    os.environ["CINEFORM_LUT_PATH"] = override_dir
+    ov_lines = []
+    for tags_ in ((b"LYUV",), (b"CV67",), (b"LYUV", b"CV67")):
+        with open(os.path.join(override_dir, "override.colr"), "wb") as f:
+            f.write(b"".join(t + (4).to_bytes(3, "little") + b"H"
+                             + (1).to_bytes(4, "little") for t in tags_))
+        got, ms = api_both("YUY2", WIDTH, HEIGHT, yuy2_frames[:2],
+                           metadata=meta)
+        if got[0] == preset[0]:
+            raise AssertionError(f"{tags_}: the override changed nothing")
+        ov_lines.append(f"{'+'.join(t.decode() for t in tags_)} "
+                        f"{ms:.4f} ms/frame")
+    os.remove(os.path.join(override_dir, "override.colr"))
+    os.rmdir(override_dir)
+    del os.environ["CINEFORM_OVERRIDE_PATH"], os.environ["CINEFORM_LUT_PATH"]
+    in_log("LYUV/CV67 from override.colr through api.Encoder, 2 frames "
+           "each, equal to the CPU: " + "; ".join(ov_lines))
+
+    v210_c = IntraCodec(WIDTH, HEIGHT, 4, device=dev, input_format="V210")
+    v210_series = [np.roll(np.frombuffer(v210_frame(WIDTH, HEIGHT, 1),
+                                         np.uint8).reshape(HEIGHT, -1),
+                           i, axis=0) for i in range(12)]
+    unc, ms = api_both("V210", WIDTH, HEIGHT, v210_series, 0x0404,
+                       metadata=meta)
+    raw = [len(s) > HEIGHT * v210_c.row_bytes for s in unc]
+    if all(raw) or not any(raw):
+        raise AssertionError(f"V210 passthrough: decisions {raw}")
+    in_log(f"V210 passthrough 0x0404, 12 frames through api.Encoder, equal "
+           f"to the CPU: decisions {''.join('U' if r else 'C' for r in raw)}"
+           f" (U raw, C compressed at q5 labelled 6), {ms:.4f} ms/frame")
+
+    ilace = GopCodec(WIDTH, HEIGHT, 4, device=dev, progressive=False)
+    ilace_f1 = np.stack([np.roll(f, 1, axis=0) for f in yuy2_frames])
+    groups, ms = host_ms(torch, lambda: ilace.encode_batch(
+        yuy2_frames, ilace_f1, metadata=meta))
+    want = GopCodec(WIDTH, HEIGHT, 4, device=cpu,
+                    progressive=False).encode_batch(
+        yuy2_frames[[0, BATCH - 1]], ilace_f1[[0, BATCH - 1]],
+        metadata=meta, frame_numbers=[1, BATCH])
+    if [groups[0], groups[-1]] != want:
+        raise AssertionError("interlaced groups: differ from the CPU path")
+    gold = golden("cfhd.f1", "ilace_320x240_q4_p1")
+    enc = api.Encoder(dev)
+    enc.prepare_to_encode(320, 240, api.PixelFormat.YUY2,
+                          encoding_flags=api.EncodingFlags(3))
+    enc.attach_metadata(sample_metadata(gold))
+    for p in (1, 2):
+        enc.encode_sample(yuy2_frame(320, 240, p))
+    if enc.get_sample_data() != gold:
+        raise AssertionError("interlaced group differs from "
+                             "ilace_320x240_q4_p1.cfhd.f1")
+    in_log(f"interlaced GOP, {BATCH} {HEIGHT}i pairs through GopCodec: "
+           f"groups 0 and {BATCH - 1} equal to the CPU path, "
+           f"{ms / BATCH:.4f} ms/group; "
+           "ilace_320x240_q4_p1.cfhd.f1 byte-equal through api.Encoder")
+    book(launches_inputs)
+    if not all(launches_inputs[n]
+               for n, k in kernels.items() if "encoder_inputs" in k["paths"]):
+        raise AssertionError(f"the encoder inputs path launched "
+                             f"{launches_inputs}")
+    in_log(f"launches during the encoder inputs path: {launches_inputs}; "
+           f"phase {time.perf_counter() - t_phase:.3f} s")
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -2665,7 +2988,8 @@ def main() -> int:
                "gop": launches_gop,
                "stereo": launches_stereo, "api": launches_api,
                "pool": launches_pool, "outputs": launches_outputs,
-               "scaled": launches_scaled, "geometry": launches_geometry}
+               "scaled": launches_scaled, "geometry": launches_geometry,
+               "encoder_inputs": launches_inputs}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

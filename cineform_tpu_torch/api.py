@@ -14,10 +14,15 @@ package's API does:
 Every encode and decode runs on one torch device, the card unless the
 caller passes `device="cpu"`, through the port's codecs: intra frames
 through `models.intra.IntraCodec` (`encode_batch_device`,
-`decode_batch_device`), two-frame GOP groups through `models.gop.GopCodec`
-and stereo samples through `models.stereo`.  There is no host codec to
-fall back to: an error of a kernel's build or launch reaches the caller.
-What the JAX API does on the host and no port codec does yet raises
+`decode_batch_device`; the encoder's custom quantization, LYUV/CV67 input
+transform and V210 passthrough's fallback frames as `IntraCodec` options),
+two-frame GOP groups, progressive and interlaced, through
+`models.gop.GopCodec` and stereo samples through `models.stereo`; the
+V210 passthrough's raw samples are written on the host, as the JAX API
+writes them.  There is no host codec to fall back to: an error of a
+kernel's build or launch reaches the caller.  What the JAX API does on
+the host and no port codec does yet (the Bayer develop's LOOK, vignette,
+BLSH and gamma stages, the 3D composite) raises
 `CFHDError(BADFORMAT, "... not ported yet")`.
 
 Errors raise CFHDError carrying the CFHD_ERROR_* code instead of returning
@@ -37,14 +42,16 @@ import torch
 
 from cineform_tpu_torch.bitstream import parse_sample
 from cineform_tpu_torch.models import active_metadata as am
-from cineform_tpu_torch.models import gop_host, lens, stereo, thumbnail
+from cineform_tpu_torch.models import (gop_host, intra_host, lens, stereo,
+                                       thumbnail)
 from cineform_tpu_torch.models.gop import GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.models.intra_host import EncoderMetadata
 from cineform_tpu_torch.ops import scaler
 from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 from cineform_tpu_torch.spec import tags
-from cineform_tpu_torch.spec.production import update_fs_rate_limiter
+from cineform_tpu_torch.spec.production import (custom_quant_tables,
+                                                update_fs_rate_limiter)
 from cineform_tpu_torch.utils import override_db
 
 
@@ -231,16 +238,21 @@ def bayer_develop(sample: bytes, parsed, output: str):
 
 @functools.lru_cache(maxsize=32)
 def intra_codec(width: int, height: int, quality: int, fmt: str,
-                device: torch.device,
-                fs_rate_limiter: int | None = None) -> IntraCodec:
+                device: torch.device, fs_rate_limiter: int | None = None,
+                custom_quant: tuple | None = None,
+                convert: tuple[int, int] | None = None,
+                quality_tag: int | None = None) -> IntraCodec:
     return IntraCodec(width, height, quality, device=device,
-                      input_format=fmt, fs_rate_limiter=fs_rate_limiter)
+                      input_format=fmt, fs_rate_limiter=fs_rate_limiter,
+                      custom_quant=custom_quant, convert=convert,
+                      quality_tag=quality_tag)
 
 
 @functools.lru_cache(maxsize=16)
-def gop_codec(width: int, height: int, quality: int,
-              device: torch.device) -> GopCodec:
-    return GopCodec(width, height, quality, device=device)
+def gop_codec(width: int, height: int, quality: int, device: torch.device,
+              progressive: bool = True) -> GopCodec:
+    return GopCodec(width, height, quality, device=device,
+                    progressive=progressive)
 
 
 #: the decoders' codec quality: a decode reads every quantizer from the
@@ -256,30 +268,31 @@ class Encoder:
     """Synchronous sample encoder (`EncoderSDK/SampleEncoder.cpp:115-620`)
     on `device`."""
 
+    INPUT_FORMATS = (PixelFormat.YUY2, PixelFormat.UYVY, PixelFormat.V210,
+                     PixelFormat.YU64, PixelFormat.RG48, PixelFormat.B64A,
+                     PixelFormat.R210, PixelFormat.DPX0, PixelFormat.RG30,
+                     PixelFormat.AB10, PixelFormat.AR10, PixelFormat.BGRA,
+                     PixelFormat.RG24, PixelFormat.RG64, PixelFormat.BYR4,
+                     PixelFormat.BYR5, PixelFormat.CT_UCHAR,
+                     PixelFormat.CT_10BIT_2_8, PixelFormat.CT_SHORT_2_14,
+                     PixelFormat.CT_USHORT_10_6, PixelFormat.CT_SHORT,
+                     PixelFormat.BGRa)
     #: the input formats, each as `IntraCodec` names it
-    CODEC_FORMATS = {PixelFormat.YUY2: "YUY2", PixelFormat.UYVY: "UYVY",
-                     PixelFormat.V210: "V210", PixelFormat.YU64: "YU64",
-                     PixelFormat.RG48: "RG48", PixelFormat.B64A: "B64A",
-                     PixelFormat.RG64: "RG64", PixelFormat.BYR4: "BYR4",
-                     PixelFormat.BYR5: "BYR5"}
-    INPUT_FORMATS = tuple(CODEC_FORMATS)
-    #: the JAX API's other input formats, which it encodes on the host
-    NOT_PORTED_FORMATS = (PixelFormat.R210, PixelFormat.DPX0,
-                          PixelFormat.RG30, PixelFormat.AB10,
-                          PixelFormat.AR10, PixelFormat.BGRA,
-                          PixelFormat.BGRa, PixelFormat.RG24,
-                          PixelFormat.CT_UCHAR, PixelFormat.CT_10BIT_2_8,
-                          PixelFormat.CT_SHORT_2_14,
-                          PixelFormat.CT_USHORT_10_6, PixelFormat.CT_SHORT)
+    CODEC_FORMATS = {pf: pf.name for pf in INPUT_FORMATS}
     #: the input formats of each encoded format but 4:2:2, which takes any
-    _FAMILIES = {EncodedFormat.RGB_444: (PixelFormat.RG48,),
+    _FAMILIES = {EncodedFormat.RGB_444: (PixelFormat.RG48, PixelFormat.R210,
+                                         PixelFormat.DPX0, PixelFormat.RG30,
+                                         PixelFormat.AB10, PixelFormat.AR10,
+                                         PixelFormat.BGRA, PixelFormat.RG24),
                  EncodedFormat.RGBA_4444: (PixelFormat.B64A,
                                            PixelFormat.RG64),
                  EncodedFormat.BAYER: (PixelFormat.BYR4, PixelFormat.BYR5)}
     #: the formats the FILMSCAN2/3 rate control applies to (the JAX API's
     #: 4:2:2 routes; its RGB and Bayer encoders keep the first frame's)
     _RATE_CONTROLLED = (PixelFormat.YUY2, PixelFormat.UYVY, PixelFormat.V210,
-                        PixelFormat.YU64)
+                        PixelFormat.YU64, PixelFormat.CT_UCHAR,
+                        PixelFormat.CT_10BIT_2_8, PixelFormat.CT_SHORT_2_14,
+                        PixelFormat.CT_USHORT_10_6, PixelFormat.CT_SHORT)
 
     def __init__(self, device: torch.device | str = "cuda") -> None:
         self.device = torch.device(device)
@@ -287,6 +300,7 @@ class Encoder:
         self._sample: bytes | None = None
         self._frame_number = 0
         self._fs_limiter = None
+        self._custom_quant = None
         self._metadata = None
 
     # CFHD_GetInputFormats
@@ -300,8 +314,6 @@ class Encoder:
                           encoding_flags: EncodingFlags = EncodingFlags.NONE,
                           quality: EncodingQuality = EncodingQuality.FILMSCAN1,
                           ) -> None:
-        if pixel_format in self.NOT_PORTED_FORMATS:
-            raise _not_ported(f"encoding {pixel_format!r}")
         if pixel_format not in self.INPUT_FORMATS:
             raise CFHDError(ErrorCode.BADFORMAT, f"{pixel_format!r}")
         # RGB/RGBA/Bayer inputs imply their natural encoded format (the
@@ -321,8 +333,6 @@ class Encoder:
                 (encoding_flags & EncodingFlags.YUV_2FRAME_GOP):
             raise CFHDError(ErrorCode.BADFORMAT,
                             "interlaced encoding requires the 2-frame GOP")
-        if encoding_flags & EncodingFlags.YUV_INTERLACED:
-            raise _not_ported("interlaced 2-frame GOP encoding")
         self.width = width
         self.height = height
         self.pixel_format = pixel_format
@@ -332,9 +342,15 @@ class Encoder:
         #: full quality word incl. the *_UNCOMPRESSED target bits 8-12
         #: (`Common/CFHDTypes.h:210-216`, `Codec/encoder.c:1979`)
         self.quality_word = int(quality)
-        self.row_bytes = IntraCodec(width, height, 4, device="cpu",
-                                    input_format=self.CODEC_FORMATS[
-                                        pixel_format]).row_bytes
+        #: the input format's layout (its row bytes and header code)
+        self._codec_format = IntraCodec(width, height, 4, device="cpu",
+                                        input_format=self.CODEC_FORMATS[
+                                            pixel_format])
+        self.row_bytes = self._codec_format.row_bytes
+        self._unc_last16 = [0] * 16
+        #: True once a compressed frame has initialized the codec state
+        #: (prescale table); uncompressed samples switch header form then
+        self._compressed_encoded = False
         self._pending_gop_frame = None
         self._prepared = True
 
@@ -359,9 +375,16 @@ class Encoder:
         return ov
 
     def set_custom_quantization(self, quant_y, quant_c=None) -> None:
-        """The low-level codec API's custom_quant struct
-        (`Codec/encoder.c:1143`)."""
-        raise _not_ported("custom quantization")
+        """Custom per-subband quantization (the low-level codec API's
+        custom_quant struct, `Codec/encoder.c:1143`): 17-entry luma and
+        chroma tables in place of the quality presets, with the
+        reference's precision scaling and gop-length remap on top
+        (`spec.production.custom_quant_tables`).  As in the JAX API, they
+        apply to the plain YUY2 intra route only: the other formats, the
+        LYUV/CV67 route and the 2-frame GOP ignore them."""
+        self._custom_quant = tuple(map(tuple, custom_quant_tables(
+            list(quant_y), list(quant_c if quant_c is not None else quant_y),
+            tags.PRECISION_10BIT, gop_length=1)))
 
     # CFHD_EncodeSample
     def encode_sample(self, frame: bytes | np.ndarray,
@@ -390,28 +413,59 @@ class Encoder:
                     self.width, self.height)
         if self.encoding_flags & EncodingFlags.YUV_2FRAME_GOP:
             self._sample = self._encode_gop(frames)
+            self._compressed_encoded = True
             return
+        quality, options = int(self.quality), {}
         if self.pixel_format == PixelFormat.YUY2:
             ov = self._encoder_overrides()
             if ov.get("limit_yuv") or ov.get("conv_601_709"):
                 # LYUV/CV67 transform the input pixels during unpack
-                # (`Codec/convert.c:5176-5290`)
-                raise _not_ported("the LYUV/CV67 encoder overrides")
-        if self.pixel_format == PixelFormat.V210 and \
+                # (`Codec/convert.c:5176-5290`); no custom quantization
+                options["convert"] = (ov.get("limit_yuv", 0),
+                                      ov.get("conv_601_709", 0))
+            else:
+                options["custom_quant"] = self._custom_quant
+        elif self.pixel_format == PixelFormat.V210 and \
                 (self.quality_word >> 8) & 0x1F:
-            # `Codec/encoder.c:1971-2026`
-            raise _not_ported("V210 uncompressed passthrough")
+            # uncompressed passthrough (`Codec/encoder.c:1971-2026`): the
+            # frame rolls the per-frame decision; a frame not chosen is
+            # quantized with the q5 tables and labelled quality 6
+            if self._encode_uncompressed(buf):
+                return
+            quality, options["quality_tag"] = 5, 6
         limiter = (self._fs_limiter
                    if self.pixel_format in self._RATE_CONTROLLED else None)
-        codec = intra_codec(self.width, self.height, int(self.quality),
+        codec = intra_codec(self.width, self.height, quality,
                             self.CODEC_FORMATS[self.pixel_format],
-                            self.device, limiter)
+                            self.device, limiter, **options)
         # per-frame metadata: the codec advances UFRM and the timecode to
         # the frame number, as the reference does on every EncodeSample
         # (`SampleEncoder.cpp:795-880`)
         self._sample = codec.encode_batch_device(
             frames, frame_numbers=[self._frame_number],
             metadata=[self._metadata])[0]
+        # the codec state (prescale table) is initialized by the first
+        # compressed frame
+        self._compressed_encoded = True
+
+    def _encode_uncompressed(self, buf: np.ndarray) -> bool:
+        """Roll the uncompressed passthrough's decision for the frame
+        `buf` (`intra_host.uncompressed_decision`, seeded from the frame's
+        first word and the CRC32 of the frame's metadata block, as the
+        codec advances it); where it is chosen, write its raw rows as the
+        sample and return True."""
+        _, (meta,) = self._codec_format._frame_meta(
+            1, None, [self._frame_number], [self._metadata])
+        head = int.from_bytes(buf[:4].tobytes(), "little")
+        if not intra_host.uncompressed_decision(
+                head, meta.block(), self.quality_word, self._unc_last16):
+            return False
+        self._sample = intra_host.write_sample_uncompressed(
+            buf.tobytes(), self.width, self.height, self.quality_word,
+            self._frame_number, meta,
+            input_format=self._codec_format.input_format_code,
+            later_form=self._compressed_encoded)
+        return True
 
     def _encode_gop(self, frames: np.ndarray) -> bytes:
         """The 2-frame GOP streaming protocol (byte-exact against the
@@ -431,7 +485,8 @@ class Encoder:
         # the group's FRAME_NUMBER is the display number of its first
         # frame (1, 3, 5, ... across the stream)
         codec = gop_codec(self.width, self.height, int(self.quality),
-                          self.device)
+                          self.device, not (self.encoding_flags
+                                            & EncodingFlags.YUV_INTERLACED))
         return codec.encode_batch(first, frames, self._frame_number - 1,
                                   self._metadata)[0]
 

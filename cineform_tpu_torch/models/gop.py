@@ -9,9 +9,13 @@ host is the JAX package's, but for the decode of the temporal-high LL:
   lowpass buffers (plain PyTorch), then one `dwt_forward_groups` launch
   for each of the three spatial wavelets of the group: w3 of the temporal
   high with the narrow-row quirk's row-0 carry, w4 of the temporal low
-  with prescale 2, w5 of w4's LL.  Five DWT launches a batch.  The host
-  codes the bands with the C++ coder and writes the GROUP samples
-  (`gop_host.write_group`).
+  with prescale 2, w5 of w4's LL.  Five DWT launches a batch.  An
+  interlaced codec (`progressive=False`) takes w0 and w1 from the
+  HORZTEMP frame wavelet of each frame instead (`ops.intra_transform.
+  frame_wavelet_forward`, plain PyTorch: the row-pair temporal, the
+  horizontal 2-6, the delta-coded HL), with the interlaced quantizers;
+  three DWT launches a batch.  The host codes the bands with the C++
+  coder and writes the GROUP samples (`gop_host.write_group`).
 - decode on the device (`decode_batch_device`): the host walks the sample
   headers and copies the band payloads into row buffers, and reads the
   temporal-high LL (subband 7, a raw 16-bit band) as it reads the
@@ -53,7 +57,8 @@ from cineform_tpu_torch.ops import bgra
 from cineform_tpu_torch.ops import intra_transform as ops
 from cineform_tpu_torch.ops import yuv_output as yout
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
-                                                dwt_forward_yuy2)
+                                                dwt_forward_yuy2,
+                                                group_layout)
 from cineform_tpu_torch.ref import gop as gxf
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.state import dither_rows
@@ -85,19 +90,22 @@ def _raw16(band) -> np.ndarray:
 @dataclass(frozen=True)
 class GopCodec:
     """A FIELDPLUS group codec for one (width, height, quality) on one
-    torch device: the card unless the caller asks for another."""
+    torch device: the card unless the caller asks for another.
+    `progressive` is the encode's: False encodes interlaced pairs; a
+    decode reads it from each sample."""
 
     width: int
     height: int
     quality: int = 4
     device: torch.device | str = "cuda"
+    progressive: bool = True
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
 
     def band_quant(self, channel: int) -> dict:
         return gxf.fieldplus_band_quant(self.quality, tags.PRECISION_10BIT,
-                                        channel)
+                                        channel, self.progressive)
 
     def _quants(self, k: int):
         """Wavelet k's (LH, HL, HH) quantizers of Y, V, U."""
@@ -119,7 +127,9 @@ class GopCodec:
         entropy coder's layout.  w3's lows are its coded LL (quantizer 1,
         the identity)."""
         pre = tags.PRECISION_10BIT
-        levels = {k: dwt_forward_yuy2(f, pre, 0, self._quants(k))
+        level1 = dwt_forward_yuy2 if self.progressive else \
+            self._frame_wavelets
+        levels = {k: level1(f, pre, 0, self._quants(k))
                   for k, f in ((0, frames0), (1, frames1))}
         (l0, _), (l1, _) = levels[0], levels[1]
         tlow = tuple(ops.sat16(a + b) for a, b in zip(l0, l1))
@@ -129,6 +139,19 @@ class GopCodec:
         levels[4] = dwt_forward_groups(tlow, 2, self._quants(4))
         levels[5] = dwt_forward_groups(levels[4][0], 0, self._quants(5))
         return levels
+
+    @staticmethod
+    def _frame_wavelets(frames, precision, prescale, quants):
+        """An interlaced group's frame wavelet w0 or w1 of (B, H, 2W) uint8
+        YUY2 frames, as `dwt_forward_yuy2` lays out a spatial level 1:
+        (lows, highs) by channel group (`ops.frame_wavelet_forward` of Y,
+        V and U, the HL band delta-coded)."""
+        outs = [ops.frame_wavelet_forward(p, q) for p, q in zip(
+            ops.unpack_yuy2(frames, precision), quants)]
+        lows = (outs[0][0][:, None],
+                torch.stack([outs[1][0], outs[2][0]], dim=1))
+        return lows, (group_layout([outs[0][1]]),
+                      group_layout([outs[1][1], outs[2][1]]))
 
     @staticmethod
     def row0_carry(tlow, thigh):
@@ -185,7 +208,7 @@ class GopCodec:
                            for k, bs in bands.items()}, quants[ch])
              for ch, (lowpass, bands) in enumerate(coeffs)],
             self.width, self.height, self.quality, frame_numbers[i],
-            metadata[i]) for i in range(batch)]
+            metadata[i], self.progressive) for i in range(batch)]
 
     def encode_batch(self, frames0: np.ndarray, frames1: np.ndarray,
                      first_frame_number: int = 1, metadata=None,

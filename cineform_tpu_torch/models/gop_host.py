@@ -3,10 +3,12 @@ subband map and its writer.
 
 A copy of the parts of the JAX package's `models/gop_host.py` that the GOP
 codec and the API use: `SUBBAND_MAP`, the band-end marker, `write_group`
-for a progressive group, whose bands the C++ coder codes
-(`intra_host.encode_band_payload`), and the GOP stream's two header
-samples (`sequence_header`, `frame_header_sample`).  Its samples equal the
-reference encoder's byte for byte (tests/golden/samples/gop_*.cfhd.f1).
+for a progressive or interlaced group, whose bands the C++ coder codes
+(`intra_host.encode_band_payload`; an interlaced group's frame-wavelet
+HL bands with codeset 18 and a peaks table), and the GOP stream's two
+header samples (`sequence_header`, `frame_header_sample`).  Its samples
+equal the reference encoder's byte for byte
+(tests/golden/samples/gop_*.cfhd.f1, ilace_*.cfhd.f1).
 
 The GROUP layout, captured from the reference: the SAMPLE=2 header, the
 lowpass, then per channel the wavelets w5, w4, w3 (whose LL, subband 7, is
@@ -50,11 +52,15 @@ BANDEND_MARKER = (_CS17.bandend_bits << (32 - _CS17.bandend_size)
 
 def write_group(channels, width: int, height: int, quality: int,
                 frame_number: int = 1,
-                metadata: EncoderMetadata | None = None) -> bytes:
-    """Assemble a progressive GROUP sample from per-channel (lowpass,
-    bands, quants): bands[k] holds wavelet k's coded bands, w0/w1/w4/w5
-    (LH, HL, HH) and w3 (LL, LH, HL, HH), and quants[k] their quantizers
-    (`ref.gop.fieldplus_band_quant`)."""
+                metadata: EncoderMetadata | None = None,
+                progressive: bool = True) -> bytes:
+    """Assemble a GROUP sample from per-channel (lowpass, bands, quants):
+    bands[k] holds wavelet k's coded bands, w0/w1/w4/w5 (LH, HL, HH) and
+    w3 (LL, LH, HL, HH), and quants[k] their quantizers
+    (`ref.gop.fieldplus_band_quant`).  An interlaced group
+    (`progressive=False`) writes no SAMPLE_FLAGS tag and codes the HL band
+    of the frame wavelets w0 and w1, delta-coded, with codeset 18 and a
+    peaks table."""
     scales = gxf.fieldplus_band_scales()
     prescale = gxf.FIELDPLUS_PRESCALE
 
@@ -89,7 +95,10 @@ def write_group(channels, width: int, height: int, quality: int,
     w.put_tag_optional(tags.PROTECTION_FLAGS, 0)
     w.put_tag_optional(tags.PICTURE_ASPECT_X, 16)
     w.put_tag_optional(tags.PICTURE_ASPECT_Y, 9)
-    w.put_tag(tags.SAMPLE_FLAGS, tags.SAMPLE_FLAGS_PROGRESSIVE)
+    if progressive:
+        # interlaced groups omit the tag; the decoder's default is
+        # interlaced (`PutVideoGroupHeader` emits it only when progressive)
+        w.put_tag(tags.SAMPLE_FLAGS, tags.SAMPLE_FLAGS_PROGRESSIVE)
 
     channel_sizes = []
     for ch in range(3):
@@ -118,34 +127,65 @@ def write_group(channels, width: int, height: int, quality: int,
         w.pop_chunk()
 
         def band_header(band_number, subband, bw, bh, quant, scale,
-                        encoding=tags.BAND_ENCODING_RUNLENGTHS):
+                        encoding=tags.BAND_ENCODING_RUNLENGTHS,
+                        coding_flags=1, peak_off=None):
             w.put_marker(tags.BAND_START_CODE)
             w.put_tag(tags.BAND_NUMBER, band_number)
-            w.put_tag(tags.BAND_CODING_FLAGS, 1)
+            w.put_tag(tags.BAND_CODING_FLAGS, coding_flags)
             w.put_tag(tags.BAND_WIDTH, bw)
             w.put_tag(tags.BAND_HEIGHT, bh)
             w.put_tag(tags.BAND_SUBBAND, subband)
             w.put_tag(tags.BAND_ENCODING, encoding)
             w.put_tag(tags.BAND_QUANTIZATION, quant)
             w.put_tag(tags.BAND_SCALE, scale)
+            if peak_off is not None:
+                # the peaks table's three placeholder tags, patched after
+                # the band
+                peak_off.append(len(w.buf))
+                w.put_tag_optional(tags.PEAK_TABLE_OFFSET_L, 0)
+                w.put_tag_optional(tags.PEAK_TABLE_OFFSET_H, 0)
+                w.put_tag_optional(tags.PEAK_LEVEL, 0)
             w.push_chunk(tags.SUBBAND_SIZE)
             w.put_tag(tags.BAND_HEADER, 0)
 
-        def put_band(band_number, subband, vals, quant, scale, raw=False):
+        def put_band(band_number, subband, vals, quant, scale, raw=False,
+                     peaks=False):
             bh, bw = vals.shape
+            peak_off, peak_list = [] if peaks else None, None
+            if peaks:
+                # peaks coding (`Codec/encoder.c:6445` EncodeQuantLongRuns
+                # PlusPeaks): values beyond PEAK_THRESHOLD=250 are clamped
+                # to +/-251 in the stream and carried dequantized in a
+                # PEAK_TABLE chunk after the band
+                vals = np.asarray(vals, np.int32)
+                mask = np.abs(vals) > 250
+                peak_list = (vals[mask] * quant).astype(np.int16)
+                vals = np.where(mask, np.sign(vals) * 251, vals)
             band_header(band_number, subband, bw, bh, quant, scale,
                         tags.BAND_ENCODING_16BIT if raw
-                        else tags.BAND_ENCODING_RUNLENGTHS)
+                        else tags.BAND_ENCODING_RUNLENGTHS,
+                        18 if peaks else 1, peak_off)
             if raw:
                 # the temporal-high LL (subband 7): raw big-endian
                 # coefficients and the codeset's band-end marker
                 w.put_bytes(np.asarray(vals, dtype=">i2").tobytes())
                 w.put_bytes(BANDEND_MARKER)
             else:
-                w.put_bytes(intra_host.encode_band_payload(vals))
+                w.put_bytes(intra_host.encode_band_payload(
+                    vals, 18 if peaks else 17))
             w.pad_to_tag()
             w.put_tag(tags.BAND_TRAILER, 0)
             w.pop_chunk()
+            if peaks and len(peak_list):
+                n = len(peak_list)
+                rounded = n + (n & 1)
+                delta = len(w.buf) - peak_off[0]
+                w.patch_tag_value(peak_off[0], delta & 0xFFFF)
+                w.patch_tag_value(peak_off[0] + 4, delta >> 16)
+                w.patch_tag_value(peak_off[0] + 8, (250 * quant) & 0xFFFF)
+                w.put_tag_optional(tags.PEAK_TABLE, rounded // 2)
+                w.put_bytes(peak_list.astype("<i2").tobytes()
+                            + b"\x00\x00" * (rounded - n))
 
         def wavelet_header(wtype, number, level, nbands, bw, bh, lscale):
             w.put_marker(tags.HIGHPASS_START_CODE)
@@ -195,14 +235,16 @@ def write_group(channels, width: int, height: int, quality: int,
         w.pop_chunk()
         wavelet_trailer()
         # w1 (number 2, level 1): subbands 11-13 (frame 1); w0 (number 1,
-        # level 1): subbands 14-16 (frame 0)
+        # level 1): subbands 14-16 (frame 0).  Interlaced frame wavelets
+        # difference-code the HL band and code it with codeset 18 (band
+        # coding flags 18) and peaks.
         for k, number, first in ((1, 2, 11), (0, 1, 14)):
             bh, bw = bands[k][0].shape
             wavelet_header(tags.WAVELET_TYPE_HORZTEMP, number, 1, 4, bw, bh,
                            scales[k][0])
             for i in range(3):
                 put_band(i + 1, first + i, bands[k][i], bq[k][i],
-                         scales[k][i + 1])
+                         scales[k][i + 1], peaks=not progressive and i == 1)
             wavelet_trailer()
         w.pad_to_tag()
         channel_sizes.append(len(w.buf) - start)

@@ -1,6 +1,7 @@
-"""CFHD intra codec on a torch device: 4:2:2 (YUY2, UYVY, YU64, V210), RGB
-4:4:4 (RG48), RGBA 4:4:4:4 (B64A, RG64) and Bayer (BYR4, BYR5) encode and
-decode.
+"""CFHD intra codec on a torch device: 4:2:2 (YUY2, UYVY, YU64, V210 and
+the Avid CT family), RGB 4:4:4 (RG48, the packed 10-bit R210, DPX0, RG30,
+AB10, AR10 and the 8-bit BGRA, BGRa, RG24), RGBA 4:4:4:4 (B64A, RG64) and
+Bayer (BYR4, BYR5) encode and decode.
 
 Port of `cineform_tpu.models.intra.IntraCodec`.  The split between device
 and host is the JAX package's:
@@ -9,8 +10,9 @@ and host is the JAX package's:
   level for all the channels, the bands written in the entropy coder's
   layout (kernels `ops.dwt_forward`; YUY2's level 1 reads the frames'
   bytes, the other formats' the planes that the plain `unpack_*` builds on
-  the device), then per (wavelet level, channel group) the band entropy
-  encoder (`entropy.device.encode_band_arrays`, kernels
+  the device, as does a YUY2 frame through the LYUV/CV67 input transform
+  `limit_convert_yuy2`), then per (wavelet level, channel group) the band
+  entropy encoder (`entropy.device.encode_band_arrays`, kernels
   `ops.chunk_pack` and `ops.merge_network`) on the device; the host
   appends band-end codes (`finish_band_bytes`) and writes the CFHD sample
   (`intra_host.write_sample`).  A band that overflows its device capacity
@@ -72,9 +74,10 @@ from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
 
-# The input formats the port encodes: the COLOR_FORMAT code of the sample
-# header, the bytes of a frame row, and the encoded format
-# (`Codec/encoder.c:2109-2135`):
+# The input formats the port encodes, by `api.PixelFormat`'s names: the
+# COLOR_FORMAT code of the sample header, the bytes of a frame row, the
+# encoded format (`Codec/encoder.c:2109-2135`), and the QUALITY_H bits the
+# reference writes for the 8-bit RGB inputs:
 #   YUV       = 10-bit 4:2:2, 3 channels (W, W/2, W/2)
 #   RGB       = 12-bit 4:4:4, 3 full-width channels [G, R, B],
 #               chroma_full_res
@@ -96,6 +99,40 @@ _DEVICE_FORMATS = {
     "BYR4": {"code": 104, "row_bytes": lambda w: 2 * w, "encoded": "BAYER"},
     "BYR5": {"code": 105, "row_bytes": lambda w: 3 * w // 2,
              "encoded": "BAYER"},
+    **{fmt: {"code": code, "row_bytes": lambda w: 4 * w, "encoded": "RGB"}
+       for fmt, code in (("R210", 123), ("DPX0", 128), ("RG30", 122),
+                         ("AB10", 125), ("AR10", 124))},
+    "BGRA": {"code": 32, "row_bytes": lambda w: 4 * w, "encoded": "RGB",
+             "quality_high": 0x09A0},
+    "BGRa": {"code": 9, "row_bytes": lambda w: 4 * w, "encoded": "RGB",
+             "quality_high": 0x09A0},
+    "RG24": {"code": 7, "row_bytes": lambda w: 3 * w, "encoded": "RGB",
+             "quality_high": 0x09A0},
+    # the Avid CT family (`Codec/color.h:104-108`); av28's frame is two
+    # planes, 5W/2 bytes a row on average
+    "CT_UCHAR": {"code": 65, "row_bytes": lambda w: 2 * w, "encoded": "YUV"},
+    "CT_SHORT": {"code": 66, "row_bytes": lambda w: 4 * w, "encoded": "YUV"},
+    "CT_10BIT_2_8": {"code": 67, "row_bytes": lambda w: 5 * w // 2,
+                     "encoded": "YUV"},
+    "CT_SHORT_2_14": {"code": 68, "row_bytes": lambda w: 4 * w,
+                      "encoded": "YUV"},
+    "CT_USHORT_10_6": {"code": 69, "row_bytes": lambda w: 4 * w,
+                       "encoded": "YUV"},
+}
+#: the plain unpacks of the formats above that take nothing but the frames
+_UNPACKS = {
+    **{fmt: lambda f, c=fourcc: ops.unpack_rgb10(f, c)
+       for fmt, fourcc in (("R210", "r210"), ("DPX0", "DPX0"),
+                           ("RG30", "RG30"), ("AB10", "AB10"),
+                           ("AR10", "AR10"))},
+    "BGRA": ops.unpack_bgra,
+    "BGRa": lambda f: ops.unpack_bgra(f, top_down=True),
+    "RG24": ops.unpack_rg24,
+    "RG48": ops.unpack_rg48, "B64A": ops.unpack_b64a, "RG64": ops.unpack_rg64,
+    "YU64": ops.unpack_yu64,
+    "CT_UCHAR": ops.unpack_avu8, "CT_SHORT": ops.unpack_av16,
+    "CT_USHORT_10_6": ops.unpack_av16, "CT_SHORT_2_14": ops.unpack_a214,
+    "CT_10BIT_2_8": ops.unpack_av28,
 }
 
 #: the 8-bit and 13-bit outputs of the RGB formats (`decode_sample_rgb`)
@@ -172,7 +209,12 @@ class IntraCodec:
     on one torch device: the card unless the caller asks for another.
     `fs_rate_limiter` is the FILMSCAN2/3 rate control's state for the
     frames it encodes (`spec.production.update_fs_rate_limiter`; None, the
-    first frame's)."""
+    first frame's).  The encoder's options: `custom_quant`, the (luma,
+    chroma) 17-entry tables of `spec.production.custom_quant_tables` in
+    place of the quality presets, in the quantizers and the band headers;
+    `convert`, a YUY2 codec's (limit_yuv, conv_601_709) LYUV/CV67 input
+    transform; `quality_tag`, the QUALITY_L its samples are labelled
+    with in place of `quality` (`intra_host.relabel_quality`)."""
 
     width: int
     height: int
@@ -180,12 +222,24 @@ class IntraCodec:
     device: torch.device | str = "cuda"
     input_format: str = "YUY2"
     fs_rate_limiter: int | None = None
+    custom_quant: tuple | None = None
+    convert: tuple[int, int] | None = None
+    quality_tag: int | None = None
 
     def __post_init__(self):
         if self.input_format not in _DEVICE_FORMATS:
             raise ValueError(f"input format {self.input_format!r}: the "
                              f"codec encodes {', '.join(_DEVICE_FORMATS)}")
+        if self.convert is not None and self.input_format != "YUY2":
+            raise ValueError("the LYUV/CV67 input transform takes YUY2 "
+                             f"frames, not {self.input_format}")
         object.__setattr__(self, "device", torch.device(self.device))
+        if self.custom_quant is not None:
+            object.__setattr__(self, "custom_quant", tuple(
+                tuple(int(q) for q in t) for t in self.custom_quant))
+        if self.convert is not None:
+            object.__setattr__(self, "convert",
+                               tuple(int(c) for c in self.convert))
 
     @property
     def encoded(self) -> str:
@@ -195,21 +249,18 @@ class IntraCodec:
     def params(self) -> IntraParams:
         """The transform's parameters; a Bayer codec transforms the
         mosaic's quarter-res planes."""
-        limiter = self.fs_rate_limiter
+        common = dict(quality=self.quality,
+                      fs_rate_limiter=self.fs_rate_limiter,
+                      custom_quant=self.custom_quant)
         if self.encoded == "YUV":
-            return IntraParams(width=self.width, height=self.height,
-                               quality=self.quality, fs_rate_limiter=limiter)
+            return IntraParams(width=self.width, height=self.height, **common)
         if self.encoded == "BAYER":
             return IntraParams(width=self.width // 2, height=self.height // 2,
-                               quality=self.quality,
                                precision=tags.PRECISION_12BIT,
-                               chroma_full_res=True, rgb_quality=3,
-                               fs_rate_limiter=limiter)
+                               chroma_full_res=True, rgb_quality=3, **common)
         return IntraParams(width=self.width, height=self.height,
-                           quality=self.quality,
                            precision=tags.PRECISION_12BIT,
-                           chroma_full_res=self.encoded != "RGBA",
-                           fs_rate_limiter=limiter)
+                           chroma_full_res=self.encoded != "RGBA", **common)
 
     @property
     def num_channels(self) -> int:
@@ -235,7 +286,10 @@ class IntraCodec:
             return {"input_format": self.input_format_code}
         common = {"input_format": self.input_format_code, "colorspace": None}
         if self.encoded == "RGB":
-            return {**common, "encoded_format": tags.ENCODED_FORMAT_RGB_444}
+            fmt = _DEVICE_FORMATS[self.input_format]
+            return {**common, "encoded_format": tags.ENCODED_FORMAT_RGB_444,
+                    **({"quality_high": fmt["quality_high"]}
+                       if "quality_high" in fmt else {})}
         if self.encoded == "BAYER":
             return {**common, "encoded_format": tags.ENCODED_FORMAT_BAYER}
         return {**common, "encoded_format": tags.ENCODED_FORMAT_RGBA_4444,
@@ -255,28 +309,28 @@ class IntraCodec:
         formats' 12-bit [G, R, B(, A)], Bayer's quarter-res 12-bit [G, RG,
         BG, DG]."""
         fmt = self.input_format
+        if fmt in _UNPACKS:
+            return _UNPACKS[fmt](frames)
+        if fmt == "YUY2":
+            return ops.limit_convert_yuy2(frames, *(self.convert or (0, 0)))
         if fmt == "UYVY":
             return ops.unpack_uyvy(frames, self.params.precision)
-        if fmt == "YU64":
-            return ops.unpack_yu64(frames)
         if fmt == "V210":
             return ops.unpack_v210(frames, self.width)
         if fmt == "BYR4":
             return ops.unpack_byr4(frames, _table(byr4_log90_curve,
                                                   frames.device))
-        if fmt == "BYR5":
-            # BYR5's rows are quarter-res rows of 3W bytes
-            return ops.unpack_byr5(frames.reshape(
-                frames.shape[0], self.height // 2, 3 * self.width))
-        return {"RG48": ops.unpack_rg48, "B64A": ops.unpack_b64a,
-                "RG64": ops.unpack_rg64}[fmt](frames)
+        # BYR5's rows are quarter-res rows of 3W bytes
+        return ops.unpack_byr5(frames.reshape(
+            frames.shape[0], self.height // 2, 3 * self.width))
 
     def level1_input(self, frames: torch.Tensor):
         """(B, H, row_bytes) uint8 frames on the device -> what the first
         DWT launch reads, built by the plain unpack: the 4:2:2 formats'
         group buffers, Y (B, 1, H, W) and V, U (B, 2, H, W/2); the other
         formats' (B, G, h, w) planes.  YUY2's level 1 reads the frames
-        themselves and has none."""
+        themselves and has none, unless the LYUV/CV67 transform
+        (`convert`) unpacks them."""
         planes = self._unpack(frames)
         if self.encoded == "YUV":
             # V210's luma is a view cut to the width from whole 6-pixel
@@ -293,7 +347,8 @@ class IntraCodec:
                             chroma_full_res=p.chroma_full_res,
                             rgb_quality=p.rgb_quality,
                             num_channels=self.num_channels,
-                            fs_rate_limiter=p.fs_rate_limiter)
+                            fs_rate_limiter=p.fs_rate_limiter,
+                            custom_quant=p.custom_quant)
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         """(B, H, row_bytes) uint8 host frames -> a tensor on the device."""
@@ -311,14 +366,15 @@ class IntraCodec:
         (B, G, h, w) the lowpass planes, highs (B, G, 3, h, pitch) the
         quantized (LH, HL, HH) bands in the entropy coder's layout.  On a
         card, one launch a level: YUY2's level 1 reads the frames' bytes,
-        the other formats' the unpacked planes (`level1_input`)."""
+        the other formats' (and a YUY2 frame through `convert`) the
+        unpacked planes (`level1_input`)."""
         t = self.tables()
 
         def quants(k):
             return [t.band_quant[ch][k] for ch in range(self.num_channels)]
 
         if self.encoded == "YUV":
-            if self.input_format == "YUY2":
+            if self.input_format == "YUY2" and self.convert is None:
                 first = dwt_forward_yuy2(frames, self.params.precision,
                                          t.prescale[0], quants(0))
             else:
@@ -396,6 +452,18 @@ class IntraCodec:
             out.append(base.advanced(fn - 1) if fn >= 1 else base)
         return frame_numbers, out
 
+    def _write_sample(self, channels, frame_number: int, metadata,
+                      eye: int | None = None) -> bytes:
+        """One frame's CFHD sample from its channels, labelled with
+        `quality_tag` where the codec has one."""
+        sample = intra_host.write_sample(channels, self.params, frame_number,
+                                         metadata, **self._write_sample_kwargs,
+                                         eye=eye)
+        if self.quality_tag is None:
+            return sample
+        return intra_host.relabel_quality(sample, self.quality,
+                                          self.quality_tag)
+
     def write_samples(self, frames: np.ndarray, packed,
                       first_frame_number: int = 1, metadata=None,
                       frame_numbers: list[int] | None = None) -> list[bytes]:
@@ -434,9 +502,8 @@ class IntraCodec:
                 channels.append(intra_host.EncodedChannel(
                     lowpass=lowpass[i], bands=bands,
                     quants=p.band_quant(ch), payloads=payloads))
-            samples.append(intra_host.write_sample(
-                channels, p, frame_numbers[i], metadata[i],
-                **self._write_sample_kwargs))
+            samples.append(self._write_sample(channels, frame_numbers[i],
+                                              metadata[i]))
         return samples
 
     def encode_batch_device(self, frames: np.ndarray,
@@ -471,9 +538,8 @@ class IntraCodec:
                                            for bs in bands],
                 quants=p.band_quant(ch))
                 for ch, (lowpass, bands) in enumerate(coeffs)]
-            samples.append(intra_host.write_sample(
-                channels, p, frame_numbers[i], metadata[i],
-                **self._write_sample_kwargs, eye=eye))
+            samples.append(self._write_sample(channels, frame_numbers[i],
+                                              metadata[i], eye))
         return samples
 
     # --- decode ------------------------------------------------------------

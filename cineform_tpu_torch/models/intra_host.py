@@ -3,9 +3,11 @@
 A copy of the parts of the JAX package's `models/intra_host.py` that the
 intra codec uses: the band pitch, the encode-time metadata block, the
 sample writer for a 4:2:2, RGB 4:4:4, RGBA 4:4:4:4 or Bayer intra frame,
-the host band encoder (the C++ coder, for bands that overflow the device's
-capacity, and the two-frame group's coder), the decoder's lowpass
-offsets and the R408 output's dither lanes.  Its samples equal the
+the uncompressed passthrough's sample writer, its per-frame decision and
+its fallback frames' quality label, the host band encoder (the C++
+coder, for bands that overflow the device's capacity, and the two-frame
+group's coder), the decoder's lowpass offsets and the R408 output's
+dither lanes.  Its samples equal the
 reference SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
@@ -14,6 +16,8 @@ intra branch) + `Codec/codec.c:1369-1584` (PutVideoIntraFrameHeader et al.).
 
 from __future__ import annotations
 
+import struct
+import zlib
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -26,6 +30,7 @@ from cineform_tpu_torch.spec.production import (
     pack_prescale_table,
     spatial_band_scales,
 )
+from cineform_tpu_torch.utils.glibc_random import glibc_rand_sequence
 
 
 def align16_pixels(width: int) -> int:
@@ -264,6 +269,123 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
     w.pop_chunk()  # SAMPLE_SIZE
     w.patch_index(index_off, channel_sizes)
     return w.getvalue()
+
+
+def relabel_quality(sample: bytes, quality: int, quality_tag: int) -> bytes:
+    """`sample` with its QUALITY_L tag `quality` rewritten to
+    `quality_tag`: the reference labels the fallback frames of the
+    uncompressed passthrough quality 6 but quantizes them with the q5
+    tables (`Codec/encoder.c:2022-2026`, the JAX package's
+    `encode_sample_planes(quality_tag=)`)."""
+    if quality_tag == quality:
+        return sample
+    needle = struct.pack(">hH", -(tags.QUALITY_L), quality & 0xFFFF)
+    repl = struct.pack(">hH", -(tags.QUALITY_L), quality_tag & 0xFFFF)
+    return sample.replace(needle, repl, 1)
+
+
+def write_sample_uncompressed(raw_rows: bytes, width: int, height: int,
+                              quality_word: int, frame_number: int,
+                              metadata: EncoderMetadata | None,
+                              input_format: int,
+                              encoded_format: int = tags.ENCODED_FORMAT_YUV_422,
+                              colorspace: int = tags.COLOR_SPACE_BT_709,
+                              later_form: bool | None = None) -> bytes:
+    """Uncompressed passthrough sample (`Codec/encoder.c:7625-7720`):
+    the intra header (required-tag form, dummy channel index, no
+    precision tag), metadata, SKIP padding to a 16-byte boundary, then
+    the raw frame rows in a CODEC_TAG_UNCOMPRESS 24-bit chunk and a
+    trailer.  Byte-exact vs the reference for v210 input."""
+    w = SampleWriter()
+    w.put_tag(tags.SAMPLE, tags.SAMPLE_TYPE_IFRAME)
+    w.put_tag(2, 3)                       # channel-count index header
+    for i in range(3):
+        w.put_tag(3, i)                   # dummy channel index entries
+    w.put_tag(tags.TRANSFORM_TYPE, tags.TRANSFORM_TYPE_SPATIAL)
+    w.put_tag(tags.NUM_FRAMES, 1)
+    w.put_tag(tags.NUM_CHANNELS, 3)
+    if input_format >= 100:
+        w.put_tag(tags.INPUT_FORMAT, input_format)
+    else:
+        w.put_tag_optional(tags.INPUT_FORMAT, input_format)
+    w.put_tag(tags.ENCODED_FORMAT, encoded_format)
+    w.put_tag_optional(tags.ENCODED_COLORSPACE, colorspace)
+    w.put_tag(tags.NUM_WAVELETS, 3)
+    w.put_tag(tags.NUM_SUBBANDS, 10)
+    w.put_tag(tags.NUM_SPATIAL, 2)
+    w.put_tag(tags.FIRST_WAVELET, tags.WAVELET_TYPE_SPATIAL)
+    w.put_tag(tags.FRAME_WIDTH, width)
+    w.put_tag(tags.FRAME_HEIGHT, height)
+    w.put_tag_optional(tags.FRAME_NUMBER, frame_number)
+    # The "later" header form (precision tag + leaked 10-bit prescale
+    # table) appears only after a COMPRESSED frame has initialized the
+    # codec state — NOT simply from the 2nd sample on: a series whose
+    # first frames are all uncompressed keeps the first form (pinned
+    # against reference series where the decision chose UNC,UNC,...)
+    if later_form is None:
+        later_form = frame_number > 1
+    if later_form:
+        w.put_tag(tags.PRECISION, tags.PRECISION_10BIT)
+    w.put_tag_optional(tags.FRAME_DISPLAY_HEIGHT, height)
+    w.put_tag_optional(tags.VERSION, tags.FILE_VERSION_CODE)
+    w.put_tag_optional(tags.QUALITY_L, quality_word & 0xFFFF)
+    w.put_tag_optional(tags.QUALITY_H, (quality_word >> 16) & 0xFFFF)
+    # the codec state's prescale table leaks into later uncompressed
+    # headers (0 until a compressed frame sets the 10-bit intra table;
+    # pinned against series goldens)
+    w.put_tag_optional(tags.PRESCALE_TABLE, 0x2000 if later_form else 0)
+    w.push_chunk(tags.SAMPLE_SIZE)
+    meta = (metadata or EncoderMetadata()).block()
+    w.put_tag_optional(tags.METADATA_CHUNK, len(meta) // 4)
+    w.put_bytes(meta)
+    free_size = 512
+    w.put_tag_optional(tags.METADATA_CHUNK, free_size // 4)
+    w.put_bytes(b"FREE" + (free_size - 8).to_bytes(4, "little")
+                + b"\0" * (free_size - 8))
+    w.put_tag_optional(tags.INTERLACED_FLAGS, 0)
+    w.put_tag_optional(tags.PROTECTION_FLAGS, 0)
+    w.put_tag_optional(tags.PICTURE_ASPECT_X, 16)
+    w.put_tag_optional(tags.PICTURE_ASPECT_Y, 9)
+    w.put_tag(tags.SAMPLE_FLAGS, tags.SAMPLE_FLAGS_PROGRESSIVE)
+    # SKIP padding so the raw data lands on a 16-byte boundary
+    # (`encoder.c:7630-7646`)
+    alignment = (len(w.buf) & 0xF) + 4
+    while alignment & 0xC:
+        w.put_tag_optional(tags.SKIP, 0)
+        alignment += 4
+    size_words = len(raw_rows) >> 2
+    w.put_tag(tags.UNCOMPRESSED | (size_words >> 16), size_words & 0xFFFF)
+    w.put_bytes(raw_rows)
+    w.put_tag(tags.FRAME_TRAILER, 0)
+    # the sample-size chunk is NOT patched over the raw payload in the
+    # reference; pop without rewriting beyond its 24-bit capacity
+    w.pop_chunk()
+    return w.getvalue()
+
+
+def uncompressed_decision(frame_head_u32: int, metadata_block: bytes,
+                          quality_word: int, last16: list[int]) -> bool:
+    """The reference's per-frame uncompressed selection
+    (`Codec/encoder.c:1979-2016`): a target count out of each 16 frames,
+    adapted by the recent window, decided by glibc rand() seeded from the
+    frame's first word + the CRC32 of the metadata block."""
+    target = (quality_word >> 8) & 0x1F
+    if target <= 0:
+        return False
+    count = sum(1 for v in last16 if v)
+    del last16[0]
+    last16.append(0)
+    target += target - count
+    if target < 0:
+        target = 0
+    seed = frame_head_u32 & 0xFFFFFFFF
+    if metadata_block:
+        seed = (seed + zlib.crc32(metadata_block)) & 0xFFFFFFFF
+    draw = int(glibc_rand_sequence(1, seed)[0])
+    if (draw & 15) < target:
+        last16[-1] = 1
+        return True
+    return False
 
 
 def lowpass_channel_offset(lowpass_width: int, deep: bool = False,

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from cineform_tpu_torch.ref.intra import RGB10_INPUT_FORMATS
+
 ROUNDING = 4
 
 
@@ -365,6 +367,38 @@ def frame_wavelet_inverse(ll, lh, hl, hh, dither: torch.Tensor,
     return (out >> 2).clamp(0, 255).to(torch.uint8)
 
 
+def quantize_mid(v: torch.Tensor, q: int) -> torch.Tensor:
+    """Quantizer with midpoint exactly q/2 (no -1), as used inside
+    `FilterHorizontalRowScaled16sDifferenceFiltered` (`Codec/spatial.c:
+    5327`, prequant_midpoint = divisor / g_midpoint_prequant).  |v| <=
+    32768, so the product stays inside int32."""
+    if q <= 1:
+        return v
+    mag = ((v.abs() + q // 2) * ((1 << 16) // q)) >> 16
+    return torch.sign(v) * mag
+
+
+def frame_wavelet_forward(plane: torch.Tensor, quant):
+    """The interlaced group's HORZTEMP frame wavelet of (..., H, W) int32
+    planes -> (LL, (LH, HL, HH)), each (..., H/2, W/2) int32
+    (`Codec/wavelet.c:6076` TransformForwardFrameYUV): the 2-2 temporal
+    pair of each row pair, low = even + odd, high = odd - even
+    (`FilterTemporalRowYUYVChannelTo16s`, `Codec/temporal.c:1915`); LL and
+    LH the horizontal 2-6 of the temporal low, HH the horizontal 2-6 high
+    of the temporal high, both highs dead-zone quantized; HL the
+    horizontal lowpass of the temporal high, quantized with midpoint q/2
+    (`quantize_mid`), then delta-coded along the row and saturated to 16
+    bits (`Codec/spatial.c:5327`), which the encoder codes with codeset
+    18."""
+    tlow = sat16(plane[..., 0::2, :] + plane[..., 1::2, :])
+    thigh = sat16(plane[..., 1::2, :] - plane[..., 0::2, :])
+    ll, lh = h26_forward(tlow)
+    _, hh = h26_forward(thigh)
+    hl = quantize_mid(sat16(thigh[..., 0::2] + thigh[..., 1::2]), quant[1])
+    d = torch.cat([hl[..., :1], hl[..., 1:] - hl[..., :-1]], dim=-1)
+    return ll, (quantize(lh, quant[0]), sat16(d), quantize(hh, quant[2]))
+
+
 def inverse_channel_strips(lowpass, bands, prescale):
     """Full 3-level inverse stopping at the final v26 vertical stage:
     returns the (low, high) strips the output kernels consume
@@ -604,3 +638,163 @@ def unpack_byr5(frame: torch.Tensor, bayer_format: int = 0):
     else:
         b, g1, g2, r = comp
     return _bayer_planes(r, g1, g2, b, log_curve=False)
+
+
+def _quads(frame: torch.Tensor, le16: bool = False) -> torch.Tensor:
+    """(..., H, row bytes) uint8 4:2:2 rows -> (..., H, W/2, 4) int32
+    pixel-pair components, 8-bit or little-endian 16-bit."""
+    if le16:
+        return _le16(frame, 4)
+    *lead, h, n = frame.shape
+    return frame.reshape(*lead, h, n // 4, 4).to(torch.int32)
+
+
+def _cbycry(quad: torch.Tensor, shift: int):
+    """(..., H, W/2, 4) CbYCrY components -> 10-bit (Y, Cr, Cb), each
+    shifted left by `shift` (or right by -shift)."""
+    def sh(x):
+        return x << shift if shift >= 0 else x >> -shift
+
+    *lead, h, half, _ = quad.shape
+    y = quad[..., 1::2].reshape(*lead, h, 2 * half)
+    return sh(y), sh(quad[..., 2]), sh(quad[..., 0])
+
+
+def unpack_avu8(frame: torch.Tensor):
+    """(..., H, 2W) uint8 Avid CT_UCHAR ('avu8', 8-bit CbYCrY) -> 10-bit
+    (Y, Cr, Cb), each component << 2 (`ConvertCbYCrY_8bitToFrame16s`,
+    `Codec/frame.c:13386`)."""
+    return _cbycry(_quads(frame), 2)
+
+
+def unpack_av16(frame: torch.Tensor):
+    """(..., H, 4W) uint8 Avid CT_SHORT ('av16') or CT_USHORT_10_6
+    ('a106'): 16-bit little-endian CbYCrY components >> 6 -> 10-bit (Y,
+    Cr, Cb) (`Codec/frame.c:13319/13453`, the same arithmetic)."""
+    return _cbycry(_quads(frame, le16=True), -6)
+
+
+def unpack_a214(frame: torch.Tensor):
+    """(..., H, 4W) uint8 Avid CT_SHORT_2_14 ('a214', signed 2.14 fixed
+    point CbYCrY) -> 10-bit (Y, Cr, Cb) (`ConvertCbYCrY_16bit_2_14To
+    Frame16s`, `Codec/frame.c:13234`): luma (219 Y / 16384 + 16) << 2,
+    chroma (224 (C + 8192) / 16384 + 16) << 2, the divisions truncating
+    toward zero as C's do, then saturated to 10 bits."""
+    q = _quads(frame, le16=True)
+    q = q - ((q >> 15) << 16)                  # int16 bit patterns
+
+    def scale(v, mul, offset):
+        v = torch.div(mul * (v + offset), 16384, rounding_mode="trunc")
+        return ((v + 16) * 4).clamp(0, 1023)
+
+    y, cr, cb = _cbycry(q, 0)
+    return scale(y, 219, 0), scale(cr, 224, 8192), scale(cb, 224, 8192)
+
+
+def unpack_av28(frame: torch.Tensor):
+    """(B, H, 5W/2) uint8 Avid CT_10BIT_2_8 ('av28') -> 10-bit (Y, Cr,
+    Cb) (`ConvertCbYCrY_10bit_2_8ToFrame16s`, `Codec/frame.c:13144`).  A
+    frame is two planes, not rows: W*H/2 bytes of 2-bit upper components,
+    packed [Cb Y1 Cr Y2] high to low, then the 8-bit CbYCrY rows; the row
+    shape only gives the frame a shape, so the planes are cut from the
+    flat buffer."""
+    b, h, n = frame.shape
+    w = 2 * n // 5
+    flat = frame.reshape(b, h * n)
+    upper = flat[:, :w * h // 2].reshape(b, h, w // 2).to(torch.int32)
+    lower = flat[:, w * h // 2:].reshape(b, h, 2 * w)
+    y, cr, cb = _cbycry(_quads(lower), 2)
+    y = y | torch.stack([(upper >> 4) & 3, upper & 3], dim=-1).reshape(
+        b, h, w)
+    return y, cr | ((upper >> 2) & 3), cb | ((upper >> 6) & 3)
+
+
+def unpack_rgb10(frame: torch.Tensor, fourcc: str):
+    """(..., H, 4W) uint8 packed 10-bit RGB (r210, DPX0, RG30, AB10, AR10)
+    -> 12-bit planes [G, R, B] (`Codec/frame.c:6995`): r210 and DPX0 read
+    the 32-bit word big-endian (the reference byte-swaps it), the others
+    little-endian; each component is taken at its shift
+    (`ref.intra.RGB10_INPUT_FORMATS`) and << 2.  The words are carried as
+    int64, which has the shifts that uint32 lacks on the CPU."""
+    _, swap, (rs, gs, bs) = RGB10_INPUT_FORMATS[fourcc]
+    *lead, h, n = frame.shape
+    b = frame.reshape(*lead, h, n // 4, 4).to(torch.int64)
+    if swap:
+        b = b.flip(-1)
+    word = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+    def comp(shift):
+        return (((word >> shift) & 0x3FF) << 2).to(torch.int32)
+
+    return comp(gs), comp(rs), comp(bs)
+
+
+def _rgb8(frame: torch.Tensor, bpp: int, bottom_up: bool):
+    *lead, h, n = frame.shape
+    px = frame.reshape(*lead, h, n // bpp, bpp).to(torch.int32)
+    if bottom_up:
+        px = px.flip(-3)
+    return px[..., 1] << 4, px[..., 2] << 4, px[..., 0] << 4
+
+
+def unpack_bgra(frame: torch.Tensor, top_down: bool = False):
+    """(..., H, 4W) uint8 BGRA -> 12-bit planes [G, R, B], alpha dropped
+    (`ConvertBGRAToFrame16s`).  BGRA's rows are stored bottom-up, like a
+    Windows DIB; `top_down` reads BGRa (COLOR_FORMAT_RGB32_INVERTED,
+    `Codec/color.h:71`), the same pixels with the rows top-down."""
+    return _rgb8(frame, 4, not top_down)
+
+
+def unpack_rg24(frame: torch.Tensor):
+    """(..., H, 3W) uint8 RG24 (8-bit BGR, rows bottom-up) -> 12-bit
+    planes [G, R, B]."""
+    return _rgb8(frame, 3, True)
+
+
+def limit_convert_yuy2(frame: torch.Tensor, limit_yuv: int,
+                       conv_601_709: int):
+    """(..., H, 2W) uint8 YUY2 -> 10-bit (Y, V, U) through the encoder's
+    LYUV/CV67 input transform (`Codec/convert.c:4668-5290`, shift 2), the
+    arithmetic of its SSE2 main loop: LYUV maps full range to video range,
+    y' = (55 y) >> 4 + 64, c' = (56 c) >> 4 + 64; CV67's 601 -> 709 matrix
+    floors each product on its own (`_mm_mulhi_epi16`), the chroma path
+    keeping 3 extra fraction bits ((56 c) >> 1 - 3584 after LYUV), and
+    clamps to 10 bits.  Neither set: the plain << 2 unpack."""
+    q = _quads(frame)
+    y1, u8, y2, v8 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+
+    def mulhi(x, c):
+        return (x * c) >> 16
+
+    def clamp10(x):
+        return x.clamp(0, 1023)
+
+    def luma_709(y, uc, vc):
+        return clamp10(y - mulhi(vc, 212 << 6) - mulhi(uc, 118 << 6))
+
+    def chroma_709(u13, v13):
+        return (clamp10(mulhi(u13, 1043 << 3) + mulhi(v13, 116 << 3) + 512),
+                clamp10(mulhi(v13, 1049 << 3) + mulhi(u13, 76 << 3) + 512))
+
+    if limit_yuv:
+        y1 = ((y1 * 55) >> 4) + 64
+        y2 = ((y2 * 55) >> 4) + 64
+        if conv_601_709:
+            # the luma terms use the 10-bit limited chroma
+            u10 = ((u8 * 56) >> 4) + 64 - 512
+            v10 = ((v8 * 56) >> 4) + 64 - 512
+            y1, y2 = luma_709(y1, u10, v10), luma_709(y2, u10, v10)
+            u, v = chroma_709(((u8 * 56) >> 1) - 3584,
+                              ((v8 * 56) >> 1) - 3584)
+        else:
+            u = ((u8 * 56) >> 4) + 64
+            v = ((v8 * 56) >> 4) + 64
+    elif conv_601_709:
+        uc = (u8 << 2) - 512
+        vc = (v8 << 2) - 512
+        y1, y2 = luma_709(y1 << 2, uc, vc), luma_709(y2 << 2, uc, vc)
+        u, v = chroma_709(uc << 3, vc << 3)
+    else:
+        y1, y2, u, v = y1 << 2, y2 << 2, u8 << 2, v8 << 2
+    y = torch.stack([y1, y2], dim=-1).flatten(-2)
+    return y, v, u

@@ -9,8 +9,10 @@ bounded number of jobs in flight.
 The reference parallelises frames over CPU threads (SURVEY §2.4).  Here a
 batcher thread drains the submission queue and encodes whole batches of
 up to `DEVICE_BATCH` frames through the port's codecs on the card
-(`IntraCodec.encode_batch_device`; 2-frame GOP pairs through
-`GopCodec.encode_batch`); the host writes the samples.  A batcher takes
+(`IntraCodec.encode_batch_device`, every input format of `api.Encoder`;
+progressive 2-frame GOP pairs through `GopCodec.encode_batch`); the host
+writes the samples.  Interlaced GOP pairs are refused, as the JAX pool
+refuses them.  A batcher takes
 whatever is queued, up to `DEVICE_BATCH` jobs, as the JAX pool does; only
 the real frames are encoded: a batch of any size is one call of the codec.
 The JAX pool's host worker pool (`use_device=False`) is not ported.
@@ -153,6 +155,11 @@ class EncoderPool(_Batches):
         probe = api.Encoder(self.device)  # validates arguments
         probe.prepare_to_encode(width, height, pixel_format, encoded_format,
                                 encoding_flags, quality)
+        if encoding_flags & api.EncodingFlags.YUV_INTERLACED:
+            # the JAX pool refuses it, though its sync Encoder encodes it
+            # (`cineform_tpu/pool.py:91-93`)
+            raise api.CFHDError(api.ErrorCode.BADFORMAT,
+                                "interlaced GOP is not supported in the pool")
         if not use_device:
             # the JAX pool's host worker pool of api.Encoders
             # (`cineform_tpu/pool.py:217-238`)

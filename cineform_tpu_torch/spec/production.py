@@ -3,9 +3,9 @@
 A copy of the JAX package's `spec/production.py`, cut to what the intra
 codec's paths, the two-frame GOP codec and the API need: the preset
 quality tables with the 12-bit RGB gains, the GOP length and the FILMSCAN
-rate limiter with its per-frame update; no custom quantization and no
-interlaced remap.  It mirrors the reference's quality system for the
-shipping encoder:
+rate limiter with its per-frame update, and the custom quantization
+override; no interlaced remap.  It mirrors the reference's quality system
+for the shipping encoder:
 
 - base quality tables `LUMA_QUALITY_*` / `CHROMA_QUALITY_*`
   (`Codec/quantize.h:54-65`), indexed by the 17-subband FIELDPLUS layout;
@@ -186,6 +186,60 @@ def update_fs_rate_limiter(limiter: int, quality: int,
     return max(0, min(limiter, 20))
 
 
+def custom_quant_tables(quant_y, quant_c, precision: int,
+                        gop_length: int = 1,
+                        chroma_full_res: bool = False,
+                        rgb_quality: int = 0) -> tuple[list[int], list[int]]:
+    """Custom quantization override (`SetEncoderQuantization`,
+    `Codec/encoder.c:1143-1225`, custom_quant magic 0x12345678): the
+    caller's 17-entry tables replace the quality presets (newQuality=7),
+    then receive the same precision scaling as the presets: subband 7
+    forced to 4 (lossless TLL), subbands >8 scaled x4 at 10-bit, the
+    12-bit RGB gains, and the gop_length==1 remap of subbands 7..9 from
+    11..13."""
+    luma = list(quant_y)
+    chroma = list(quant_y if chroma_full_res else quant_c)
+    if precision >= tags.PRECISION_10BIT:
+        for i in range(17):
+            if i == 7:
+                luma[i] = chroma[i] = 4
+            elif i > 8:
+                luma[i] *= 4
+                chroma[i] *= 4
+    if precision == tags.PRECISION_12BIT:
+        chromagain = {0: 8, 1: 6, 2: 4, 3: 4}[min(rgb_quality, 3)]
+        for i in range(4, 7):
+            luma[i] *= 4
+            chroma[i] *= 4
+        for i in range(11, 17):
+            luma[i] *= 4
+            chroma[i] *= chromagain
+    if gop_length == 1:
+        for i in range(7, 10):
+            luma[i] = luma[i + 4]
+            chroma[i] = chroma[i + 4]
+    return luma, chroma
+
+
+def _spatial_band_quant(table, num_spatial: int
+                        ) -> list[tuple[int, int, int]]:
+    """A 17-entry table -> per-wavelet (q_lh, q_hl, q_hh), finest first:
+    the spatial wavelets' table[subband] * scale >> 2, deepest first, then
+    the frame wavelet's table[subband] as it is."""
+    scales = spatial_band_scales(num_spatial)
+    out: list[tuple[int, int, int] | None] = [None] * (num_spatial + 1)
+    subband = 1
+    for k in range(num_spatial, 0, -1):         # deepest spatial first
+        s = scales[k]
+        out[k] = tuple(
+            (table[subband + b] * s[1 + b]) >> QUANT_SCALE_FACTOR
+            for b in range(3)
+        )
+        subband += 3
+    out[0] = tuple(table[subband + b] for b in range(3))
+    return out  # type: ignore[return-value]
+
+
 def intra_band_quant(quality: int, precision: int, channel: int,
                      num_spatial: int = 2, chroma_full_res: bool = False,
                      rgb_quality: int = 0,
@@ -204,20 +258,8 @@ def intra_band_quant(quality: int, precision: int, channel: int,
     luma, chroma = quality_tables(quality, precision, chroma_full_res,
                                   rgb_quality,
                                   fs_rate_limiter=fs_rate_limiter)
-    table = chroma if channel > 0 else luma
-    scales = spatial_band_scales(num_spatial)
-
-    out: list[tuple[int, int, int] | None] = [None] * (num_spatial + 1)
-    subband = 1
-    for k in range(num_spatial, 0, -1):         # deepest spatial first
-        s = scales[k]
-        out[k] = tuple(
-            (table[subband + b] * s[1 + b]) >> QUANT_SCALE_FACTOR
-            for b in range(3)
-        )
-        subband += 3
-    out[0] = tuple(table[subband + b] for b in range(3))
-    return out  # type: ignore[return-value]
+    return _spatial_band_quant(chroma if channel > 0 else luma,
+                               num_spatial)
 
 
 def intra_prescale(precision: int) -> list[int]:
@@ -257,6 +299,9 @@ class IntraParams:
     #: FILMSCAN2/3 rate-control state (None = first-frame default);
     #: advance per frame with update_fs_rate_limiter
     fs_rate_limiter: int | None = None
+    #: custom quantization override: (luma17, chroma17) as produced by
+    #: custom_quant_tables; replaces the quality-derived tables
+    custom_quant: tuple | None = None
     num_spatial: ClassVar[int] = 2
 
     @property
@@ -264,6 +309,9 @@ class IntraParams:
         return self.num_spatial + 1
 
     def band_quant(self, channel: int) -> list[tuple[int, int, int]]:
+        if self.custom_quant is not None:
+            return _spatial_band_quant(
+                self.custom_quant[1 if channel > 0 else 0], self.num_spatial)
         return intra_band_quant(self.quality, self.precision, channel,
                                 self.num_spatial, self.chroma_full_res,
                                 self.rgb_quality, self.fs_rate_limiter)

@@ -11,7 +11,9 @@ explicit device.  What the input format decides (the precision, whether
 chroma takes the luma tables, the number of channels) comes in as
 keywords, with the dimensions of the planes that the codec transforms (a
 Bayer mosaic's are half its own), and so does the FILMSCAN rate limiter's
-state; the defaults are YUY2's on the first frame.
+state and a custom quantization override (`spec.production.
+custom_quant_tables`, as a tuple of two 17-entry tuples, which the cache
+keys on); the defaults are YUY2's on the first frame.
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ def codec_tables(width: int, height: int, quality: int, frame_index: int = 0,
                  chroma_full_res: bool = False,
                  rgb_quality: int = 0,
                  num_channels: int = 3,
-                 fs_rate_limiter: int | None = None) -> CodecTables:
+                 fs_rate_limiter: int | None = None,
+                 custom_quant: tuple | None = None) -> CodecTables:
     device = torch.device(device)
     p = IntraParams(width=width, height=height, quality=quality,
                     precision=precision, chroma_full_res=chroma_full_res,
-                    rgb_quality=rgb_quality, fs_rate_limiter=fs_rate_limiter)
+                    rgb_quality=rgb_quality, fs_rate_limiter=fs_rate_limiter,
+                    custom_quant=custom_quant)
     enc = encode_tables(17)
     mag_bits, mag_sizes = magnitude_lut(enc, device)
     return CodecTables(

@@ -5,10 +5,12 @@ reference goldens.
 The same inputs, the repository's test frames or the goldens, go through
 both APIs; every comparison is exact (tolerance 0).  The goldens' GUID,
 DATE and TIME are random per reference run, so each encode attaches the
-golden's own metadata on both sides.  The routes the JAX API takes on the
-host and no codec of the port takes yet raise `CFHDError(BADFORMAT)`, one
-case each; the geometry routes (a decode to another size, the lens warp,
-a group's deep and RGB outputs) decode as the JAX API decodes them.
+golden's own metadata on both sides.  The decode routes the JAX API
+takes on the host and no codec of the port takes yet raise
+`CFHDError(BADFORMAT)`, one case each (every encode route is ported:
+`tests/test_torch_encoder_inputs.py` and `test_torch_encoder_options.py`);
+the geometry routes (a decode to another size, the lens warp, a group's
+deep and RGB outputs) decode as the JAX API decodes them.
 """
 
 import dataclasses
@@ -405,18 +407,6 @@ def _tuple(tag: str, typ: bytes, payload: bytes) -> bytes:
             + payload + b"\0" * (-len(payload) % 4))
 
 
-def _not_ported_encode(fmt="YUY2", quality=4, flags=0, metadata=None,
-                       custom=False):
-    enc = api.Encoder("cpu")
-    enc.prepare_to_encode(64, 48, api.PixelFormat[fmt],
-                          encoding_flags=api.EncodingFlags(flags),
-                          quality=quality)
-    if custom:
-        enc.set_custom_quantization([4] + [12] * 16)
-    enc.attach_metadata(metadata)
-    enc.encode_sample(b"\x80" * (48 * enc.row_bytes))
-
-
 def _not_ported_decode(sample, fmt="YUY2", w=0, h=0, mask=None, **kw):
     dec = api.Decoder("cpu")
     dec.prepare_to_decode(w, h, api.PixelFormat[fmt], sample=sample, **kw)
@@ -443,13 +433,6 @@ def _lens_sample():
 
 
 NOT_PORTED = {
-    **{f"input-{pf.name}": lambda pf=pf: _not_ported_encode(pf.name)
-       for pf in api.Encoder.NOT_PORTED_FORMATS},
-    "v210-uncompressed": lambda: _not_ported_encode("V210", 0x100 | 6),
-    "custom-quantization": lambda: _not_ported_encode(custom=True),
-    "lyuv-override": lambda: _not_ported_encode(metadata=_ExtraMetadata(
-        extra=_tuple("LYUV", b"H", (1).to_bytes(4, "little")))),
-    "interlaced-gop": lambda: _not_ported_encode(flags=GOP | 1),
     "bayer-to-rg48": lambda: _not_ported_decode(
         _golden("byr4_vgn_96x64_q4.cfhd"), "RG48"),
     "stereo-composite": lambda: _not_ported_decode(_stereo_sample(),

@@ -610,9 +610,8 @@ def test_api_error_and_sample_info_match():
                 str(japi.CFHDError(code, msg))
     assert tapi.Decoder.OUTPUT_FORMATS == tuple(
         tapi.PixelFormat(int(f)) for f in japi.Decoder.OUTPUT_FORMATS)
-    assert set(tapi.Encoder.INPUT_FORMATS) | set(
-        tapi.Encoder.NOT_PORTED_FORMATS) == {
-            tapi.PixelFormat(int(f)) for f in japi.Encoder.INPUT_FORMATS}
+    assert tapi.Encoder.INPUT_FORMATS == tuple(
+        tapi.PixelFormat(int(f)) for f in japi.Encoder.INPUT_FORMATS)
 
 
 @pytest.mark.parametrize("name", ["s_320x240_q4_p1", "s_640x360_q5_p1",
@@ -948,3 +947,124 @@ def test_lens_build_mesh_matches(i, w, h):
     assert a.meshy.tobytes() == b.meshy.tobytes()
     assert np.array_equal(a.cache, b.cache)
 
+
+
+# ---------------------------------------------------------------------------
+# The encoder options' host copies
+# ---------------------------------------------------------------------------
+
+#: caller tables: coarse, the finest, and a distinct chroma table
+CUSTOM_TABLES = [([4] + [12] * 16, [4] + [12] * 16),
+                 ([1] * 17, [2] * 17),
+                 (list(range(1, 18)), list(range(40, 6, -2)))]
+
+
+@pytest.mark.parametrize("gop_length", [1, 2])
+@pytest.mark.parametrize("precision", [8, 10, 12])
+def test_custom_quant_tables_match(precision, gop_length):
+    """`custom_quant_tables` over the precisions, GOP lengths, RGB
+    qualities and chroma resolutions, and the intra band quantizers that
+    `IntraParams(custom_quant=)` derives from them."""
+    for y, c in CUSTOM_TABLES:
+        for rgb_quality in range(5):
+            for full in (False, True):
+                got = tprod.custom_quant_tables(y, c, precision, gop_length,
+                                                full, rgb_quality)
+                assert got == jprod.custom_quant_tables(
+                    y, c, precision, gop_length, full, rgb_quality)
+                t = tprod.IntraParams(width=64, height=48, quality=4,
+                                      precision=precision,
+                                      custom_quant=tuple(map(tuple, got)))
+                j = jprod.IntraParams(width=64, height=48, quality=4,
+                                      precision=precision, custom_quant=got)
+                assert [t.band_quant(ch) for ch in range(3)] == \
+                    [j.band_quant(ch) for ch in range(3)]
+
+
+def test_rgb10_input_formats_match():
+    assert tref.RGB10_INPUT_FORMATS == jref.RGB10_INPUT_FORMATS
+
+
+@pytest.mark.parametrize("later_form", [None, False, True])
+@pytest.mark.parametrize("frame_number", [1, 4])
+def test_write_sample_uncompressed_matches(frame_number, later_form):
+    """The passthrough's raw sample, in both header forms (and the form
+    the frame number picks), against the original's."""
+    w, h = 96, 48
+    raw = tframes.v210_frame(w, h, frame_number)
+    meta = jhost.EncoderMetadata().advanced(frame_number - 1)
+    tmeta = thost.EncoderMetadata().advanced(frame_number - 1)
+    assert thost.write_sample_uncompressed(
+        raw, w, h, 0x0404, frame_number, tmeta, 10,
+        later_form=later_form) == jhost.write_sample_uncompressed(
+            raw, w, h, 0x0404, frame_number, meta, 10, later_form=later_form)
+
+
+@pytest.mark.parametrize("quality_word", [0x0004, 0x0404, 0x0805, 0x1004])
+def test_uncompressed_decision_matches(quality_word):
+    """The per-frame decision over a 40-frame window, with the window's
+    state, against the original's."""
+    last_t, last_j, picks = [0] * 16, [0] * 16, []
+    for f in range(40):
+        head = int.from_bytes(tframes.v210_frame(48, 8, f)[:4], "little")
+        block = thost.EncoderMetadata().advanced(f).block() if f % 3 else b""
+        got = thost.uncompressed_decision(head, block, quality_word, last_t)
+        assert got == jhost.uncompressed_decision(head, block, quality_word,
+                                                  last_j)
+        assert last_t == last_j
+        picks.append(got)
+    assert any(picks) == bool(quality_word & 0x1F00)
+
+
+def test_quality_relabel_matches():
+    """The fallback frame's QUALITY_L relabel: the port's `relabel_quality`
+    of a q5 sample equals the original's `encode_sample_planes` with
+    quality_tag 6."""
+    w, h = 96, 48
+    planes = jref.unpack_v210(tframes.v210_frame(w, h, 2), w, h)
+    meta = jhost.EncoderMetadata()
+    want = jhost.encode_sample_planes(planes, w, h, 5, 10, 1, meta,
+                                      quality_tag=6)
+    params = jprod.IntraParams(width=w, height=h, quality=5)
+    chans = [jhost.transform_channel(p, params, c)
+             for c, p in enumerate(planes)]
+    tchans = [thost.EncodedChannel(lowpass=c.lowpass, bands=c.bands,
+                                   quants=c.quants) for c in chans]
+    sample = thost.write_sample(
+        tchans, tprod.IntraParams(width=w, height=h, quality=5), 1,
+        thost.EncoderMetadata(), input_format=10)
+    assert sample != want
+    assert thost.relabel_quality(sample, 5, 6) == want
+    assert thost.relabel_quality(sample, 5, 5) == sample
+
+
+@pytest.mark.parametrize("w,h,quality,peaks", [(96, 48, 4, False),
+                                               (320, 240, 1, False),
+                                               (192, 120, 6, True)])
+def test_interlaced_write_group_matches(w, h, quality, peaks):
+    """The copy's GROUP writer for an interlaced group (no SAMPLE_FLAGS,
+    the frame wavelets' HL bands with codeset 18 and, where a value passes
+    250, a peaks table) against the original's, on the original's
+    interlaced transform of two frames."""
+    f0 = jref.unpack_yuy2(jframes.yuy2_frame(w, h, 5), w, h)
+    f1 = jref.unpack_yuy2(jframes.yuy2_frame(w, h, 6), w, h)
+    chans = []
+    for ch in range(3):
+        bq = jgop.fieldplus_band_quant(quality, jtags.PRECISION_10BIT, ch,
+                                       progressive=False)
+        lowpass, bands = jgop.forward_channel_gop(f0[ch], f1[ch], bq,
+                                                  progressive=False)
+        if peaks:
+            hl = bands[0][1].copy()
+            hl[::5, ::7] = np.where(hl[::5, ::7] >= 0, 300, -400)
+            bands[0] = (bands[0][0], hl, bands[0][2])
+        chans.append((lowpass, bands, bq))
+    meta = jhost.EncoderMetadata().advanced(2)
+    tmeta = thost.EncoderMetadata().advanced(2)
+    got = tgop_host.write_group(chans, w, h, quality, 3, tmeta,
+                                progressive=False)
+    assert got == jgop_host.write_group(chans, w, h, quality, 3, meta,
+                                        progressive=False)
+    if peaks:
+        assert any(b.peaks is not None
+                   for c in tparse_sample(got).channels for b in c.bands)

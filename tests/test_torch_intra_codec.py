@@ -151,14 +151,16 @@ def test_codec_tables_match_jax(w, h, q, frame_index):
 
 
 def test_other_input_formats_are_not_ported():
-    """The codec takes the JAX `IntraCodec`'s nine device formats; one the
-    JAX codec does not batch on its device (r210, which its API encodes on
-    the host) raises."""
-    for fmt in ("YUY2", "UYVY", "YU64", "V210", "RG48", "B64A", "RG64",
-                "BYR4", "BYR5"):
-        assert IntraCodec(96, 48, 4, device=CPU, input_format=fmt)
+    """The codec takes every input format of the JAX API (the JAX
+    `IntraCodec`'s nine device formats and the thirteen its API encodes on
+    the host); a format that no encoder takes (b48r, which the reference
+    refuses as an input) raises."""
+    from cineform_tpu import api as japi
+
+    for fmt in japi.Encoder.INPUT_FORMATS:
+        assert IntraCodec(96, 48, 4, device=CPU, input_format=fmt.name)
     with pytest.raises(ValueError, match="encodes YUY2, UYVY"):
-        IntraCodec(320, 240, 4, device=CPU, input_format="R210")
+        IntraCodec(320, 240, 4, device=CPU, input_format="b48r")
 
 
 def test_frames_of_the_wrong_shape_raise():

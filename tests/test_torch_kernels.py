@@ -1082,3 +1082,133 @@ def test_geometry_on_the_card_equals_the_cpu(cuda):
                .cpu() for m, d in ((warp.upload(mesh, cuda), cuda),
                                    (warp.upload(mesh, "cpu"), "cpu"))]
         assert torch.equal(out[0], out[1]), fmt
+
+
+#: the encoder's new level-1 inputs: (input format, LYUV/CV67 transform)
+#: and the DWT entry point that takes every level of it
+NEW_INPUTS = [*((fmt, None, "planes") for fmt in (
+    "R210", "DPX0", "RG30", "AB10", "AR10", "BGRA", "BGRa", "RG24")),
+    *((fmt, None, "groups") for fmt in (
+        "CT_UCHAR", "CT_10BIT_2_8", "CT_SHORT_2_14", "CT_USHORT_10_6",
+        "CT_SHORT")),
+    ("YUY2", (1, 0), "groups"), ("YUY2", (0, 1), "groups"),
+    ("YUY2", (1, 1), "groups")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,convert,dwt_name", NEW_INPUTS)
+def test_new_inputs_forward_packed_on_the_card(cuda, fmt, convert,
+                                               dwt_name):
+    """On the card the packed 10-bit and 8-bit RGB inputs launch
+    `dwt_forward_planes` 3 times an encode, the Avid CT family and a YUY2
+    frame through the LYUV/CV67 transform `dwt_forward_groups` 3 times
+    (level 1 from the plain unpack), no other DWT entry point, and each
+    equals the plain path; so do the samples of `encode_batch_device`."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+
+    w, h = 192, 96
+    codec = IntraCodec(w, h, 4, device=torch.device("cpu"), input_format=fmt,
+                       convert=convert)
+    frames = np.random.default_rng(len(fmt)).integers(
+        0, 256, (2, h, codec.row_bytes)).astype(np.uint8)
+    want = codec.forward_packed(torch.from_numpy(frames))
+    wrappers = {"planes": dwt_forward_planes, "groups": dwt_forward_groups,
+                "yuy2": dwt_forward_yuy2, "level": dwt_forward_level}
+    before = {n: f.launches for n, f in wrappers.items()}
+    card = IntraCodec(w, h, 4, device=cuda, input_format=fmt,
+                      convert=convert)
+    got = card.forward_packed(torch.from_numpy(frames).to(cuda))
+    torch.cuda.synchronize()
+    assert {n: f.launches - before[n] for n, f in wrappers.items()} == {
+        n: 3 if n == dwt_name else 0 for n in wrappers}
+    assert _equal(got, want)
+    assert card.encode_batch_device(frames) == \
+        codec.encode_batch_device(frames)
+
+
+def _custom_quants(table):
+    """Per level, the (LH, HL, HH) quantizers of Y, V, U that a caller's
+    17-entry table gives through `custom_quant_tables`."""
+    from cineform_tpu_torch.spec.production import (IntraParams,
+                                                    custom_quant_tables)
+
+    tables = tuple(map(tuple, custom_quant_tables(table, table, 10)))
+    p = IntraParams(width=64, height=48, quality=4, custom_quant=tables)
+    return [[p.band_quant(ch)[k] for ch in range(3)] for k in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", [[1] * 17, [0xFFFF] * 17],
+                         ids=["q1", "largest"])
+@pytest.mark.parametrize("b,h,w", [(2, 96, 192), (1, 1080, 1920)])
+def test_custom_quantizers_kernels_match_plain(cuda, b, h, w, table):
+    """`dwt_forward_yuy2` and `dwt_forward_groups` at a caller's custom
+    quantizers, all 1 and the largest a 16-bit table entry gives after the
+    x4 scaling and the band scales, equal their plain versions."""
+    quants = _custom_quants(table)
+    frames = torch.from_numpy(np.random.default_rng(w).integers(
+        0, 256, (b, h, 2 * w)).astype(np.uint8))
+    got = dwt_forward_yuy2(frames.to(cuda), 10, 0, quants[0])
+    assert _equal(got, dwt.plain_groups(intra_transform.unpack_yuy2(frames),
+                                        0, quants[0]))
+    lows = tuple(t.cpu() for t in got[0])
+    for k in (1, 2):
+        prescale = (0, 2, 0)[k]
+        got = dwt_forward_groups(tuple(t.to(cuda) for t in lows), prescale,
+                                 quants[k])
+        want = dwt.plain_groups((lows[0][:, 0], lows[1][:, 0],
+                                 lows[1][:, 1]), prescale, quants[k])
+        assert _equal(got, want)
+        lows = tuple(t.cpu() for t in got[0])
+
+
+@pytest.mark.gpu
+def test_encoder_options_on_the_card_equal_the_cpu(cuda, monkeypatch,
+                                                   tmp_path):
+    """api.Encoder on the card equals it with `device="cpu"` on every
+    encoder route of this slice: custom quantization, LYUV and CV67 from
+    the override database, a V210 passthrough series with both kinds of
+    frame, and the interlaced GOP, whose pattern-1/2 group is the
+    reference's golden."""
+    from cineform_tpu_torch import api
+    from cineform_tpu_torch import testframes as tf
+    from cineform_tpu_torch.models.intra import sample_metadata
+
+    monkeypatch.setenv("CINEFORM_OVERRIDE_PATH", str(tmp_path))
+    monkeypatch.setenv("CINEFORM_LUT_PATH", str(tmp_path))
+
+    def both(fmt, w, h, frames, quality=4, flags=0, custom=None, meta=None):
+        out = []
+        for d in (cuda, "cpu"):
+            enc = api.Encoder(d)
+            enc.prepare_to_encode(w, h, api.PixelFormat[fmt],
+                                  encoding_flags=api.EncodingFlags(flags),
+                                  quality=quality)
+            if custom:
+                enc.set_custom_quantization(custom)
+            enc.attach_metadata(meta)
+            samples = []
+            for f in frames:
+                enc.encode_sample(f)
+                samples.append(enc.get_sample_data())
+            out.append(samples)
+        assert out[0] == out[1], fmt
+        return out[0]
+
+    yuy2 = [tf.yuy2_frame(320, 240, p) for p in (1, 2, 3, 4)]
+    both("YUY2", 320, 240, yuy2, 5, custom=[4] + [40] * 16)
+    for tags_ in ((b"LYUV",), (b"CV67",), (b"LYUV", b"CV67")):
+        (tmp_path / "override.colr").write_bytes(b"".join(
+            t + (4).to_bytes(3, "little") + b"H" + (1).to_bytes(4, "little")
+            for t in tags_))
+        both("YUY2", 320, 240, yuy2[:2])
+    (tmp_path / "override.colr").unlink()
+    v210 = both("V210", 96, 48, [tf.v210_frame(96, 48, f + 1)
+                                 for f in range(12)], 0x0404)
+    assert len({len(s) > 10000 for s in v210}) == 2
+    gold_path = os.path.join(REPO, "tests", "golden", "samples",
+                             "ilace_320x240_q4_p1.cfhd.f1")
+    with open(gold_path, "rb") as f:
+        gold = f.read()
+    assert both("YUY2", 320, 240, yuy2, flags=3,
+                meta=sample_metadata(gold))[1] == gold
