@@ -184,7 +184,32 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     (equal to the CPU path) and `ilace_320x240_q4_p1.cfhd.f1` re-encoded
     byte for byte through `api.Encoder`; it fails unless that launched
     every kernel;
-13. fails if a module of the JAX package was imported.
+13. runs the Bayer develop stages, the 3D composite and the demo pyramid:
+    with the launch counts set to 0, the 15 Bayer goldens whose metadata
+    turns on a develop stage beyond the matrix (vignette, BLSH, the LOOK
+    cube, gamma and contrast; the `.cflook` look's file under a HOME of
+    the phase's own) through `api.Decoder` on the card to RG48 byte for
+    byte, and `byr4_full_develop` to b64a, WP13 and W13A equal to the CPU
+    path; the 4K BYR4 batch decoded with `decode_batch_device` to RG48
+    through the develop plans of the vgn, blsh05, blshm05, blshm10,
+    gamt, ctrs_gamt, look_protune, look_cflook and full_develop goldens
+    (no frame falling back; frame 0, and 7 for full_develop, equal to the
+    same stages on the CPU; ms a frame, medians of 3 after a warm-up; the
+    peak device memory; each plan's host build and the 4K vignette
+    tables' host time), each stage's device time on one 4K frame against
+    its bound, and two 4K frames encoded through `api.Encoder` with
+    full_develop's develop tuples attached, decoded through `api.Decoder`
+    equal to the plan route; it fails unless each decoder merge form ran
+    once a band row class decoded and the encode launched
+    `dwt_forward_planes` 3 times an encode, `chunk_pack` and
+    `merge_network`; then, counts reset, the GOP phase's 8 stereo samples
+    through `api.Decoder` with channel mask 3 in every blend mode (YUY2 or
+    BGRA), samples 0 and 7 equal to the CPU path, each mode's ms a frame,
+    each decoder merge form once a band row class of each eye; then the
+    demo pyramid (`ops.pyramid.forward_intra`, `inverse_intra`) of a
+    1080x1920 int32 plane on the card equal to the CPU, with its device
+    times;
+14. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -239,6 +264,22 @@ BAYER_API_GOLDENS = (
     ("byr4_wbal_320x240_q4", "YUY2", "yuy2out"),
     ("byr4_wbal2_320x240_q4", "RG48", "rg48out"),
     ("byr4_satexp_320x240_q4", "RG48", "rg48out"))
+# the develop phase: the 96x64 and 320x240 Bayer goldens whose metadata
+# turns on a develop stage beyond the matrix (vignette, BLSH, the LOOK cube,
+# gamma and contrast), and the plans the 4K batch runs, each a golden's
+# develop (`byr4_<name>_96x64_q4`, gamt's 320x240)
+DEVELOP_GOLDENS = ("byr4_blsh05_96x64_q4", "byr4_blshm05_96x64_q4",
+                   "byr4_blshm10_96x64_q4", "byr4_colm_blsh_96x64_q4",
+                   "byr4_colm_look_96x64_q4", "byr4_ctrs_96x64_q4",
+                   "byr4_ctrs_gamt_96x64_q4", "byr4_ctrs_look_96x64_q4",
+                   "byr4_full_develop_96x64_q4", "byr4_gamt_320x240_q4",
+                   "byr4_gamt_look_96x64_q4", "byr4_look_cflook_96x64_q4",
+                   "byr4_look_protune_96x64_q4", "byr4_vgn_96x64_q4",
+                   "byr4_vgn_blsh_96x64_q4")
+DEVELOP_PLANS = ("vgn", "blsh05", "blshm05", "blshm10", "gamt", "ctrs_gamt",
+                 "look_protune", "look_cflook", "full_develop")
+# the 3D composite's blend modes (`models.stereo.BLEND_*`)
+BLEND_MODES = (0, 1, 2, 3, 4, 5, 7, 16, 17, 18, 19, 20, 21)
 # the Bayer batch: a 4K UHD mosaic, four 1920x1080 planes
 BAYER_WIDTH, BAYER_HEIGHT = 3840, 2160
 ALL_PATHS = ("yuy2", "rgb", "yuv10", "bayer")
@@ -500,8 +541,13 @@ def main() -> int:
     from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
     from cineform_tpu_torch.models import lens
     from cineform_tpu_torch.models.intra_host import EncoderMetadata
+    from cineform_tpu_torch.metadata import read_metadata
+    from cineform_tpu_torch.models import stereo
     from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
                                                   encode_batch_3d, split_3d)
+    from cineform_tpu_torch.ops import pyramid
+    from cineform_tpu_torch.ref import demosaic as dm_ref
+    from cineform_tpu_torch.spec.quant import demo_quant_tables
     from cineform_tpu_torch.ops import demosaic as dmops
     from cineform_tpu_torch.ops import intra_transform as ops
     from cineform_tpu_torch.ops import scaler as scaler_ops
@@ -581,7 +627,7 @@ def main() -> int:
                  "4 (RGBA, Bayer) equal-size int32 planes in one launch a "
                  "level, level 1 from the planes the plain unpack builds, "
                  "bands in the entropy coder's layout", ops_per_elem=40,
-            paths=("rgb", "bayer", "encoder_inputs"),
+            paths=("rgb", "bayer", "encoder_inputs", "bayer_develop"),
             library_note=dwt_library,
             ms_covers=f"the 3 levels of one batch-{BATCH} 1080p RG48 "
                       "encode"),
@@ -589,13 +635,14 @@ def main() -> int:
             wrapper=chunk_pack, route="cuda",
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
             replaces="cineform_tpu/ops/pallas_pack.py:135",
-            ops_per_elem=8 * 16, paths=ALL_PATHS + ("encoder_inputs",)),
+            ops_per_elem=8 * 16,
+            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop")),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="low-bit-first (encoder concat): guarded OR placement, "
                  "network on flagged rows", ops_per_elem=20,
-            paths=ALL_PATHS + ("encoder_inputs",)),
+            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop")),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -604,7 +651,8 @@ def main() -> int:
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry", "encoder_inputs")),
+                               "geometry", "encoder_inputs", "bayer_develop",
+                               "stereo_composite")),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -612,7 +660,8 @@ def main() -> int:
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry", "encoder_inputs")),
+                               "geometry", "encoder_inputs", "bayer_develop",
+                               "stereo_composite")),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -1468,7 +1517,7 @@ def main() -> int:
         + ", ".join(f"{n[5:-3]}.{e}" for n, _, e in BAYER_API_GOLDENS))
     wbal = api.bayer_develop(golden("cfhd", "byr4_wbal_320x240_q4"), None,
                              "RG48")
-    wbal_batch = np.stack([wbal] * BATCH)
+    wbal_batch = [wbal] * BATCH
     rgb_cases = [(o, None) for o in ("RG48", "b64a", "WP13", "YUY2")] + [
         ("RG48", wbal_batch)]
     picks = [0, BATCH - 1]
@@ -1478,7 +1527,7 @@ def main() -> int:
     rgb_ms, rgb_picks = [], []
     for output, develop in rgb_cases:
         host_t, dev_t = [], []
-        for it in range(3):
+        for it in range(2):
             out, ms = host_ms(torch, lambda: bayer.decode_batch(
                 bayer_samples, output=output, develop=develop))
             host_t.append(ms)
@@ -1504,7 +1553,7 @@ def main() -> int:
     for (output, develop), want in zip(rgb_cases, rgb_picks):
         got = cpu_bayer.decode_batch(
             [bayer_samples[i] for i in picks], output=output,
-            develop=None if develop is None else develop[picks])
+            develop=None if develop is None else [develop[i] for i in picks])
         if got.tobytes() != want.tobytes():
             raise AssertionError(f"BYR4 batch to {output}: frames {picks} "
                                  "differ from the port's path on the CPU")
@@ -1516,7 +1565,7 @@ def main() -> int:
     planes = bayer._row16u_planes(co)
     c2l = torch.from_numpy(curve2linear_lut().astype(np.int32)).to(dev)
     l2c = torch.from_numpy(linear2curve_lut().astype(np.int32)).to(dev)
-    lcm = dmops.develop_matrix_lcm(wbal[None], dev)
+    lcm = dmops.develop_matrix_lcm(wbal.matrix[None], dev)
     parity = torch.from_numpy(bayer_yuyv_parity(BAYER_HEIGHT)).to(dev)
     rgb16 = dmops.demosaic_raw(*planes)
     bilinear = dmops.demosaic_bilinear_rgb(*planes)
@@ -1526,7 +1575,7 @@ def main() -> int:
          "coefficients)", lambda: bayer.inverse_bayer_rgb(co, "RG48"),
          flat(co), (whole["RG48"],)),
         ("inverse_bayer_rgb to RG48 through the WBAL matrix",
-         lambda: bayer.inverse_bayer_rgb(co, "RG48", wbal[None]), flat(co),
+         lambda: bayer.inverse_bayer_rgb(co, "RG48", [wbal]), flat(co),
          (whole["RG48"],)),
         ("inverse_bayer_rgb to YUY2", lambda: bayer.inverse_bayer_rgb(
             co, "YUY2"), flat(co), (whole["YUY2"],)),
@@ -1572,7 +1621,7 @@ def main() -> int:
     del co, planes, rgb16, bilinear, rgb_picks, whole
     log(f"BYR4 batch {BATCH} at {BAYER_WIDTH}x{BAYER_HEIGHT} to RGB: "
         "decode_batch_device equal to decode_batch on all frames, 0 "
-        "fallback frames. Per frame, medians of 2 batches after a warm-up: "
+        "fallback frames. Per frame, one batch after a warm-up: "
         + "; ".join(rgb_ms) + f"; peak device memory over the decodes "
         f"{rgb_peak} bytes ({rgb_peak / 2**30:.3f} GiB; {base_bytes} "
         f"allocated before) ({card()})")
@@ -2975,6 +3024,357 @@ def main() -> int:
     in_log(f"launches during the encoder inputs path: {launches_inputs}; "
            f"phase {time.perf_counter() - t_phase:.3f} s")
 
+    # --- 13. the Bayer develop stages, the 3D composite, the demo pyramid ---
+    t_phase = time.perf_counter()
+    launches_develop = dict.fromkeys(kernels, 0)
+    launches_composite = dict.fromkeys(kernels, 0)
+    dm_lines = []
+
+    def dm_log(msg):
+        dm_lines.append(msg)
+        log(f"{msg} ({the_card})")
+
+    # the `.cflook` golden's LUT where the reference looks for it, under a
+    # HOME of the phase's own; no override database
+    saved_env = {k: os.environ.get(k) for k in ("HOME",
+                                                "CINEFORM_OVERRIDE_PATH")}
+    look_home = tempfile.TemporaryDirectory()
+    os.makedirs(os.path.join(look_home.name, ".cineform", "LUTs"))
+    with open(os.path.join(look_home.name, ".cineform", "LUTs",
+                           "DEADBEEF.cflook"), "wb") as f:
+        f.write(golden("cflook", "DEADBEEF"))
+    os.environ["HOME"] = look_home.name
+    os.environ["CINEFORM_OVERRIDE_PATH"] = os.path.join(look_home.name,
+                                                        "overrides")
+    merge_forms = ("merge_network_tgt", "merge_network_highfirst")
+    classes = [0]
+
+    def api_bayer(sample, fmt, device):
+        """A Bayer sample through an `api.Decoder` on `device` -> (bytes,
+        fallback frames); a device decode adds its codec's band row classes
+        to those the merge forms must have run."""
+        d = api.Decoder(device)
+        d.prepare_to_decode(0, 0, api.PixelFormat[fmt], sample=sample)
+        out = d.decode_sample(sample).tobytes()
+        if device == dev:
+            info = d.get_sample_info(sample)
+            classes[0] += len(api.intra_codec(
+                info.width, info.height, api.DECODE_QUALITY, "BYR4",
+                dev).decode_classes())
+        return out, d.fallback_frames
+
+    reset_counts()
+    for name in DEVELOP_GOLDENS:
+        got, fb = api_bayer(golden("cfhd", name), "RG48", dev)
+        if fb or got != golden("rg48out", name):
+            raise AssertionError(f"api.Decoder: {name} to RG48 differs from "
+                                 f"{name}.rg48out, or fell back")
+    full = golden("cfhd", "byr4_full_develop_96x64_q4")
+    full_outs = {}
+    for fmt in ("B64A", "WP13", "W13A"):
+        full_outs[fmt], fb = api_bayer(full, fmt, dev)
+        if fb:
+            raise AssertionError(f"api.Decoder: byr4_full_develop to {fmt} "
+                                 "fell back")
+    plans_taken = {n: api.bayer_develop(golden("cfhd", n), None, "RG48")
+                   for n in ("byr4_look_protune_96x64_q4",
+                             "byr4_look_cflook_96x64_q4")}
+    dm_log(f"develop goldens: the {len(DEVELOP_GOLDENS)} through api.Decoder "
+           "on the card to RG48 byte-equal to their .rg48out, 0 fallback; "
+           "byr4_full_develop to b64a, WP13, W13A (held against the CPU "
+           "path after the counted window); "
+           "cube applies: " + ", ".join(
+               f"{n[10:-9]} {'1D (separable)' if p.separable else 'trilinear'}"
+               for n, p in plans_taken.items()))
+
+    # the 4K batch through each plan
+    plans, build_s = {}, {}
+    for name in DEVELOP_PLANS:
+        api._PLANS.clear()              # the host build, not the cache's
+        t0 = time.perf_counter()
+        plans[name] = api.bayer_develop(golden("cfhd", f"byr4_{name}_96x64_q4"
+                                               if name != "gamt" else
+                                               "byr4_gamt_320x240_q4"),
+                                        None, "RG48")
+        build_s[name] = time.perf_counter() - t0
+    # a cached frame's plan: the metadata and the LOOK file's stat, no read
+    cached_s = {}
+    for name in ("look_protune", "look_cflook"):
+        sample = golden("cfhd", f"byr4_{name}_96x64_q4")
+        first = api.bayer_develop(sample, None, "RG48")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            if api.bayer_develop(sample, None, "RG48") is not first:
+                raise AssertionError(f"{name}: the cached plan was rebuilt")
+        cached_s[name] = (time.perf_counter() - t0) / 10
+    p_full = plans["full_develop"]
+    t0 = time.perf_counter()
+    geo = dm_ref.vignette_geometry(BAYER_WIDTH, BAYER_HEIGHT,
+                                   *p_full.vignette)
+    vgn_s = time.perf_counter() - t0
+    del geo
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_bayer = len(bayer.decode_classes())
+    plan_ms, plan_out = {}, {}
+    for name, plan in plans.items():
+        times = []
+        for it in range(4):
+            (out, fallback), ms = host_ms(
+                torch, lambda: bayer.decode_batch_device(
+                    bayer_samples, output="RG48", develop=[plan] * BATCH))
+            classes[0] += n_bayer
+            if fallback:
+                raise AssertionError(f"BYR4 batch through {name}: fallback "
+                                     f"frames {fallback}")
+            if it:
+                times.append(ms / BATCH)
+        plan_ms[name] = med(times)
+        plan_out[name] = out[[0, BATCH - 1] if name == "full_develop"
+                             else [0]]
+        del out
+    develop_peak = torch.cuda.max_memory_allocated()
+    # the CPU path: the same stages on the CPU from frame 0's (and 7's)
+    # demosaic, the card's float32 sums and square roots against the CPU's
+    t0 = time.perf_counter()
+    c2l_cpu = torch.from_numpy(curve2linear_lut().astype(np.int32))
+    l2c_cpu = torch.from_numpy(linear2curve_lut().astype(np.int32))
+    rgb_cpu = {}
+    for i in (0, BATCH - 1):
+        co = cpu_bayer.host_entropy_decode([bayer_samples[i]])
+        rgb_cpu[i] = dmops.demosaic_raw(*cpu_bayer._row16u_planes(co))
+    for name, plan in plans.items():
+        for j, i in enumerate((0, BATCH - 1) if name == "full_develop"
+                              else (0,)):
+            want = dmops.develop_rgb16(rgb_cpu[i], plan, c2l_cpu, l2c_cpu)
+            want = want.flatten(-2).numpy().astype("<u2")
+            if not np.array_equal(plan_out[name][j], want[0]):
+                raise AssertionError(f"BYR4 batch through {name}: frame {i} "
+                                     "differs from the CPU path")
+    cpu_s = time.perf_counter() - t0
+    del rgb_cpu, plan_out
+    dm_log(f"BYR4 batch {BATCH} at {BAYER_WIDTH}x{BAYER_HEIGHT} to RG48 "
+           "through each develop plan, decode_batch_device, 0 fallback "
+           "frames, frame 0 (and 7 for full_develop) equal to the CPU path "
+           f"({cpu_s:.3f} s); ms a frame, medians of 3 after a warm-up: "
+           + ", ".join(f"{n} {plan_ms[n]:.4f}" for n in plans)
+           + f"; peak device memory {develop_peak} bytes "
+           f"({develop_peak / 2**30:.3f} GiB; {base_bytes} allocated "
+           "before); host build of each plan, uncached (the metadata, the "
+           "LOOK's file and cube, the tables): " + ", ".join(
+               f"{n} {1e3 * build_s[n]:.4f} ms"
+                                  for n in plans)
+           + f"; vignette tables at {BAYER_WIDTH}x{BAYER_HEIGHT} "
+           f"{1e3 * vgn_s:.4f} ms; a cached LOOK plan a frame (mean of 10): "
+           + ", ".join(f"{n} {1e3 * t:.4f} ms" for n, t in cached_s.items()))
+
+    # each stage's device time on one 4K frame
+    co = bayer.host_entropy_decode(bayer_samples[:1])
+    rgb16 = dmops.demosaic_raw(*bayer._row16u_planes(co))
+    out13 = (rgb16 >> 3).to(torch.int64)
+    c2l = torch.from_numpy(curve2linear_lut().astype(np.int32)).to(dev)
+    l2c = torch.from_numpy(linear2curve_lut().astype(np.int32)).to(dev)
+    t_look = {n: plans[n].on(dev) for n in ("look_protune", "look_cflook",
+                                             "gamt")}
+    vtab = dmops.vignette_tables(BAYER_WIDTH, BAYER_HEIGHT,
+                                 *plans["vgn"].vignette, dev)
+    stages = (
+        ("apply_raw_cube_rgb16_1d (look_protune)",
+         lambda: dmops.apply_raw_cube_rgb16_1d(
+             rgb16, t_look["look_protune"]["cube"]),
+         (rgb16, t_look["look_protune"]["cube"])),
+        ("apply_raw_cube_rgb16_trilinear (look_cflook)",
+         lambda: dmops.apply_raw_cube_rgb16_trilinear(
+             rgb16, t_look["look_cflook"]["cube"]),
+         (rgb16, t_look["look_cflook"]["cube"])),
+        ("apply_gamma_tweaks (gamt)", lambda: dmops.apply_gamma_tweaks(
+            rgb16, t_look["gamt"]["gamma"]), (rgb16, t_look["gamt"]["gamma"])),
+        ("fast_vignette_wp13 (vgn)", lambda: dmops.fast_vignette_wp13(
+            out13, *vtab), (out13, *vtab)),
+        ("fast_sharpening_blur_h_wp13 (0.5)",
+         lambda: dmops.fast_sharpening_blur_h_wp13(out13, 0.5), (out13,)),
+        ("fast_sharpening_blur_h_wp13 (-1.0, 9 taps)",
+         lambda: dmops.fast_sharpening_blur_h_wp13(out13, -1.0), (out13,)),
+        ("fast_sharpening_blur_v_wp13 (0.5, 5 taps)",
+         lambda: dmops.fast_sharpening_blur_v_wp13(out13, 0.5), (out13,)),
+        ("fast_sharpening_blur_v_wp13 (-1.0, 9 taps)",
+         lambda: dmops.fast_sharpening_blur_v_wp13(out13, -1.0), (out13,)),
+        ("develop_rgb16 (full_develop: cube, vignette, BLSH H and V)",
+         lambda: dmops.develop_rgb16(rgb16, p_full, c2l, l2c), (rgb16,)))
+    torch.cuda.empty_cache()
+    stage_lines = []
+    for what, fn, ins in stages:
+        bound = bound_ms(nbytes((*ins, fn())), 0)[0]
+        try:
+            dms, how = device_ms(torch, fn, reps=3), ""
+        except AssertionError:
+            dms, how = cuda_ms(torch, fn, reps=3), ", events: device_ms refused"
+        stage_lines.append(f"{what} {dms:.4f} ms (bound {bound:.4f} ms, "
+                           f"{100 * bound / dms:.2f}%{how})")
+    del co, rgb16, out13, t_look, vtab
+    dm_log("develop stages, one 4K frame on the card (device_ms, medians of "
+           "3; bound: inputs read and output written once over 3.35 TB/s): "
+           + "; ".join(stage_lines))
+
+    # a 4K frame encoded through api.Encoder with full_develop's tuples
+    full_items = [it for it in read_metadata(full)
+                  if it.tag not in ("GUID", "DATE", "TIME", "TIMC", "UFRM",
+                                    "VCHN")]
+
+    @dataclasses.dataclass
+    class DevelopMetadata(EncoderMetadata):
+        extra: bytes = b""
+
+        def block(self) -> bytes:
+            return super().block() + self.extra
+
+    extra = b"".join(it.tag.encode("latin1")
+                     + len(it.payload).to_bytes(3, "little") + it.typ
+                     + it.payload + b"\0" * (-len(it.payload) % 4)
+                     for it in full_items)
+    enc = api.Encoder(dev)
+    enc.prepare_to_encode(BAYER_WIDTH, BAYER_HEIGHT, api.PixelFormat.BYR4,
+                          encoded_format=api.EncodedFormat.BAYER,
+                          quality=api.EncodingQuality(4))
+    enc.attach_metadata(DevelopMetadata(extra=extra))
+    encodes_4k = 0
+    for i in (0, BATCH - 1):
+        enc.encode_sample(bayer_frames[i])
+        sample = enc.get_sample_data()
+        encodes_4k += 1
+        if api.bayer_develop(sample, None, "RG48") is not p_full:
+            raise AssertionError("the 4K sample's develop plan is not "
+                                 "byr4_full_develop's")
+        got, fb = api_bayer(sample, "RG48", dev)
+        want, fb2 = bayer.decode_batch_device([sample], output="RG48",
+                                              develop=[p_full])
+        classes[0] += n_bayer
+        if fb or fb2 or got != want.tobytes():
+            raise AssertionError(f"4K frame {i} encoded with full_develop's "
+                                 "tuples: api.Decoder differs from the plan "
+                                 "route, or fell back")
+    book(launches_develop)
+    develop_classes = classes[0]
+    merges_each = {n: launches_develop[n] for n in merge_forms}
+    if merges_each != dict.fromkeys(merge_forms, develop_classes) \
+            or launches_develop["dwt_forward_planes"] != 3 * encodes_4k \
+            or not all(launches_develop[n] for n, k in kernels.items()
+                       if "bayer_develop" in k["paths"]):
+        raise AssertionError(
+            f"the develop path launched {launches_develop}: expected each "
+            f"decoder merge form {develop_classes} times (once a band row "
+            f"class decoded), dwt_forward_planes {3 * encodes_4k}, and every "
+            "kernel of the path")
+    # the CPU path, outside the counted window
+    for fmt, got in full_outs.items():
+        if got != api_bayer(full, fmt, cpu)[0]:
+            raise AssertionError(f"api.Decoder: byr4_full_develop to {fmt}: "
+                                 "the card differs from the CPU path")
+    dm_log(f"{encodes_4k} 4K frames encoded through api.Encoder with "
+           f"byr4_full_develop's {len(full_items)} develop tuples, decoded "
+           "through api.Decoder equal to the plan route; launches during the "
+           f"develop path {launches_develop} ({develop_classes} band row "
+           "classes decoded)")
+
+    # the composite: every blend mode on the GOP phase's stereo batch
+    stereo_samples = encode_batch_3d(codec, gop_f0, gop_f1)
+    reset_counts()
+    classes[0] = 0
+    n_yuv = len(codec.decode_classes())
+    cpu_eyes = {}
+    for i in (0, BATCH - 1):
+        left, right = split_3d(stereo_samples[i])
+        cpu_eyes[i] = (
+            torch.from_numpy(cpu_codec.decode_batch([left], output="YUY2")),
+            torch.from_numpy(cpu_codec.decode_batch([right], 1,
+                                                    output="YUY2")))
+    mode_ms = []
+    for mode in BLEND_MODES:
+        fmt = stereo.blend_format(mode)
+        d = api.Decoder(dev)
+        d.prepare_to_decode(WIDTH, HEIGHT, api.PixelFormat[fmt])
+        d.set_channels_active(3)
+        d.set_channel_blend(mode)
+        # the first mode's first sample warms the codec up for all
+        warm = [stereo_samples[0]] if mode == BLEND_MODES[0] else []
+        outs, t_start = [], None
+        for i, sample in enumerate(warm + stereo_samples):
+            if i == len(warm):
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            outs.append(d.decode_sample(sample))
+            classes[0] += 2 * n_yuv
+        outs = outs[len(warm):]
+        mode_ms.append(f"{mode} ({fmt}) "
+                       f"{1e3 * (time.perf_counter() - t_start) / BATCH:.4f}")
+        if d.fallback_frames:
+            raise AssertionError(f"blend mode {mode}: {d.fallback_frames} "
+                                 "eyes fell back")
+        for i in (0, BATCH - 1):
+            want = stereo.blend_eyes(*cpu_eyes[i], mode)[0]
+            if outs[i].tobytes() != want.numpy().tobytes():
+                raise AssertionError(f"blend mode {mode}: sample {i} differs "
+                                     "from the CPU path")
+    book(launches_composite)
+    if {n: launches_composite[n] for n in merge_forms} != \
+            dict.fromkeys(merge_forms, classes[0]):
+        raise AssertionError(f"the composite path launched "
+                             f"{launches_composite}: expected each decoder "
+                             f"merge form {classes[0]} times, once a band "
+                             "row class of each eye decoded")
+    d = api.Decoder(cpu)
+    d.prepare_to_decode(WIDTH, HEIGHT, api.PixelFormat.YUY2)
+    d.set_channels_active(3)
+    if d.decode_sample(stereo_samples[0]).tobytes() != \
+            stereo.blend_eyes(*cpu_eyes[0], 1)[0].numpy().tobytes():
+        raise AssertionError("the CPU api.Decoder's default composite differs")
+    dm_log(f"3D composite: {BATCH} stereo samples of {WIDTH}x{HEIGHT} eyes "
+           "through api.Decoder on the card with mask 3 in every blend mode, "
+           f"samples 0 and {BATCH - 1} equal to the CPU path, 0 fallback "
+           "eyes; ms a frame (both eyes decoded and composited): "
+           + ", ".join(mode_ms) + f"; launches {launches_composite}")
+    del stereo_samples, cpu_eyes, outs
+
+    # the demo pyramid on a 1080p int32 plane
+    qt, ps = demo_quant_tables(12)
+    plane = np.random.default_rng(15).integers(0, 4096, (HEIGHT, WIDTH),
+                                               dtype=np.int32)
+    on = []
+    for where in (dev, cpu):
+        x = torch.from_numpy(plane).to(where)
+        pyr = pyramid.forward_intra(x, 3, qt, ps)
+        rec = pyramid.inverse_intra(pyr, qt, ps, 12)
+        on.append([t.cpu() for t in (pyr.lowpass, *flat(pyr.highs), rec)])
+    if any(not torch.equal(a, b) for a, b in zip(*on, strict=True)):
+        raise AssertionError("demo pyramid: the card differs from the CPU")
+    xd = torch.from_numpy(plane).to(dev)
+    pyr_d = pyramid.forward_intra(xd, 3, qt, ps)
+    pyr_ms = []
+    for fn in (lambda: pyramid.forward_intra(xd, 3, qt, ps),
+               lambda: pyramid.inverse_intra(pyr_d, qt, ps, 12)):
+        # its many small launches fill the launch queue behind the spin
+        # that `device_ms` queues them behind: CUDA events then
+        try:
+            pyr_ms.append(f"{device_ms(torch, fn, reps=3):.4f} ms")
+        except AssertionError:
+            pyr_ms.append(f"{cuda_ms(torch, fn, reps=3):.4f} ms (events: "
+                          "device_ms refused)")
+    err = int((on[1][-1] - torch.from_numpy(plane)).abs().max())
+    dm_log(f"demo pyramid: forward_intra and inverse_intra of a "
+           f"{HEIGHT}x{WIDTH} int32 plane, 3 levels, the 12-bit demo tables, "
+           f"equal on the card and the CPU (every band and the "
+           f"reconstruction; max reconstruction error {err}); device "
+           f"forward {pyr_ms[0]}, inverse {pyr_ms[1]}")
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    look_home.cleanup()
+    dm_log(f"develop, composite and pyramid phase "
+           f"{time.perf_counter() - t_phase:.3f} s")
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -2989,7 +3389,9 @@ def main() -> int:
                "stereo": launches_stereo, "api": launches_api,
                "pool": launches_pool, "outputs": launches_outputs,
                "scaled": launches_scaled, "geometry": launches_geometry,
-               "encoder_inputs": launches_inputs}
+               "encoder_inputs": launches_inputs,
+               "bayer_develop": launches_develop,
+               "stereo_composite": launches_composite}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

@@ -20,10 +20,13 @@ two-frame GOP groups, progressive and interlaced, through
 `models.gop.GopCodec` and stereo samples through `models.stereo`; the
 V210 passthrough's raw samples are written on the host, as the JAX API
 writes them.  There is no host codec to fall back to: an error of a
-kernel's build or launch reaches the caller.  What the JAX API does on
-the host and no port codec does yet (the Bayer develop's LOOK, vignette,
-BLSH and gamma stages, the 3D composite) raises
-`CFHDError(BADFORMAT, "... not ported yet")`.
+kernel's build or launch reaches the caller.  The Bayer develop's stages
+(the LOOK cube, the vignette, BLSH sharpening, the gamma tweaks: a
+`bayer_develop` plan) and the 3D composite of both eyes (mask 3,
+`models.stereo.blend_eyes`) run on the device too, where the JAX API runs
+them on the host.  What no port codec does yet (the pool's host worker
+pool, `pool.EncoderPool(use_device=False)`) raises
+`CFHDError(BADFORMAT, "... not ported yet")` (`_not_ported`).
 
 Errors raise CFHDError carrying the CFHD_ERROR_* code instead of returning
 status ints (`Common/CFHDError.h:25-82`).
@@ -47,7 +50,9 @@ from cineform_tpu_torch.models import (gop_host, intra_host, lens, stereo,
 from cineform_tpu_torch.models.gop import GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.models.intra_host import EncoderMetadata
+from cineform_tpu_torch.ops import demosaic as dmops
 from cineform_tpu_torch.ops import scaler
+from cineform_tpu_torch.ref import demosaic as dm
 from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import (custom_quant_tables,
@@ -205,31 +210,89 @@ def check_bgra_source(width: int, chroma_lowpass: int) -> None:
 
 
 def bayer_develop(sample: bytes, parsed, output: str):
-    """The develop matrix of a Bayer sample decoded to `output` (RG48,
-    b64a, WP13, W13A or YUY2), or None for the raw chain, by the gating of
-    the JAX API's host decoder (`intra_host.decode_sample_bayer_to`): the
-    PRCS-gated parameters (`active_metadata.develop_params`) and the
-    matrix NeedCube composes from them (`compose_develop_matrix`).
+    """The develop plan (`ops.demosaic.DevelopPlan`) of a Bayer sample
+    decoded to `output` (RG48, b64a, WP13, W13A or YUY2), or None for the
+    raw chain, by the gating of the JAX API's host decoder
+    (`intra_host.decode_sample_bayer_to`): the PRCS-gated parameters
+    (`active_metadata.develop_params`) and the matrix NeedCube composes
+    from them (`compose_develop_matrix`).
 
     YUY2 takes the matrix where it is active and nothing else.  The 16-bit
-    outputs take, in the JAX order, the LOOK cube; then the matrix, the
-    vignette or the BLSH sharpening; then the gamma or contrast tweaks;
-    else the raw chain.  Those stages but the matrix are not ported: a
-    sample that turns one on raises rather than decode without it."""
+    outputs take, in the JAX order: the LOOK cube, where the look's CRC
+    resolves to a LUT (`active_metadata.resolve_look`; else they fall
+    through), with the matrix and the gamma tweaks folded in; else the
+    matrix, the vignette or the BLSH sharpening, which run the WP13 chain
+    (through the identity's >> 3 where the matrix is not active); else the
+    gamma or contrast tweaks; else the raw chain.  The vignette and BLSH
+    follow the cube too.  Plans are cached by their settings (a LOOK by
+    its file's path, modification time and size, `active_metadata.
+    look_source`), so a stream's frames share one plan's tables on the
+    device, and a cached frame reads no LUT."""
     p = am.develop_params(sample, parsed=parsed)
     m = compose_develop_matrix(
         p.matrix, p.saturation, p.exposure,
         p.wb if tuple(p.wb) != (1.0, 1.0, 1.0) else None)
     matrix_active = bool(np.any(m[:, :3] != np.eye(3)) or np.any(m[:, 3]))
-    if output != "YUY2" and p.enabled:
-        look = bool(p.flags & am.PROCESSING_LOOK_FILE) and p.look_crc
-        gamma = (tuple(p.rgb_gamma) != (1.0, 1.0, 1.0)
-                 or p.contrast != 1.0)
-        if look or p.vignette_start != 0.0 or p.blur_sharpen != 0.0 \
-                or (gamma and not matrix_active):
-            raise _not_ported("the Bayer develop's vignette, BLSH "
-                              "sharpening, LOOK cube and gamma stages")
-    return m if p.enabled and matrix_active else None
+    if output == "YUY2":
+        return _plan(("matrix", m.tobytes()), lambda: dmops.DevelopPlan(
+            matrix=m)) if p.enabled and matrix_active else None
+    if not p.enabled:
+        return None
+    gamma_active = (tuple(p.rgb_gamma) != (1.0, 1.0, 1.0)
+                    or p.contrast != 1.0)
+    vignette = None if p.vignette_start == 0.0 else (
+        p.vignette_start - 1.0, p.vignette_end - 1.0, p.vignette_gain)
+    stages = (vignette, p.blur_sharpen)
+    source = am.look_source(p.look_crc) \
+        if p.flags & am.PROCESSING_LOOK_FILE and p.look_crc else None
+    if source is not None:
+        key = ("look", source, m.tobytes() if matrix_active else None,
+               tuple(p.rgb_gamma), p.contrast, *stages)
+
+        def build():
+            lut, lutsize = am.resolve_look(p.look_crc)
+            if lut is None:
+                return None
+            if matrix_active or gamma_active:
+                cube = dm.build_raw_cube_developed(
+                    m if matrix_active else None, p.rgb_gamma,
+                    p.contrast, lut, lutsize)
+            else:
+                cube = dm.build_raw_cube(lut, lutsize)
+            return dmops.DevelopPlan(
+                cube=cube, separable=dm.cube_is_separable(cube),
+                vignette=vignette, sharpen=p.blur_sharpen)
+        plan = _plan(key, build)
+        if plan is not None:
+            return plan
+    if matrix_active or vignette is not None or p.blur_sharpen != 0.0:
+        mat = m if matrix_active else None
+        return _plan(("chain", None if mat is None else m.tobytes(),
+                      *stages), lambda: dmops.DevelopPlan(
+            matrix=mat, vignette=vignette, sharpen=p.blur_sharpen))
+    if gamma_active:
+        return _plan(("gamma", tuple(p.rgb_gamma), p.contrast),
+                     lambda: dmops.DevelopPlan(gamma=np.stack([
+                         dm.gamma_contrast_lut(g, p.contrast)
+                         for g in p.rgb_gamma])))
+    return None
+
+
+_PLANS: dict = {}
+
+
+def _plan(key, build):
+    """The develop plan of `key`, built once (`build()`, which may give
+    None: then nothing is cached); the cache holds the 32 newest."""
+    plan = _PLANS.pop(key, None)
+    if plan is None:
+        plan = build()
+        if plan is None:
+            return None
+    _PLANS[key] = plan
+    while len(_PLANS) > 32:
+        _PLANS.pop(next(iter(_PLANS)))
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +667,7 @@ class Decoder:
         self.device = torch.device(device)
         self._prepared = False
         self._channels_active = 1
+        self._channel_blend = stereo.BLEND_STACKED_ANAMORPHIC
         self._held_group = None
         self._warp_mesh_cache: dict = {}
         self.fallback_frames = 0
@@ -659,8 +723,11 @@ class Decoder:
     # CFHD_SetActiveMetadata(TAG_CHANNELS_ACTIVE) analog
     def set_channels_active(self, mask: int) -> None:
         """Select the video channel(s) of stereo 3D samples: 1 = left,
-        2 = right (`Codec/decoder.c:10310-10340` channel_mask); 3, both
-        eyes composited, is not ported yet and raises at decode."""
+        2 = right (`Codec/decoder.c:10310-10340` channel_mask).
+
+        Mask 3 (both eyes) composites the eyes per the channel blend
+        mode (set_channel_blend; default stacked anamorphic like the
+        reference's 3D display default)."""
         if int(mask) not in (1, 2, 3):
             raise CFHDError(
                 ErrorCode.INVALID_ARGUMENT,
@@ -670,9 +737,12 @@ class Decoder:
 
     # CFHD_SetActiveMetadata(TAG_BLEND_TYPE) analog
     def set_channel_blend(self, mode: int) -> None:
-        """The 3D display compositing of mask-3 decodes (`Do3DWork`,
-        `Codec/bayer.c:10761`)."""
-        raise _not_ported("the 3D composite's blend modes")
+        """3D display compositing for mask-3 decodes (`Do3DWork`,
+        `Codec/bayer.c:10761`; modes `Codec/codec.h:1261-1278`, the
+        `models.stereo.BLEND_*` constants): stacked/side-by-side
+        anamorphic, line interleaved, onion, difference, freeview,
+        anaglyph RC/AB/GM (+BW variants)."""
+        self._channel_blend = int(mode)
 
     # --- per-sample-kind decode handlers -------------------------------------
 
@@ -689,23 +759,77 @@ class Decoder:
             else out
 
     def _route_stereo(self, sample: bytes):
-        """(the sample to decode, its parse or None): for dual-channel
-        samples the active eye's bitstream (`Codec/decoder.c:10086-10104`
-        stereo channel logic).  Parse errors fall through to the main
-        dispatch (which reports them)."""
+        """(the sample to decode, its parse or None, the composite or None):
+        for dual-channel samples the active eye's bitstream, or with mask 3
+        both eyes composited (`_composite`) (`Codec/decoder.c:10086-10104`
+        stereo channel logic).  As in the JAX API, an error that is not a
+        CFHDError in the sample's or an eye's parse, or an unknown blend
+        mode, leaves the sample to the main dispatch, which decodes it, or
+        reports it.  The composite itself runs outside that: an error of
+        the eyes' decode on the device, or of the blend, reaches the
+        caller."""
         try:
             info = parse_sample(sample)
             if info.encoded_channels < 2:
-                return sample, info
+                return sample, info, None
             eyes = stereo.split_3d(sample)
+            composite = self._channels_active == 3 and len(eyes) > 1
+            if composite:
+                self._composite_format()
+                for eye in eyes:
+                    parse_sample(eye)
+        except CFHDError:
+            raise
         except Exception:
-            return sample, None
-        if self._channels_active == 3 and len(eyes) > 1:
-            raise _not_ported("the 3D composite of both eyes (channel "
-                              "mask 3)")
+            return sample, None, None
+        if composite:
+            return sample, None, self._composite(eyes, info)
         eye = eyes[1] if self._channels_active == 2 and len(eyes) > 1 \
             else eyes[0]
-        return eye, None
+        return eye, None, None
+
+    def _composite_format(self) -> None:
+        """Refuse (BADFORMAT) a composite to another output than the blend
+        mode's (YUY2 for the geometric modes, BGRA for the anaglyphs);
+        ValueError for a mode that is not a blend mode."""
+        if self.output_format not in (PixelFormat.YUY2, PixelFormat.BGRA):
+            raise CFHDError(
+                ErrorCode.BADFORMAT,
+                "3D composite decode outputs YUY2 (geometric modes) or "
+                "BGRA (anaglyph modes)")
+        blend = self._channel_blend
+        fmt = stereo.blend_format(blend)
+        want = "BGRA" if self.output_format == PixelFormat.BGRA else "YUY2"
+        if fmt != want:
+            raise CFHDError(ErrorCode.BADFORMAT,
+                            f"blend mode {blend} produces {fmt}; prepare "
+                            f"with that output format")
+
+    def _composite(self, eyes: list[bytes], info) -> np.ndarray:
+        """Both eyes decoded to YUY2 on the device, the right one with the
+        second dither window (as a decoder that decoded the left eye
+        first), and composited there (`stereo.blend_eyes`) in the mode
+        `_composite_format` allowed: the flat bytes of the YUY2 or BGRA
+        (rows top first) composite, at the eyes' size, as the JAX API
+        returns them."""
+        blend = self._channel_blend
+        codec = intra_codec(info.width, info.height, DECODE_QUALITY, "YUY2",
+                            self.device)
+        left = {}
+
+        def keep(out: torch.Tensor) -> torch.Tensor:
+            left["eye"] = out
+            return out[..., :0]
+
+        def blend_with_left(right: torch.Tensor) -> torch.Tensor:
+            return stereo.blend_eyes(left["eye"], right, blend)[0]
+
+        _, fb_left = codec.decode_batch_device([eyes[0]], output="YUY2",
+                                               then=keep)
+        out, fb_right = codec.decode_batch_device(
+            [eyes[1]], frame_index=1, output="YUY2", then=blend_with_left)
+        self.fallback_frames += len(fb_left) + len(fb_right)
+        return np.ascontiguousarray(out[0]).reshape(-1)
 
     def _gop_frames(self, sample: bytes, reference_compatible: bool,
                     dither_base: int):
@@ -787,14 +911,14 @@ class Decoder:
                       output: str | None = None, then=None) -> np.ndarray:
         """An intra sample of a `kind` source through the device decoder of
         an `fmt` codec (`scale` 2: a Bayer sample's mosaic, `develop` its
-        develop matrix or None) to the prepared output, at the prepared
+        develop plan or None) to the prepared output, at the prepared
         resolution; `output` names it where the caller has checked it,
         `then` runs on the decoded frame on the device."""
         codec = intra_codec(info0.width * scale, info0.height * scale,
                             DECODE_QUALITY, fmt, self.device)
         out, fallback = codec.decode_batch_device(
             [sample], output=output or self._output(kind),
-            develop=None if develop is None else develop[None],
+            develop=None if develop is None else [develop],
             resolution=int(self.resolution), then=then)
         self.fallback_frames += len(fallback)
         return out[0]
@@ -860,7 +984,7 @@ class Decoder:
                              then=None) -> np.ndarray:
         """Bayer (RAW) intra sample at its mosaic's size: BYR4 and BYR2
         undifferenced, the other outputs demosaiced through the develop
-        matrix its metadata asks for (`bayer_develop`)."""
+        its metadata asks for (`bayer_develop`)."""
         out = self._output("BAYER")
         develop = None if out in ("BYR4", "BYR2") else \
             bayer_develop(sample, info0, out)
@@ -919,7 +1043,9 @@ class Decoder:
             # partial trailing pair is a bitstream error
             raise CFHDError(ErrorCode.BADSAMPLE,
                             f"sample size {len(sample)} not 32-bit aligned")
-        sample, info0 = self._route_stereo(sample)
+        sample, info0, composite = self._route_stereo(sample)
+        if composite is not None:
+            return composite
         try:
             if sample[:4] == b"\x00\x01\x00\x07":
                 # video sequence header: ignored by the decoder, no frame

@@ -7,11 +7,14 @@ of its host code, the wiring of `ApplyActiveMetaData` (`Codec/bayer.c:
 the sample (and decoder-side database items) gated by the TAG_PROCESS_PATH
 flags (`Common/CFHDMetadataTags.h:25-44`); nothing applies unless
 PROCESSING_ACTIVE is set, and each stage has its own bit.
-`decode_bayer_developed` runs on the device.
+`decode_bayer_developed` runs on the device.  `resolve_look` resolves a
+LOOK CRC to its LUT on the host, as the JAX package's does, and
+`look_source` names the file it would read.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +24,8 @@ from cineform_tpu_torch import metadata as md
 from cineform_tpu_torch.bitstream import parse_sample
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.ops import develop as dv
+from cineform_tpu_torch.ref import demosaic as dm
+from cineform_tpu_torch.utils import lutpath
 
 # TAG_PROCESS_PATH bits (`Common/CFHDMetadataTags.h:26-44`)
 PROCESSING_ACTIVE = 1 << 0
@@ -176,3 +181,36 @@ def decode_bayer_developed(sample: bytes,
 
     rgb, fallback = codec.decode_checked([sample], develop)
     return np.round(rgb[0] * 65535.0).astype(np.uint16), fallback
+
+
+def look_source(crc: int):
+    """What `resolve_look(crc)` would read, without reading it: "protune"
+    for the built-in look, else the `.cflook`'s path with its modification
+    time and size; None where no file holds the CRC.  It keys a cache of
+    what is built from the LUT."""
+    if crc == dm.PROTUNE_LOOK_CRC:
+        return "protune"
+    path = lutpath.LookDatabase(lutpath.default_lut_dir()).path_for(crc)
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return path, st.st_mtime_ns, st.st_size
+
+
+def resolve_look(crc: int) -> tuple[np.ndarray | None, int]:
+    """Resolve a TAG_LOOK_CRC to a flat (size^3, 3) float32 LUT in the
+    reference's (b*size^2 + g*size + r) raster order, and its size; (None,
+    0) where no file holds it.
+
+    The built-in Protune preview look (CRC 0x3f6f5788,
+    `Codec/DemoasicFrames.cpp:5017`) needs no file; other CRCs resolve
+    to <LUTsPath>/<CRC8X>.cflook like `DemoasicFrames.cpp:5101`, with
+    LUTsPath from $HOME/.cineform/dbsettings (LUTPath keyword,
+    `Codec/lutpath.cpp:130-185`) or $HOME/.cineform/LUTs."""
+    if crc == dm.PROTUNE_LOOK_CRC:
+        return dm.protune_look_lut()
+    look = lutpath.LookDatabase(lutpath.default_lut_dir()).load(crc)
+    if look is None:
+        return None, 0
+    return np.asarray(look.lut, np.float32).reshape(-1, 3), look.size

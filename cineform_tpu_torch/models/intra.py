@@ -32,7 +32,8 @@ and host is the JAX package's:
   the 16-bit RG48 and b64a rows of the RGB formats, and their WP13, W13A,
   BGRA, BGRa and RG24; for Bayer sources the 16-bit BYR4 and BYR2
   mosaics, and the demosaiced RG48, b64a, WP13, W13A and YUY2 outputs
-  (`ops.demosaic`, optionally through a per-frame develop matrix).  A
+  (`ops.demosaic`, optionally through a per-frame develop plan: the
+  LOOK cube, gamma tweaks, matrix, vignette and BLSH).  A
   frame the device route does not take (wrong dimensions, a band with
   peaks or unaligned payload, a device overflow flag) takes the host
   entropy decode instead (`decode_checked`, the one per-frame fallback,
@@ -174,6 +175,21 @@ def _rg24_dither(width: int, height: int,
     """`rg24_dither(width, height)`, the RG24 output's per-pixel draws, on
     `device`: built once a size (2,073,600 glibc draws at 1080p)."""
     return torch.from_numpy(rg24_dither(width, height)).to(device)
+
+
+def develop_plans(develop, batch: int) -> list:
+    """`develop` as one `ops.demosaic.DevelopPlan` or None a frame: None
+    (the raw chain for every frame), or a sequence of plans and Nones."""
+    if develop is None:
+        return [None] * batch
+    plans = list(develop)
+    if not all(d is None or isinstance(d, dmops.DevelopPlan) for d in plans):
+        raise TypeError("develop takes one ops.demosaic.DevelopPlan or None "
+                        "a frame")
+    if len(plans) != batch:
+        raise ValueError(f"{len(plans)} develop plans for a batch of "
+                         f"{batch}")
+    return plans
 
 
 def _download(t: torch.Tensor) -> np.ndarray:
@@ -666,43 +682,40 @@ class IntraCodec:
 
         - RG48 (B, H, 3W), b64a (B, H, 4W: alpha 0xFFFF first), WP13
           (B, H, 3W: RG48 >> 3) and W13A (B, H, 4W: alpha 8191 last), int32
-          of 16-bit values: `ops.demosaic.demosaic_raw`, or with a matrix
-          its `develop_1d` stored << 3;
+          of 16-bit values: `ops.demosaic.demosaic_raw`, or through the
+          frame's develop plan `ops.demosaic.develop_rgb16` (the LOOK
+          cube, the gamma tweaks or the matrix, the vignette, BLSH);
         - YUY2 (B, H, 2W) uint8: the bilinear demosaic, then the YUYV
-          conversion at whitepoint 16, or with a matrix the develop's
-          13-bit values at whitepoint 13, the dither by mosaic row pair.
+          conversion at whitepoint 16, or with a plan's matrix the
+          develop's 13-bit values at whitepoint 13, the dither by mosaic
+          row pair.
 
-        `develop`: None (the raw chain), or (B, 3, 4) float develop
-        matrices, one a frame (`ref.demosaic.compose_develop_matrix`)."""
+        `develop`: None (the raw chain), or one `ops.demosaic.DevelopPlan`
+        (or None) a frame."""
         planes = self._row16u_planes(coeffs)
         dev = planes[0].device
-        lcm = None
-        if develop is not None:
-            lcm = dmops.develop_matrix_lcm(develop, dev)
-            if lcm.shape[0] != planes[0].shape[0]:
-                raise ValueError(f"{lcm.shape[0]} develop matrices for a "
-                                 f"batch of {planes[0].shape[0]}")
-            c2l = _table(curve2linear_lut, dev)
-            l2c = _table(linear2curve_lut, dev)
+        plans = develop_plans(develop, planes[0].shape[0])
+        c2l = _table(curve2linear_lut, dev)
+        l2c = _table(linear2curve_lut, dev)
         if output == "YUY2":
             parity = _yuyv_parity(self.height, dev)
         frames = []
         for i in range(planes[0].shape[0]):
             one = [p[i:i + 1] for p in planes]
-            m = None if lcm is None else lcm[i:i + 1]
+            plan = plans[i]
             if output == "YUY2":
                 rgb = dmops.demosaic_bilinear_rgb(*one)
-                if m is None:
+                if plan is None or plan.matrix is None:
                     frames.append(dmops.convert_rgb16_to_yuyv(rgb, parity))
                 else:
-                    out13 = dmops.develop_1d(rgb.clamp(0, 65535), m, c2l,
-                                             l2c)
+                    out13 = dmops.develop_1d(rgb.clamp(0, 65535),
+                                             plan.on(dev)["lcm"], c2l, l2c)
                     frames.append(dmops.convert_rgb16_to_yuyv(
                         out13, parity, whitepoint=13))
                 continue
             rgb = dmops.demosaic_raw(*one)
-            if m is not None:
-                rgb = (dmops.develop_1d(rgb, m, c2l, l2c) << 3).clamp(0, 65535)
+            if plan is not None:
+                rgb = dmops.develop_rgb16(rgb, plan, c2l, l2c)
             if output in ("WP13", "W13A"):
                 rgb = rgb >> 3
             fill = {"b64a": 0xFFFF, "W13A": 8191}.get(output)
@@ -764,14 +777,15 @@ class IntraCodec:
         other 8-bit outputs as (B, H, row_bytes) uint8, the 16-bit ones
         (RG48, b64a, BYR4, YU64, WP13, ...) as int16 bit patterns; Bayer
         sources' outputs as `inverse_byr` and `inverse_bayer_rgb` give
-        them, the latter through the per-frame `develop` matrices where
-        given.  At a reduced `resolution` the bands of the levels it skips
-        may be None: (B, H >> (r - 1), 2W >> (r - 1)) uint8 YUY2."""
+        them, the latter through the per-frame `develop` plans
+        where given (`develop_plans`).  At a reduced `resolution` the bands
+        of the levels it skips may be None: (B, H >> (r - 1), 2W >> (r -
+        1)) uint8 YUY2."""
         output = self.decode_output(output, resolution)
         if develop is not None and (self.encoded != "BAYER"
                                     or output in ("BYR4", "BYR2")):
-            raise ValueError(f"a develop matrix applies to a Bayer source's "
-                             f"RGB and YUY2 outputs, not {output} of "
+            raise ValueError(f"a develop matrix or plan applies to a Bayer "
+                             f"source's RGB and YUY2 outputs, not {output} of "
                              f"{self.input_format}")
         if output in ("BYR4", "BYR2"):
             return yout.u16(self.inverse_byr(coeffs, output))
@@ -857,9 +871,10 @@ class IntraCodec:
         `decode_output`'s list (by default the source format's) as
         `inverse_output` gives it, downloaded (the 16-bit outputs as
         uint16 rows); a Bayer source's RG48, b64a, WP13, W13A and YUY2
-        through the develop matrices `develop` ((B, 3, 4), or None for the
-        raw chain).  A 4:2:2 source also decodes at `resolution` 2 (half),
-        3 (quarter) or 4 (thumbnail) to YUY2.
+        through `develop` (one develop plan a frame, `develop_plans`; None
+        for the raw chain).  A 4:2:2 source also
+        decodes at `resolution` 2 (half), 3 (quarter) or 4 (thumbnail) to
+        YUY2.
 
         frame_index positions the YUY2 output dither within the decoder
         process's rand stream (a sequential decoder passes 0, 1, 2, ...)."""
@@ -1088,13 +1103,14 @@ class IntraCodec:
         own semantics."""
         output = self.decode_output(output, resolution)
         if develop is not None:
-            develop = np.asarray(develop, np.float64).reshape(len(samples),
-                                                              3, 4)
+            develop = develop_plans(develop, len(samples))
 
         def finish(coeffs, frames):
             out = self.inverse_output(
                 coeffs, frame_index, output,
-                None if develop is None else develop[frames], resolution)
+                None if develop is None else
+                (develop[frames] if isinstance(frames, slice)
+                 else [develop[i] for i in frames]), resolution)
             return out if then is None else then(out)
 
         return self.decode_checked(samples, finish, resolution=resolution)

@@ -15,7 +15,16 @@ RG, BG, GD) that the decoder reconstructs, in integer arithmetic:
   (`CURVES_PROCESSING_MACRO`, bayer.c:7164);
 - `demosaic_bilinear_rgb` and `convert_rgb16_to_yuyv`: the 8-bit outputs'
   bilinear debayer without sharpening and the deterministic YUYV
-  conversion (`ConvertLinesToOutput`, bayer.c:3200-3400).
+  conversion (`ConvertLinesToOutput`, bayer.c:3200-3400);
+- the develop stages of the 16-bit outputs, each on a whole (N, H, W, 3)
+  frame, under the names of the JAX package's `ref/demosaic.py`:
+  `apply_raw_cube_rgb16_1d` and `apply_raw_cube_rgb16_trilinear` (the
+  LOOK RawCube), `apply_gamma_tweaks`, `fast_vignette_wp13`,
+  `fast_sharpening_blur_h_wp13` and `fast_sharpening_blur_v_wp13` (BLSH);
+  `DevelopPlan` holds one frame's develop and `develop_rgb16` runs it in
+  the JAX order.  The tables and cubes are built on the host
+  (`ref.demosaic`), as the JAX package builds them, and uploaded once a
+  plan and device.
 
 `develop_1d(demosaic_raw(...))` is the JAX `demosaic_develop` before its
 final `<< 3` store.  The debayer computes each of the four Bayer sites on
@@ -27,12 +36,14 @@ ring, which the explicit edge writes overwrite in both.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cineform_tpu_torch.ref import demosaic as dm
 from cineform_tpu_torch.ref.demosaic import _RGB2YUV_709, _RGB2YUV_VS709
 
 
@@ -360,15 +371,21 @@ def develop_1d(rgb16: torch.Tensor, lcm: torch.Tensor, c2l: torch.Tensor,
     return torch.stack(out, dim=-1)
 
 
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`: from pinned memory without waiting for the
+    stream, on CUDA."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def develop_matrix_lcm(matrix: np.ndarray, device) -> torch.Tensor:
     """(N, 3, 4) float develop matrices -> `develop_1d`'s int64 `lcm`,
     `(int)(m * 8192.0)`, on `device` (from pinned memory without waiting
     for the stream, on CUDA)."""
     lcm = np.trunc(np.asarray(matrix, np.float64).reshape(-1, 3, 4) * 8192.0)
-    lcm = torch.from_numpy(lcm.astype(np.int64))
-    if torch.device(device).type != "cuda":
-        return lcm.to(device)
-    return lcm.pin_memory().to(device, non_blocking=True)
+    return upload(lcm.astype(np.int64), device)
 
 
 def _mulhi_coeff(coeff: float) -> int:
@@ -446,3 +463,298 @@ def convert_rgb16_to_yuyv(rgb: torch.Tensor, parity: torch.Tensor,
     y, u, v = clamp255(y), clamp255(u), clamp255(v)
     ye, yo, uo, vo = y[..., 0::2], y[..., 1::2], u[..., 1::2], v[..., 1::2]
     return torch.stack((ye, uo, yo, vo), dim=-1).reshape(n, h, 2 * w).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# The develop stages of the 16-bit outputs (ApplyActiveMetaData's RawCube,
+# gamma tweaks, and the WP13 local buffer's vignette and BLSH passes)
+# ---------------------------------------------------------------------------
+
+#: the RawCube's lattice: 2^6 cells an axis, 65 entries
+_CUBE_BASE = 6
+_CUBE_N = (1 << _CUBE_BASE) + 1
+_CUBE_SHIFT = 16 - _CUBE_BASE
+
+
+def _cube_cells(rgb16: torch.Tensor):
+    """(flat cell index, mix, 1024 - mix) of each 16-bit value: the cell's
+    (b, g, r) raster index into the (65^3, 3) cube, and each channel's
+    low 10 bits."""
+    mix = rgb16 & ((1 << _CUBE_SHIFT) - 1)
+    idx = rgb16 >> _CUBE_SHIFT
+    base = (idx[..., 2] * _CUBE_N + idx[..., 1]) * _CUBE_N + idx[..., 0]
+    return base.long(), mix, (1 << _CUBE_SHIFT) - mix
+
+
+def apply_raw_cube_rgb16_1d(rgb16: torch.Tensor,
+                            cube: torch.Tensor) -> torch.Tensor:
+    """The separable RawCube apply (RawCubeThree1Ds, `Codec/bayer.c:
+    8350-8430`): each channel a lerp between its cell's entry and the
+    all-dims+1 diagonal entry, one >> 10.  rgb16 (N, H, W, 3) int32 in
+    [0, 65535]; cube (65^3, 3) int32 on the device.  Returns (N, H, W, 3)
+    int32 signed 13-bit values.  Every product is below 2^26, so int32
+    holds what the host model sums in int64."""
+    base, mix, mixd = _cube_cells(rgb16)
+    lo = cube[base]
+    hi = cube[base + (_CUBE_N * _CUBE_N + _CUBE_N + 1)]
+    return (lo * mixd + hi * mix) >> _CUBE_SHIFT
+
+
+def apply_raw_cube_rgb16_trilinear(rgb16: torch.Tensor,
+                                   cube: torch.Tensor) -> torch.Tensor:
+    """The non-separable RawCube apply (`Codec/bayer.c:8440+`): the integer
+    trilinear of every channel with an arithmetic >> 10 after each lerp
+    stage, the red lerps first, then green, then blue.  Arguments and
+    result as `apply_raw_cube_rgb16_1d`'s."""
+    base, mix, mixd = _cube_cells(rgb16)
+    s = _CUBE_SHIFT
+    rm, gm, bm = (mix[..., c:c + 1] for c in range(3))
+    rmd, gmd, bmd = (mixd[..., c:c + 1] for c in range(3))
+
+    def at(db, dg, dr):
+        return cube[base + ((db * _CUBE_N + dg) * _CUBE_N + dr)]
+
+    def plane(db):
+        g0 = (at(db, 0, 0) * rmd + at(db, 0, 1) * rm) >> s
+        g1 = (at(db, 1, 0) * rmd + at(db, 1, 1) * rm) >> s
+        return (g0 * gmd + g1 * gm) >> s
+
+    return (plane(0) * bmd + plane(1) * bm) >> s
+
+
+def apply_gamma_tweaks(rgb16: torch.Tensor,
+                       tables: torch.Tensor) -> torch.Tensor:
+    """The no-matrix gamma-tweaks branch of CURVES_PROCESSING_MACRO:
+    out13 = GammaContrast_c[(v16 >> 3) + 16384] per channel.  tables (3,
+    65536) int32 on the device, `ref.demosaic.gamma_contrast_lut` of each
+    channel's gamma."""
+    idx = ((rgb16 >> 3) + 16384).long()
+    return torch.stack([tables[c][idx[..., c]] for c in range(3)], dim=-1)
+
+
+@lru_cache(maxsize=8)
+def vignette_tables(width: int, height: int, start: float, end: float,
+                    gain: float, device: torch.device):
+    """(af (H, W, 1) float32, ring (H, W, 1) bool) on `device`, from
+    `ref.demosaic.vignette_geometry` (start and end the decoder's values,
+    the tags' minus one), cached by the frame's size and the settings."""
+    af, ring = dm.vignette_geometry(width, height, start, end, gain)
+    return upload(af[..., None], device), upload(ring[..., None], device)
+
+
+def fast_vignette_wp13(out13: torch.Tensor, af: torch.Tensor,
+                       ring: torch.Tensor) -> torch.Tensor:
+    """FastVignetteInplaceWP13 over whole (N, H, W, 3) frames
+    (`Codec/DemoasicFrames.cpp:421-545`): each ring pixel's components v
+    become sign(v) * (int)sqrtf(v*v*Af) in float32, the rest stay.
+    `af`, `ring`: `vignette_tables`.  The square root is taken in float64
+    and rounded to float32, which is sqrtf's correctly rounded result
+    (PyTorch's float32 sqrt on the CPU is not)."""
+    v = out13.to(torch.float32)
+    mag = torch.sqrt((v * v * af).to(torch.float64)).to(torch.float32)
+    mag = mag.to(torch.int64)
+    return torch.where(ring, torch.sign(out13) * mag, out13)
+
+
+def fast_sharpening_blur_h_wp13(buf13: torch.Tensor,
+                                sharpness: float) -> torch.Tensor:
+    """FastSharpeningBlurHinplaceWP13 over whole (N, H, W, 3) frames, in
+    int64 (`Codec/DemoasicFrames.cpp:555,980-1120`).  Sharpening (>= 0):
+    pixel 0 copied, pixel 1 a 1-2-1 blur of the original pixels 0..2,
+    pixels 4.. clamped to >= 0 before they are read as taps, the 5-tap
+    FIR >> shift on pixels 2..W-3, a 1-2-1 blur at W-2, the clamped copy
+    at W-1.  Blurs (< 0): `_blur_h_wp13`."""
+    s = float(sharpness)
+    if s < 0.0:
+        return _blur_h_wp13(buf13, s)
+    a, b, c, shift = dm._sharpen_h_coeffs(s)
+    x = buf13.to(torch.int64)
+    w = x.shape[-2]
+    blur1 = (x[..., 0:1, :] + 2 * x[..., 1:2, :] + x[..., 2:3, :]) >> 2
+    xc = torch.cat([x[..., :4, :], x[..., 4:, :].clamp(min=0)], dim=-2)
+    fir = (xc[..., 0:w - 4, :] * a + xc[..., 1:w - 3, :] * b
+           + xc[..., 2:w - 2, :] * c + xc[..., 3:w - 1, :] * b
+           + xc[..., 4:w, :] * a) >> shift
+    last = (xc[..., w - 3:w - 2, :] + 2 * xc[..., w - 2:w - 1, :]
+            + xc[..., w - 1:, :]) >> 2
+    return torch.cat([x[..., 0:1, :], blur1, fir, last, xc[..., w - 1:, :]],
+                     dim=-2)
+
+
+def _blur_h_wp13(buf13: torch.Tensor, sharpness: float) -> torch.Tensor:
+    """The negative-sharpness horizontal pass over whole frames, every row
+    at once (`ref.demosaic._blur_h_wp13_row`, `DemoasicFrames.cpp:
+    592-778`): case = -1 + (int)(s*4); cases -1/-2 a 5-tap FIR (margin 2),
+    -3 a 7-tap (margin 3), -4/-5 a 9-tap (margin 4; -5 forces diff 256),
+    each >> 12; the in-place shift-back leaves the left margin equal to
+    the first filtered pixel and the right 2*margin pixels as they were."""
+    f32 = np.float32
+    s = f32(sharpness)
+    diff = int(f32(256.0) * f32((-s) * f32(4.0)
+                                - f32(int((-s) * f32(4.0)))))
+    adiff = 256 - diff
+    case = -1 + int(s * f32(4.0))
+    p = buf13.to(torch.int64)
+    w = p.shape[-2]
+
+    def px(i, j):
+        return p[..., i:w - j, :]
+
+    if case <= -4:
+        if case <= -5:
+            diff = 256
+        margin = 4
+        a = 4096 // 9 * diff // 256
+        b = (4096 - a * 2) // 7
+        fir = (px(0, 8) + px(8, 0)) * a + (
+            px(1, 7) + px(2, 6) + px(3, 5) + px(4, 4) + px(5, 3) + px(6, 2)
+            + px(7, 1)) * b
+    elif case == -3:
+        margin = 3
+        a = 4096 // 7 * diff // 256
+        b = (4096 - a * 2) // 5
+        fir = (px(0, 6) + px(6, 0)) * a + (
+            px(1, 5) + px(2, 4) + px(3, 3) + px(4, 2) + px(5, 1)) * b
+    else:
+        margin = 2
+        if case == -2:
+            a, b, c = 2 * diff, 4 * adiff + 4 * diff, 8 * adiff + 4 * diff
+        else:
+            a, b, c = 0, 4 * diff, 16 * adiff + 8 * diff
+        fir = (px(0, 4) * a + px(1, 3) * b + px(2, 2) * c + px(3, 1) * b
+               + px(4, 0) * a)
+    fir = fir >> 12
+    return torch.cat([fir[..., :1, :].expand(*fir.shape[:-2], margin, 3),
+                      fir[..., :w - 3 * margin, :],
+                      p[..., w - 2 * margin:, :]], dim=-2)
+
+
+def fast_sharpening_blur_v_wp13(buf13: torch.Tensor,
+                                sharpness: float) -> torch.Tensor:
+    """FastSharpeningBlurVWP13 over whole (N, H, W, 3) frames
+    (`Codec/DemoasicFrames.cpp:1361-2124`), every output row at once by
+    row index tensors: the 5 base rows clamped to the frame (A = y-2 if
+    y >= 2 else y, B, C = y, D, E mirrored at the bottom), the outer rows
+    of the 7- and 9-tap blurs, and rows y <= 4 or y >= H-4 demoted from
+    7 or 9 taps to 5 equal ones.  Each tap is (row * 65536) * weight in
+    float32, summed in the reference's order (row A's product, the outer
+    rows above, B, C, D, E, the outer rows below), one multiply and one
+    add a step; then rounded half to even, >> 16 and saturated to int16.
+    Takes 3*W % 8 == 0, as the reference model does."""
+    n, h, w, _ = buf13.shape
+    if (3 * w) % 8:
+        raise ValueError(f"the BLSH vertical pass takes 3*W % 8 == 0, not "
+                         f"W = {w}")
+    rows = buf13.reshape(n, h, 3 * w).to(torch.float32) * 65536.0
+    firsize, weights = dm._sharpen_wp13_weights(sharpness)
+    y = torch.arange(h, device=buf13.device)
+    ai = torch.where(y >= 2, y - 2, y)
+    bi = torch.where(y >= 1, y - 1, y)
+    di = torch.where(y < h - 1, y + 1, y)
+    ei = torch.where(y < h - 2, y + 2, y)
+
+    def fir(taps, sel=slice(None)):
+        # a Python float multiplies a float32 tensor in float32 (the
+        # weights are float32 values, exact as doubles)
+        acc = None
+        for idx, wt in taps:
+            t = rows[:, idx.clamp(0, h - 1)[sel]] * float(wt)
+            acc = t if acc is None else acc + t
+        return acc
+
+    def five(wts):
+        return [(ai, wts[0]), (bi, wts[1]), (y, wts[2]), (di, wts[3]),
+                (ei, wts[4])]
+
+    if firsize == 5:
+        acc = fir(five(weights))
+    else:
+        af, bf = weights[0], weights[1]
+        if firsize == 7:
+            taps = [(ai, bf), (ai - 1, af), (bi, bf), (y, bf), (di, bf),
+                    (ei, bf), (ei + 1, af)]
+        else:
+            taps = [(ai, bf), (ai - 2, af), (ai - 1, bf), (bi, bf),
+                    (y, bf), (di, bf), (ei, bf), (ei + 1, bf), (ei + 2, af)]
+        acc = fir(taps)
+        eq5 = five([np.float32(0.2)] * 5)
+        top = min(5, h)
+        bottom = max(h - 4, top)
+        acc[:, :top] = fir(eq5, slice(0, top))
+        acc[:, bottom:] = fir(eq5, slice(bottom, h))
+    q = torch.round(acc).to(torch.int64) >> 16
+    return q.clamp(-32768, 32767).reshape(n, h, w, 3)
+
+
+@dataclass(eq=False)
+class DevelopPlan:
+    """One frame's develop on a Bayer sample's outputs, as the JAX
+    package's `intra_host.decode_sample_bayer_to` gates it (`api.
+    bayer_develop` builds it from a sample's metadata):
+
+    - `cube`: the LOOK RawCube ((65^3, 3) int16, `ref.demosaic.
+      build_raw_cube` or `build_raw_cube_developed`, which fold the
+      matrix and the gamma tweaks in), applied by the 1D lerp where
+      `separable`, else the trilinear;
+    - else `gamma`: (3, 65536) gamma and contrast tweak tables
+      (`ref.demosaic.gamma_contrast_lut` of each channel), the branch
+      alone;
+    - else `matrix`: a (3, 4) develop matrix through `develop_1d`, or None
+      for the identity's rgb16 >> 3;
+    - then `vignette` (start, end, gain: the decoder's start and end, the
+      tags' minus one) and BLSH `sharpen` (0.0 = off), horizontal then
+      vertical; the result << 3, clipped to 16 bits.
+
+    The YUY2 output takes `matrix` alone.  A plan's device tables are
+    uploaded once a device."""
+
+    matrix: np.ndarray | None = None
+    cube: np.ndarray | None = None
+    separable: bool = False
+    gamma: np.ndarray | None = None
+    vignette: tuple[float, float, float] | None = None
+    sharpen: float = 0.0
+    _uploads: dict = field(default_factory=dict, repr=False)
+
+    def on(self, device) -> dict:
+        """The plan's tables on `device`: `lcm` (1, 3, 4) int64, `cube`
+        (65^3, 3) int32, `gamma` (3, 65536) int32, each where set."""
+        key = str(torch.device(device))
+        t = self._uploads.get(key)
+        if t is None:
+            t = {}
+            if self.matrix is not None:
+                t["lcm"] = develop_matrix_lcm(self.matrix[None], device)
+            if self.cube is not None:
+                t["cube"] = upload(self.cube.astype(np.int32), device)
+            if self.gamma is not None:
+                t["gamma"] = upload(self.gamma.astype(np.int32), device)
+            self._uploads[key] = t
+        return t
+
+
+def develop_rgb16(rgb16: torch.Tensor, plan: DevelopPlan, c2l: torch.Tensor,
+                  l2c: torch.Tensor) -> torch.Tensor:
+    """`plan` on a frame's 16-bit demosaic (N, H, W, 3) int32, in the JAX
+    order: the LOOK cube, or the gamma tweaks, or the matrix (or rgb16 >>
+    3); then the vignette and the BLSH passes; the result << 3 clipped to
+    [0, 65535].  c2l, l2c: `develop_1d`'s tables on the device."""
+    t = plan.on(rgb16.device)
+    if plan.cube is not None:
+        apply = apply_raw_cube_rgb16_1d if plan.separable \
+            else apply_raw_cube_rgb16_trilinear
+        out13 = apply(rgb16, t["cube"])
+    elif plan.gamma is not None:
+        out13 = apply_gamma_tweaks(rgb16, t["gamma"])
+    elif plan.matrix is not None:
+        out13 = develop_1d(rgb16, t["lcm"], c2l, l2c)
+    else:
+        out13 = rgb16 >> 3
+    if plan.vignette is not None:
+        _, h, w, _ = rgb16.shape
+        out13 = fast_vignette_wp13(out13, *vignette_tables(
+            w, h, *plan.vignette, rgb16.device))
+    if plan.sharpen != 0.0:
+        out13 = fast_sharpening_blur_h_wp13(out13, plan.sharpen)
+        out13 = fast_sharpening_blur_v_wp13(out13, plan.sharpen)
+    return (out13 << 3).clamp(0, 65535).to(torch.int32)

@@ -163,9 +163,7 @@ class EncoderPool(_Batches):
         if not use_device:
             # the JAX pool's host worker pool of api.Encoders
             # (`cineform_tpu/pool.py:217-238`)
-            raise api.CFHDError(api.ErrorCode.BADFORMAT,
-                                "the host worker pool (use_device=False) "
-                                "is not ported yet")
+            raise api._not_ported("the host worker pool (use_device=False)")
         self.gop = bool(encoding_flags & api.EncodingFlags.YUV_2FRAME_GOP)
         self.width, self.height = width, height
         self.row_bytes = probe.row_bytes

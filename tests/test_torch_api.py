@@ -5,12 +5,13 @@ reference goldens.
 The same inputs, the repository's test frames or the goldens, go through
 both APIs; every comparison is exact (tolerance 0).  The goldens' GUID,
 DATE and TIME are random per reference run, so each encode attaches the
-golden's own metadata on both sides.  The decode routes the JAX API
-takes on the host and no codec of the port takes yet raise
-`CFHDError(BADFORMAT)`, one case each (every encode route is ported:
-`tests/test_torch_encoder_inputs.py` and `test_torch_encoder_options.py`);
-the geometry routes (a decode to another size, the lens warp, a group's
-deep and RGB outputs) decode as the JAX API decodes them.
+golden's own metadata on both sides.  Every decode route of the JAX API
+is ported (and every encode route: `tests/test_torch_encoder_inputs.py`
+and `test_torch_encoder_options.py`): the geometry routes (a decode to
+another size, the lens warp, a group's deep and RGB outputs) decode as
+the JAX API decodes them, and every Bayer RG48 golden, its develop stages
+included, byte for byte (the stages themselves and the 3D composite in
+`tests/test_torch_develop_stages.py` and `test_torch_stereo_blend.py`).
 """
 
 import dataclasses
@@ -221,40 +222,26 @@ def test_bayer_decode_matches_jax_and_golden(jax_host, name, fmt, ext):
         f"{name}.{ext}")
 
 
-#: the Bayer goldens whose metadata turns on a develop stage the port has
-#: not ported (vignette, BLSH sharpening, the LOOK cube, gamma/contrast)
-BAYER_NOT_PORTED = {"byr4_blsh05_96x64_q4", "byr4_blshm05_96x64_q4",
-                    "byr4_blshm10_96x64_q4", "byr4_colm_blsh_96x64_q4",
-                    "byr4_colm_look_96x64_q4", "byr4_ctrs_96x64_q4",
-                    "byr4_ctrs_gamt_96x64_q4", "byr4_ctrs_look_96x64_q4",
-                    "byr4_full_develop_96x64_q4", "byr4_gamt_320x240_q4",
-                    "byr4_gamt_look_96x64_q4", "byr4_look_cflook_96x64_q4",
-                    "byr4_look_protune_96x64_q4", "byr4_vgn_96x64_q4",
-                    "byr4_vgn_blsh_96x64_q4"}
 RG48_GOLDENS = sorted(f[:-len(".rg48out")] for f in os.listdir(SAMPLES)
                       if f.startswith("byr4_") and f.endswith(".rg48out"))
 
 
 @pytest.mark.parametrize("name", RG48_GOLDENS)
-def test_every_bayer_rg48_golden_decodes_or_raises(name):
-    """Each `byr4_*` golden with an RG48 output either decodes byte-equal
-    to it or, where a develop stage is not ported, raises BADFORMAT "not
-    ported yet"; none gives other bytes.  At least vgn, blsh05,
-    look_protune and gamt raise."""
-    assert {"byr4_vgn_96x64_q4", "byr4_blsh05_96x64_q4",
-            "byr4_look_protune_96x64_q4",
-            "byr4_gamt_320x240_q4"} <= BAYER_NOT_PORTED
+def test_every_bayer_rg48_golden_decodes_or_raises(name, monkeypatch,
+                                                   tmp_path):
+    """Each `byr4_*` golden with an RG48 output decodes byte-equal to it,
+    the develop stages its metadata turns on (vignette, BLSH, the LOOK
+    cube, gamma/contrast) included; the `.cflook` look's file is under
+    HOME, where the reference finds it."""
+    luts = tmp_path / ".cineform" / "LUTs"
+    luts.mkdir(parents=True)
+    (luts / "DEADBEEF.cflook").write_bytes(_golden("DEADBEEF.cflook"))
+    monkeypatch.setenv("HOME", str(tmp_path))
     sample = _golden(name + ".cfhd")
     dec = api.Decoder("cpu")
     dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=sample)
-    if name in BAYER_NOT_PORTED:
-        with pytest.raises(api.CFHDError) as e:
-            dec.decode_sample(sample)
-        assert e.value.code == api.ErrorCode.BADFORMAT
-        assert "not ported yet" in str(e.value)
-    else:
-        assert dec.decode_sample(sample).tobytes() == _golden(
-            name + ".rg48out")
+    assert dec.decode_sample(sample).tobytes() == _golden(
+        name + ".rg48out")
 
 
 def test_decode_falls_back_per_frame_and_counts_it():
@@ -407,21 +394,6 @@ def _tuple(tag: str, typ: bytes, payload: bytes) -> bytes:
             + payload + b"\0" * (-len(payload) % 4))
 
 
-def _not_ported_decode(sample, fmt="YUY2", w=0, h=0, mask=None, **kw):
-    dec = api.Decoder("cpu")
-    dec.prepare_to_decode(w, h, api.PixelFormat[fmt], sample=sample, **kw)
-    if mask is not None:
-        dec.set_channels_active(mask)
-    dec.decode_sample(sample)
-
-
-def _stereo_sample():
-    enc = api.StereoEncoder("cpu")
-    enc.prepare_to_encode(64, 48, api.PixelFormat.YUY2)
-    return enc.encode_sample(tframes.yuy2_frame(64, 48, 1),
-                             tframes.yuy2_frame(64, 48, 2))
-
-
 def _lens_sample():
     meta = _ExtraMetadata(extra=_tuple("LSPH", b"L", (1).to_bytes(4,
                                                                   "little")))
@@ -430,25 +402,6 @@ def _lens_sample():
     enc.attach_metadata(meta)
     enc.encode_sample(tframes.yuy2_frame(64, 48, 1))
     return enc.get_sample_data()
-
-
-NOT_PORTED = {
-    "bayer-to-rg48": lambda: _not_ported_decode(
-        _golden("byr4_vgn_96x64_q4.cfhd"), "RG48"),
-    "stereo-composite": lambda: _not_ported_decode(_stereo_sample(),
-                                                   mask=3),
-    "stereo-blend-mode": lambda: api.Decoder("cpu").set_channel_blend(1),
-}
-
-
-@pytest.mark.parametrize("route", list(NOT_PORTED))
-def test_routes_not_ported_raise_badformat(route, monkeypatch, tmp_path):
-    monkeypatch.setenv("CINEFORM_OVERRIDE_PATH", str(tmp_path))
-    monkeypatch.setenv("CINEFORM_LUT_PATH", str(tmp_path))
-    with pytest.raises(api.CFHDError) as e:
-        NOT_PORTED[route]()
-    assert e.value.code == api.ErrorCode.BADFORMAT
-    assert "not ported yet" in str(e.value)
 
 
 #: the geometry routes, which the port's API refused until they were

@@ -24,6 +24,7 @@ from cineform_tpu.ref import intra as jref
 from cineform_tpu_torch import testframes
 from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
 from cineform_tpu_torch.ops import bgra
+from cineform_tpu_torch.ops.demosaic import DevelopPlan
 from cineform_tpu_torch.ops import intra_transform as tops
 from cineform_tpu_torch.ref.intra import byr4_log90_curve
 from cineform_tpu_torch.utils.timing import Timing
@@ -389,14 +390,15 @@ def test_bayer_batch_with_two_develop_matrices(output):
                          np.array([[0.9, 0.08, 0.02, 0.0],
                                    [0.05, 0.9, 0.05, 0.01],
                                    [0.02, 0.08, 0.9, 0.0]]), 1.3, 1.1)])
+    plans = [DevelopPlan(matrix=m) for m in mats]
     got, fallback = codec.decode_batch_device(samples, output=output,
-                                              develop=mats)
+                                              develop=plans)
     assert fallback == ()
     assert codec.decode_batch(samples, output=output,
-                              develop=mats).tobytes() == got.tobytes()
+                              develop=plans).tobytes() == got.tobytes()
     for i, s in enumerate(samples):
         alone, _ = codec.decode_batch_device([s], output=output,
-                                             develop=mats[i:i + 1])
+                                             develop=plans[i:i + 1])
         assert alone[0].tobytes() == got[i].tobytes()
         assert got[i].tobytes() == _develop_want(s, mats[i], output)
 
@@ -404,8 +406,8 @@ def test_bayer_batch_with_two_develop_matrices(output):
 def test_develop_matrix_only_for_the_bayer_rgb_outputs():
     codec, samples = _bayer_samples()
     with pytest.raises(ValueError, match="develop matrix"):
-        codec.decode_batch(samples, output="BYR4", develop=np.stack(
-            [np.eye(3, 4)] * 2))
+        codec.decode_batch(samples, output="BYR4", develop=[
+            DevelopPlan(matrix=np.eye(3, 4))] * 2)
 
 
 def test_transform_round_trip_equals_the_codec_round_trip():

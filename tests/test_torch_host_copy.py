@@ -42,7 +42,10 @@ from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
 from cineform_tpu.spec import tags as jtags
 from cineform_tpu.utils import glibc_random as jglibc
+from cineform_tpu.utils import lutpath as jlutpath
 from cineform_tpu.utils import override_db as joverride
+from cineform_tpu.spec import quant as jquant
+from cineform_tpu.spec import wavelet as jwavelet
 from cineform_tpu.utils import testframes as jframes
 from cineform_tpu_torch import api as tapi
 from cineform_tpu_torch import metadata as tmetadata
@@ -66,7 +69,10 @@ from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
 from cineform_tpu_torch.spec import tags as ttags
 from cineform_tpu_torch.utils import glibc_random as tglibc
+from cineform_tpu_torch.utils import lutpath as tlutpath
 from cineform_tpu_torch.utils import override_db as toverride
+from cineform_tpu_torch.spec import quant as tquant
+from cineform_tpu_torch.spec import wavelet as twavelet
 from tests.test_formats import _raw_fill
 from tests.test_warp_geomesh import CASES as WARP_CASES
 
@@ -116,7 +122,9 @@ NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
                "models/lens.py", "utils/override_db.py", "metadata.py",
                "models/active_metadata.py", "ops/demosaic.py",
                "ops/develop.py", "ops/scaler.py", "ops/warp.py",
-               "ref/scaler.py", "ref/geomesh.py")
+               "ref/scaler.py", "ref/geomesh.py", "utils/lutpath.py",
+               "ops/dwt.py", "ops/quant.py", "ops/pyramid.py",
+               "spec/quant.py", "spec/wavelet.py")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
@@ -205,8 +213,14 @@ dec = api.Decoder("cpu")
 dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=group)
 assert dec.decode_sample(group).tobytes() == open(os.path.join(
     samples, "gop_320x240_q4_p1.rg48out"), "rb").read()
-for name in ("scaler", "warp"):
+for name in ("scaler", "warp", "dwt", "quant", "pyramid"):
     assert "cineform_tpu_torch.ops." + name in sys.modules
+look = open(os.path.join(samples, "byr4_look_protune_96x64_q4.cfhd"),
+            "rb").read()
+dec = api.Decoder("cpu")
+dec.prepare_to_decode(0, 0, api.PixelFormat.RG48, sample=look)
+assert dec.decode_sample(look).tobytes() == open(os.path.join(
+    samples, "byr4_look_protune_96x64_q4.rg48out"), "rb").read()
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("cineform_tpu", "jax", "jaxlib")]
 print("ok")
@@ -218,7 +232,8 @@ def test_port_runs_where_the_jax_package_cannot_be_imported():
     raises, every port module imports, the 64x48 golden encodes and
     decodes byte for byte on both decode routes and through the API and
     the decoder pool, a GOP golden decodes on the device route, and a
-    Bayer golden with a white balance decodes to RG48."""
+    Bayer golden with a white balance, and one with the Protune LOOK,
+    decode to RG48."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -1068,3 +1083,164 @@ def test_interlaced_write_group_matches(w, h, quality, peaks):
     if peaks:
         assert any(b.peaks is not None
                    for c in tparse_sample(got).channels for b in c.bands)
+
+
+# ---------------------------------------------------------------------------
+# The develop stages' host pieces: tables, weights, looks and cubes
+# ---------------------------------------------------------------------------
+
+#: BLSH values of both signs across every case of both passes
+BLSH = [0.0, 0.05, 0.2, 0.37, 0.5, 0.61, 0.8, 0.99, 1.0, 1.5, -0.05, -0.1,
+        -0.25, -0.3, -0.5, -0.6, -0.75, -0.9, -1.0]
+
+
+@pytest.mark.parametrize("gamma,contrast", [(1.0, 1.0), (0.8, 1.0),
+                                            (2.2, 1.0), (1.0, 1.4),
+                                            (1.3, 0.6), (0.45, 2.0)])
+def test_gamma_tables_match(gamma, contrast):
+    np.testing.assert_array_equal(
+        tdemosaic.gamma_contrast_lut(gamma, contrast),
+        jdemosaic.gamma_contrast_lut(gamma, contrast))
+    np.testing.assert_array_equal(
+        tdemosaic._gammatweak_table(gamma, contrast),
+        jdemosaic._gammatweak_table(gamma, contrast))
+    v = np.linspace(-1.2, 4.2, 997).astype(np.float32)
+    np.testing.assert_array_equal(tdemosaic._calc_contrast(v, contrast),
+                                  jdemosaic._calc_contrast(v, contrast))
+
+
+def test_sharpening_weights_and_coefficients_match():
+    for s in BLSH:
+        fs, w = tdemosaic._sharpen_wp13_weights(s)
+        jfs, jw = jdemosaic._sharpen_wp13_weights(s)
+        assert fs == jfs, s
+        np.testing.assert_array_equal(w, jw)
+        assert tdemosaic._sharpen_h_coeffs(s) == \
+            jdemosaic._sharpen_h_coeffs(s), s
+
+
+def _cflook():
+    return jlutpath.read_cflook(os.path.join(SAMPLES, "DEADBEEF.cflook"))
+
+
+def test_looks_and_curves_match():
+    assert tdemosaic.PROTUNE_LOOK_CRC == jdemosaic.PROTUNE_LOOK_CRC
+    np.testing.assert_array_equal(tdemosaic._PROTUNE_CURVE,
+                                  jdemosaic._PROTUNE_CURVE)
+    got, want = tdemosaic.protune_look_lut(), jdemosaic.protune_look_lut()
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(tdemosaic._curve2lin_table(),
+                                  jdemosaic._curve2lin_table())
+    np.testing.assert_array_equal(tdemosaic._lin2curve_table(),
+                                  jdemosaic._lin2curve_table())
+    table = jdemosaic._gammatweak_table(1.7)
+    v = np.linspace(-1.0, 4.0, 1001).astype(np.float32)
+    np.testing.assert_array_equal(tdemosaic._lerp512(table, v),
+                                  jdemosaic._lerp512(table, v))
+
+
+#: (matrix, rgb gamma, contrast) of the developed cubes
+CUBE_DEVELOPS = [
+    (None, (1.0, 1.0, 1.0), 1.0),
+    (None, (0.8, 1.0, 1.3), 1.0),
+    (None, (1.0, 1.0, 1.0), 1.5),
+    (np.array([[1.2, -0.1, -0.1, 0.0], [-0.05, 1.1, -0.05, 0.01],
+               [-0.4, -0.9, 2.3, 0.0]]), (1.0, 1.0, 1.0), 1.0),
+    (np.array([[1.2, -0.1, -0.1, 0.0], [-0.05, 1.1, -0.05, 0.01],
+               [-0.4, -0.9, 2.3, 0.0]]), (1.1, 0.9, 1.0), 0.8),
+]
+
+
+@pytest.mark.parametrize("look", ["none", "protune", "cflook"])
+@pytest.mark.parametrize("i", range(len(CUBE_DEVELOPS)))
+def test_raw_cubes_match(look, i):
+    """BuildCube's branches (the LUT alone, and the develop folded with or
+    without a LUT) and the separability test equal the originals."""
+    if look == "protune":
+        lut, size = jdemosaic.protune_look_lut()
+    elif look == "cflook":
+        c = _cflook()
+        lut, size = c.lut.reshape(-1, 3), c.size
+    else:
+        lut, size = None, 0
+    m, gamma, contrast = CUBE_DEVELOPS[i]
+    got = tdemosaic.build_raw_cube_developed(m, gamma, contrast, lut, size)
+    want = jdemosaic.build_raw_cube_developed(m, gamma, contrast, lut, size)
+    np.testing.assert_array_equal(got, want)
+    assert tdemosaic.cube_is_separable(got) == \
+        jdemosaic.cube_is_separable(want)
+    if lut is not None and i == 0:
+        plain = tdemosaic.build_raw_cube(lut, size)
+        np.testing.assert_array_equal(plain,
+                                      jdemosaic.build_raw_cube(lut, size))
+        assert tdemosaic.cube_is_separable(plain) == (look == "protune")
+
+
+def test_vignette_geometry_reads_the_model():
+    """`vignette_geometry` is the port's own: the model's pixels it scales
+    are its ring, by its factors (a frame of ones scaled by 0 marks the
+    ring; the model's output on a ramp matches the factors)."""
+    h, w = 64, 96
+    for start, end, gain in ((-0.7, 0.0, 0.5), (-0.5, -0.2, 0.0)):
+        af, ring = tdemosaic.vignette_geometry(w, h, start, end, gain)
+        big = np.full((h, w, 3), 4000)
+        out = jdemosaic.fast_vignette_wp13(big, start, end, gain)
+        f32 = np.float32
+        mag = np.sqrt(f32(4000) * f32(4000) * af, dtype=f32).astype(np.int64)
+        np.testing.assert_array_equal(out[..., 0],
+                                      np.where(ring, mag, 4000))
+
+
+def test_lutpath_reader_matches(tmp_path, monkeypatch):
+    path = os.path.join(SAMPLES, "DEADBEEF.cflook")
+    got, want = tlutpath.read_cflook(path), jlutpath.read_cflook(path)
+    np.testing.assert_array_equal(got.lut, want.lut)
+    assert (got.name, got.input_curve, got.output_curve, got.size) == \
+        (want.name, want.input_curve, want.output_curve, want.size)
+    # big-endian files read the same
+    big = tmp_path / "big.cflook"
+    jlutpath.write_cflook(str(big), want)
+    raw = bytearray(big.read_bytes())
+    for k in range(6):
+        raw[4 * k:4 * k + 4] = raw[4 * k:4 * k + 4][::-1]
+    hdr = 24 + 40
+    raw[hdr:] = np.frombuffer(bytes(raw[hdr:]), "<f4").astype(">f4").tobytes()
+    big.write_bytes(bytes(raw))
+    np.testing.assert_array_equal(tlutpath.read_cflook(str(big)).lut,
+                                  jlutpath.read_cflook(str(big)).lut)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    assert tlutpath.default_lut_dir() == jlutpath.default_lut_dir()
+    (tmp_path / ".cineform").mkdir()
+    (tmp_path / ".cineform" / "dbsettings").write_text(
+        '# prefs\nLUTPath "/srv/looks/cineform/base"\n')
+    assert tlutpath.default_lut_dir() == jlutpath.default_lut_dir() == \
+        "/srv/looks/cineform/base/LUTs"
+    db = tlutpath.LookDatabase(str(tmp_path))
+    assert db.path_for(0xDEADBEEF) == jlutpath.LookDatabase(
+        str(tmp_path)).path_for(0xDEADBEEF)
+    assert db.load(0x12345678) is None
+
+
+@pytest.mark.parametrize("crc", [0x3F6F5788, 0xDEADBEEF, 0x12345678])
+def test_resolve_look_matches(crc, tmp_path, monkeypatch):
+    luts = tmp_path / ".cineform" / "LUTs"
+    luts.mkdir(parents=True)
+    (luts / "DEADBEEF.cflook").write_bytes(_read("DEADBEEF.cflook"))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    got, want = tam.resolve_look(crc), jam.resolve_look(crc)
+    assert got[1] == want[1]
+    if want[0] is None:
+        assert got[0] is None
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_demo_quant_and_wavelet_specs_match():
+    for q in range(1, 300):
+        assert tquant.quant_multiplier(q) == jquant.quant_multiplier(q)
+        assert tquant.quant_midpoint(q) == jquant.quant_midpoint(q)
+    for depth in range(7, 17):
+        assert tquant.demo_quant_tables(depth) == \
+            jquant.demo_quant_tables(depth)
+    assert twavelet.ROUNDING == jwavelet.ROUNDING

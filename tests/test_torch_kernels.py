@@ -985,6 +985,7 @@ def test_bayer_rgb_outputs_on_the_card_equal_the_cpu(cuda):
     decodes with `device="cpu"`: the 320x240 WBAL golden (the raw chain
     and its develop matrix) and a seeded batch of two 256x128 mosaics."""
     from cineform_tpu_torch.models.intra import IntraCodec
+    from cineform_tpu_torch.ops.demosaic import DevelopPlan
     from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 
     with open(os.path.join(REPO, "tests", "golden", "samples",
@@ -998,7 +999,7 @@ def test_bayer_rgb_outputs_on_the_card_equal_the_cpu(cuda):
               for d in (cuda, "cpu")}
         if samples is None:
             samples = on["cpu"].encode_batch(frames)
-        mats = np.stack([wbal] * len(samples))
+        mats = [DevelopPlan(matrix=wbal)] * len(samples)
         for output in ("RG48", "b64a", "WP13", "W13A", "BYR2", "YUY2"):
             for develop in (None, mats if output != "BYR2" else None):
                 want = on["cpu"].decode_batch(samples, output=output,

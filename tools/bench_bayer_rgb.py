@@ -32,7 +32,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, BATCH, QUALITY = 3840, 2160, 8, 4
 #: a white-balance develop matrix (R and B gains), the (3, 4) form
-#: `ref.demosaic.compose_develop_matrix` gives
+#: `ref.demosaic.compose_develop_matrix` gives, a develop plan's `matrix`
 WB_MATRIX = np.array([[1.6, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0],
                       [0.0, 0.0, 1.3, 0.0]])
 
@@ -47,6 +47,7 @@ def main() -> int:
     import torch
 
     from cineform_tpu_torch.models.intra import IntraCodec
+    from cineform_tpu_torch.ops.demosaic import DevelopPlan
     from cineform_tpu_torch.testframes import byr4_frame
 
     if not torch.cuda.is_available():
@@ -62,7 +63,7 @@ def main() -> int:
         HEIGHT, codec.row_bytes)
     frames = np.stack([np.roll(one, i, axis=0) for i in range(BATCH)])
     samples = codec.encode_batch_device(frames)
-    matrices = np.stack([WB_MATRIX] * BATCH)
+    matrices = [DevelopPlan(matrix=WB_MATRIX)] * BATCH
     result = {"root": os.path.abspath(args.root), "card": card,
               "reps": args.reps, "ms_per_frame": {}}
     for label, output, develop in (("BYR4", "BYR4", None),
