@@ -209,7 +209,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     demo pyramid (`ops.pyramid.forward_intra`, `inverse_intra`) of a
     1080x1920 int32 plane on the card equal to the CPU, with its device
     times;
-14. fails if a module of the JAX package was imported.
+14. runs the worker pool and the mesh: the sync `Encoder`'s samples of 16
+    1080p CT_UCHAR noise frames at FILMSCAN2 (its rate-control limiter
+    logged a frame; the phase fails if it never moved) and FILMSCAN1, of
+    8 1280x720 V210 and 8 1080p YUY2 frames; the DWT launches,
+    `chunk_pack` and `merge_network` against their plain versions at the
+    workers' one-frame shapes and quantizers (720p V210; 1080p CT_UCHAR
+    at q4 and under each limiter the FILMSCAN2 series used; 1080p YUY2)
+    and on the sharded batches' YUY2 shards of 4, 3 and 2 frames (not
+    counted); then, with the launch counts set to 0, the same frames
+    through `EncoderPool`'s workers (the default route of CT_UCHAR and of
+    V210 at 1280 wide; YUY2 with `use_device=False`; one worker, and two
+    at FILMSCAN1), each in order and byte-equal to the sync samples, with
+    their frames/s beside phase 9's batcher; then `frame_mesh()` (one card), `parallel.dryrun.
+    dryrun_multichip(1)`, and, counts reset, the 1080p YUY2 encode of 8
+    frames sharded over the mesh [card, card] and of 7 over a 3-way one,
+    byte-equal to the unsharded `encode_batch_device`; it fails unless
+    each path launched exactly the DWT, `chunk_pack` and `merge_network`
+    launches of its encodes;
+15. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -546,6 +564,8 @@ def main() -> int:
     from cineform_tpu_torch.models.stereo import (decode_batch_device_3d,
                                                   encode_batch_3d, split_3d)
     from cineform_tpu_torch.ops import pyramid
+    from cineform_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cineform_tpu_torch.parallel.mesh import batch_sharding, frame_mesh
     from cineform_tpu_torch.ref import demosaic as dm_ref
     from cineform_tpu_torch.spec.quant import demo_quant_tables
     from cineform_tpu_torch.ops import demosaic as dmops
@@ -605,7 +625,8 @@ def main() -> int:
             also_replaces="cineform_tpu/ops/pallas_dwt.py:151",
             mode="level 1 from the YUY2 bytes (the unpack fused), Y, V, U "
                  "in one launch, bands in the entropy coder's layout",
-            ops_per_elem=40, paths=("yuy2", "encoder_inputs"),
+            ops_per_elem=40,
+            paths=("yuy2", "encoder_inputs", "pool_workers", "mesh"),
             library_note=dwt_library),
         "dwt_forward_groups": dict(
             wrapper=dwt_forward_groups, route="cuda", source=dwt_src,
@@ -615,7 +636,8 @@ def main() -> int:
                  "coder's layout: levels 2 and 3 of every 4:2:2 format, "
                  "level 1 of UYVY, YU64 and V210 from the group buffers the "
                  "plain unpack builds", ops_per_elem=40,
-            paths=("yuy2", "yuv10", "encoder_inputs"),
+            paths=("yuy2", "yuv10", "encoder_inputs", "pool_workers",
+                   "mesh"),
             library_note=dwt_library,
             ms_covers=f"levels 2 and 3 of one batch-{BATCH} 1080p YUY2 "
                       "encode"),
@@ -636,13 +658,15 @@ def main() -> int:
             source="cineform_tpu_torch/csrc/chunk_pack.cu",
             replaces="cineform_tpu/ops/pallas_pack.py:135",
             ops_per_elem=8 * 16,
-            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop")),
+            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop",
+                               "pool_workers", "mesh")),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="low-bit-first (encoder concat): guarded OR placement, "
                  "network on flagged rows", ops_per_elem=20,
-            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop")),
+            paths=ALL_PATHS + ("encoder_inputs", "bayer_develop",
+                               "pool_workers", "mesh")),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -3375,6 +3399,176 @@ def main() -> int:
     dm_log(f"develop, composite and pyramid phase "
            f"{time.perf_counter() - t_phase:.3f} s")
 
+    # --- 14. the worker pool and the mesh ----------------------------------
+    t_phase = time.perf_counter()
+    launches_workers = dict.fromkeys(kernels, 0)
+    launches_mesh = dict.fromkeys(kernels, 0)
+    scan = np.random.default_rng(14).integers(
+        0, 256, (2 * BATCH, HEIGHT, 2 * WIDTH), dtype=np.uint8)
+    sdi_c = IntraCodec(1280, 720, 4, device=dev, input_format="V210")
+    sdi = rolled(v210_frame, sdi_c)
+
+    def sync_series(fmt, w, h, frames_, quality, limiters=None):
+        """The sync Encoder's samples of `frames_`, one call each; the
+        FILMSCAN2/3 limiter in force for each frame into `limiters`."""
+        enc = api.Encoder(dev)
+        enc.prepare_to_encode(w, h, api.PixelFormat[fmt],
+                              quality=api.EncodingQuality(quality))
+        enc.attach_metadata(meta)
+        out = []
+        for f in frames_:
+            enc.encode_sample(f)
+            out.append(enc.get_sample_data())
+            if limiters is not None:
+                limiters.append(enc._fs_limiter)
+        return out
+
+    def worker_run(what, threads, fmt, w, h, frames_, want, quality=4,
+                   use_device=None):
+        """`frames_` through an EncoderPool of `threads` workers; fails
+        unless the pool took its workers and delivered `want` in order.
+        Returns the frames/s from the first submission to the last
+        harvest."""
+        p = api.CFHD_CreateEncoderPool(threads, len(frames_), device=dev)
+        p.prepare_to_encode(w, h, api.PixelFormat[fmt],
+                            quality=api.EncodingQuality(quality),
+                            use_device=use_device)
+        p.attach_metadata(meta)
+        if p.use_device:
+            raise AssertionError(f"{what}: the pool took the batcher")
+        p.start()
+        got, window = pool_run(
+            p, lambda n, i: p.encode_async_sample(n, frames_[i]),
+            p.wait_for_sample, len(frames_))
+        if [b.get_encoded_sample() for b in got] != want or p.batches:
+            raise AssertionError(f"{what}: samples differ from the sync "
+                                 f"Encoder's (batches {p.batches})")
+        return len(frames_) / window
+
+    limiters = []
+    want_fs2 = sync_series("CT_UCHAR", WIDTH, HEIGHT, scan, 5, limiters)
+    want_fs1 = sync_series("CT_UCHAR", WIDTH, HEIGHT, scan, 4)
+    want_sdi = sync_series("V210", 1280, 720, sdi, 4)
+    want_yuy2 = sync_series("YUY2", WIDTH, HEIGHT, frames, 4)
+    if len(set(limiters)) < 2:
+        raise AssertionError(f"FILMSCAN2: the limiter never moved "
+                             f"({limiters})")
+
+    # kernel checks at the phase's new shapes and quantizers (not counted):
+    # the workers' one-frame encodes (720p V210; 1080p CT_UCHAR at q4 and
+    # under each FILMSCAN2 limiter the series used; 1080p YUY2) and the
+    # YUY2 shards of the sharded batches below (4, 3 and 2 frames)
+    log("kernel checks, worker and shard shapes (tolerance 0)")
+    ct = api.Encoder.CODEC_FORMATS[api.PixelFormat.CT_UCHAR]
+    checks = [("V210 1280x720 q4", sdi_c, sdi[:1]),
+              ("CT_UCHAR q4", api.intra_codec(WIDTH, HEIGHT, 4, ct, dev),
+               scan[:1]),
+              ("YUY2 q4", codec, frames[:1])]
+    for lim in sorted(set(limiters)):
+        i = limiters.index(lim)
+        checks.append((f"CT_UCHAR FILMSCAN2 limiter {lim} (frame {i + 1})",
+                       api.intra_codec(WIDTH, HEIGHT, 5, ct, dev, lim),
+                       scan[i:i + 1]))
+    checks += [(f"YUY2 shard of {n}", codec, frames[:n]) for n in (4, 3, 2)]
+    for what, c, frames_ in checks:
+        t, up = c.tables(), c._upload(frames_)
+
+        def quants(lev):
+            return [t.band_quant[ch][lev] for ch in range(3)]
+
+        if c.input_format == "YUY2":
+            pr = c.params.precision
+            out = compare(
+                "dwt_forward_yuy2",
+                lambda: dwt_forward_yuy2(up, pr, t.prescale[0], quants(0)),
+                lambda: dwt.plain_groups(ops.unpack_yuy2(up, pr),
+                                         t.prescale[0], quants(0)),
+                f"{what} level 1 {tuple(up.shape)} quants {quants(0)}",
+                (up,), tally=False, timed=False)
+            levels = [(out[:2], out[2:])]
+        else:
+            levels = []
+        x = c.level1_input(up) if not levels else levels[0][0]
+        for lev in range(len(levels), 3):
+            ps, q = t.prescale[lev], quants(lev)
+            out = compare(
+                "dwt_forward_groups", lambda: dwt_forward_groups(x, ps, q),
+                lambda: dwt.plain_groups((x[0][:, 0], x[1][:, 0],
+                                          x[1][:, 1]), ps, q),
+                f"{what} level {lev + 1} {tuple(x[0].shape)} + "
+                f"{tuple(x[1].shape)} prescale {ps} quants {q}", x,
+                tally=False, timed=False)
+            levels.append((out[:2], out[2:]))
+            x = out[:2]
+        encode_checks(c, levels, tally=False, timed=False)
+        del up, x, levels, out
+    reset_counts()
+    rates = {
+        "CT_UCHAR FILMSCAN2, 1 worker": worker_run(
+            "FILMSCAN2", 1, "CT_UCHAR", WIDTH, HEIGHT, scan, want_fs2, 5),
+        "CT_UCHAR FILMSCAN1, 1 worker": worker_run(
+            "one worker", 1, "CT_UCHAR", WIDTH, HEIGHT, scan, want_fs1),
+        "CT_UCHAR FILMSCAN1, 2 workers": worker_run(
+            "two workers", 2, "CT_UCHAR", WIDTH, HEIGHT, scan, want_fs1),
+        "V210 1280x720, 1 worker": worker_run(
+            "V210 720p", 1, "V210", 1280, 720, sdi, want_sdi),
+        "YUY2 use_device=False, 1 worker": worker_run(
+            "YUY2 workers", 1, "YUY2", WIDTH, HEIGHT, frames, want_yuy2,
+            use_device=False)}
+    book(launches_workers)
+    encodes = 6 * BATCH + 2 * BATCH
+    want = dict.fromkeys(kernels, 0)
+    want.update(dwt_forward_yuy2=BATCH,
+                dwt_forward_groups=3 * encodes - BATCH,
+                chunk_pack=6 * encodes, merge_network=6 * encodes)
+    if launches_workers != want or dwt_forward_level.launches:
+        raise AssertionError(f"the worker route launched {launches_workers}:"
+                             f" expected {want}")
+    log(f"EncoderPool workers: {2 * BATCH} {WIDTH}x{HEIGHT} CT_UCHAR noise "
+        "frames at FILMSCAN2 (1 worker) and FILMSCAN1 (1, then 2 workers), 8 "
+        "1280x720 V210 frames (the default route: 1280 is not a multiple "
+        "of 48) and 8 YUY2 frames with use_device=False, each in order and "
+        "byte-equal to the sync Encoder; FILMSCAN2 limiter by frame "
+        f"{limiters}, sample bytes {[len(x) for x in want_fs2]}; frames/s "
+        "from the first submission to the last harvest: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rates.items())
+        + f"; phase 9's batcher {4 * BATCH / enc_window:.4f} (32 YUY2 "
+        f"frames); launches {launches_workers} ({the_card})")
+
+    if frame_mesh() != [dev]:
+        raise AssertionError(f"frame_mesh() is {frame_mesh()}, not [{dev}]")
+    _, dry_ms = host_ms(torch, lambda: dryrun_multichip(1))
+    want8, plain8_ms = host_ms(torch, lambda: codec.encode_batch_device(
+        frames, metadata=meta))
+    want7, plain7_ms = host_ms(torch, lambda: codec.encode_batch_device(
+        frames[:7], metadata=meta))
+    reset_counts()
+    meshes = ((frames, [dev, dev], want8), (frames[:7], [dev] * 3, want7))
+    mesh_ms = []
+    for frames_, devices, unsharded in meshes:
+        got, ms = host_ms(torch, lambda: codec.encode_batch_device(
+            frames_, metadata=meta, sharding=batch_sharding(devices)))
+        if got != unsharded:
+            raise AssertionError(f"the encode of {len(frames_)} frames "
+                                 f"sharded over {len(devices)} devices "
+                                 "differs from the unsharded one")
+        mesh_ms.append(ms)
+    book(launches_mesh)
+    want = dict.fromkeys(kernels, 0)
+    want.update(dwt_forward_yuy2=5, dwt_forward_groups=10, chunk_pack=30,
+                merge_network=30)
+    if launches_mesh != want or dwt_forward_level.launches:
+        raise AssertionError(f"the sharded encodes launched {launches_mesh}:"
+                             f" expected {want} (one encode a shard)")
+    log(f"mesh: frame_mesh() is [{dev}]; dryrun_multichip(1) passed in "
+        f"{dry_ms:.4f} ms; the {WIDTH}x{HEIGHT} YUY2 encode of {BATCH} frames "
+        f"over [{dev}, {dev}] ({mesh_ms[0]:.4f} ms; unsharded "
+        f"{plain8_ms:.4f} ms) and of 7 over 3 ({mesh_ms[1]:.4f} ms, shards "
+        f"of 3, 2, 2; unsharded {plain7_ms:.4f} ms) byte-equal to the "
+        f"unsharded encode_batch_device; launches {launches_mesh}; phase "
+        f"{time.perf_counter() - t_phase:.3f} s ({the_card})")
+    del scan, sdi, want_fs1, want_fs2, want_sdi, want_yuy2, want8, want7
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -3391,7 +3585,8 @@ def main() -> int:
                "scaled": launches_scaled, "geometry": launches_geometry,
                "encoder_inputs": launches_inputs,
                "bayer_develop": launches_develop,
-               "stereo_composite": launches_composite}
+               "stereo_composite": launches_composite,
+               "pool_workers": launches_workers, "mesh": launches_mesh}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

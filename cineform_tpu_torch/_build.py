@@ -31,6 +31,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cineform_tpu_torch")
 
 _LOCKS: dict[str, threading.Lock] = {}
 _LOCKS_GUARD = threading.Lock()
+#: held while a launch count is updated: the pool's workers launch from
+#: several threads
+COUNT_LOCK = threading.Lock()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -126,4 +129,5 @@ def launch(wrapper, source: str, symbol: str, argtypes: tuple, *args) -> None:
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    wrapper.launches += 1
+    with COUNT_LOCK:
+        wrapper.launches += 1

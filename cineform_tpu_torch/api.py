@@ -24,9 +24,7 @@ kernel's build or launch reaches the caller.  The Bayer develop's stages
 (the LOOK cube, the vignette, BLSH sharpening, the gamma tweaks: a
 `bayer_develop` plan) and the 3D composite of both eyes (mask 3,
 `models.stereo.blend_eyes`) run on the device too, where the JAX API runs
-them on the host.  What no port codec does yet (the pool's host worker
-pool, `pool.EncoderPool(use_device=False)`) raises
-`CFHDError(BADFORMAT, "... not ported yet")` (`_not_ported`).
+them on the host.
 
 Errors raise CFHDError carrying the CFHD_ERROR_* code instead of returning
 status ints (`Common/CFHDError.h:25-82`).
@@ -186,12 +184,6 @@ class SampleInfo:
     encoded_format: EncodedFormat
     quality: int
     frame_number: int
-
-
-def _not_ported(what: str) -> CFHDError:
-    """The error of a route the JAX API takes on the host and no codec of
-    the port takes yet."""
-    return CFHDError(ErrorCode.BADFORMAT, f"{what} is not ported yet")
 
 
 def check_bgra_source(width: int, chroma_lowpass: int) -> None:

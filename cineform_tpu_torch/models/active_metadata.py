@@ -7,8 +7,10 @@ of its host code, the wiring of `ApplyActiveMetaData` (`Codec/bayer.c:
 the sample (and decoder-side database items) gated by the TAG_PROCESS_PATH
 flags (`Common/CFHDMetadataTags.h:25-44`); nothing applies unless
 PROCESSING_ACTIVE is set, and each stage has its own bit.
-`decode_bayer_developed` runs on the device.  `resolve_look` resolves a
-LOOK CRC to its LUT on the host, as the JAX package's does, and
+`decode_bayer_developed` runs on the device.  `parse_control_points`
+and `develop_params_at` read the CP3D/CPPR keyframed parameters and
+interpolate them at a frame (`utils.keyframes.Track`).  `resolve_look`
+resolves a LOOK CRC to its LUT on the host, as the JAX package's does, and
 `look_source` names the file it would read.
 """
 
@@ -26,6 +28,7 @@ from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.ops import develop as dv
 from cineform_tpu_torch.ref import demosaic as dm
 from cineform_tpu_torch.utils import lutpath
+from cineform_tpu_torch.utils.keyframes import Track
 
 # TAG_PROCESS_PATH bits (`Common/CFHDMetadataTags.h:26-44`)
 PROCESSING_ACTIVE = 1 << 0
@@ -181,6 +184,85 @@ def decode_bayer_developed(sample: bytes,
 
     rgb, fallback = codec.decode_checked([sample], develop)
     return np.round(rgb[0] * 65535.0).astype(np.uint16), fallback
+
+
+# ---------------------------------------------------------------------------
+# Keyframed control points (CP3D / CPPR, `Codec/keyframes.c:167`
+# NewControlPoint; payload layout `CFHDMetadataTags.h:355-357`)
+# ---------------------------------------------------------------------------
+
+def parse_control_points(items) -> list[tuple[int, list]]:
+    """Extract (trigger_frame, inner_items) control points from CP3D/CPPR
+    metadata tuples.  Payload layout (keyframes.c:175-205): 16-byte header
+    [control_point_type, flags, trigger_tag, trigger_size:24|type:8],
+    the trigger value (UFRM u32 or TIMC string, padded to 4), then the
+    inner CineForm metadata tuples carrying the keyframed values."""
+    points = []
+    for item in items:
+        if item.tag not in ("CP3D", "CPPR"):
+            continue
+        p = item.payload
+        if len(p) < 16:
+            continue
+        trigger_tag = p[8:12]
+        size = p[12] | (p[13] << 8) | (p[14] << 16)
+        pos = (16 + 3) & ~3
+        trig = p[pos:pos + size]
+        pos += (size + 3) & ~3
+        if trigger_tag == b"UFRM" and len(trig) >= 4:
+            frame = int.from_bytes(trig[:4], "little")
+        elif trigger_tag == b"TIMC":
+            try:
+                hh, mm, ss, ff = (int(x) for x in
+                                  trig.rstrip(b"\0").decode().split(":"))
+                frame = ((hh * 60 + mm) * 60 + ss) * 24 + ff
+            except Exception:
+                continue
+        else:
+            continue
+        points.append((frame, md.parse_block(p[pos:])))
+    points.sort(key=lambda t: t[0])
+    return points
+
+
+def develop_params_at(sample: bytes, frame: int,
+                      database: list[md.MetadataItem] | None = None
+                      ) -> DevelopParams:
+    """develop_params with CP3D/CPPR keyframe interpolation: scalar/vector
+    values (WBAL gains, GAMT) from the control points bracketing `frame`
+    are linearly interpolated (keyframes.c AddKeyframePair + the decoder's
+    per-frame blend) and overlaid on the static parameters."""
+    parsed = parse_sample(sample)
+    items = md.read_metadata(sample, parsed) + list(database or ())
+    base = develop_params(sample, database, parsed)
+    points = parse_control_points(items)
+    if not points:
+        return base
+
+    tracks: dict[str, tuple[list, list]] = {}
+    for f, inner in points:
+        for it in inner:
+            if it.tag == "WBAL" and len(it.payload) >= 12:
+                vals = _floats(it, 3)
+                tracks.setdefault("WBAL", ([], []))[0].append(f)
+                tracks["WBAL"][1].append(tuple(float(v) for v in vals))
+            elif it.tag == "GAMT" and len(it.payload) >= 4:
+                tracks.setdefault("GAMT", ([], []))[0].append(f)
+                tracks["GAMT"][1].append(float(_floats(it, 1)[0]))
+    if "WBAL" in tracks and (base.flags & PROCESSING_WHITEBALANCE):
+        fs, vs = tracks["WBAL"]
+        if len(fs) == 1:
+            base.wb = vs[0]
+        else:
+            gains = [Track(fs, [v[i] for v in vs]).sample(frame)
+                     for i in range(3)]
+            base.wb = tuple(float(np.clip(g, 0.4, 10.0)) for g in gains)
+    if "GAMT" in tracks and (base.flags & PROCESSING_GAMMA_TWEAKS):
+        fs, vs = tracks["GAMT"]
+        g = vs[0] if len(fs) == 1 else float(Track(fs, vs).sample(frame))
+        if 0.2 <= g <= 5.0:
+            base.gamma = g
+    return base
 
 
 def look_source(crc: int):

@@ -66,6 +66,7 @@ from cineform_tpu_torch.ops import yuv_output as yout
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
                                                 dwt_forward_planes,
                                                 dwt_forward_yuy2)
+from cineform_tpu_torch.parallel.mesh import map_shards
 from cineform_tpu_torch.ref.demosaic import (bayer_yuyv_parity,
                                              curve2linear_lut,
                                              linear2curve_lut, log2lin_lut,
@@ -366,12 +367,15 @@ class IntraCodec:
                             fs_rate_limiter=p.fs_rate_limiter,
                             custom_quant=p.custom_quant)
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """(B, H, row_bytes) uint8 host frames -> a tensor on the device."""
+    def _check_frames(self, frames: np.ndarray) -> None:
         if frames.shape[1:] != (self.height, self.row_bytes):
             raise ValueError(f"frames of shape {frames.shape}: expected "
                              f"(B, {self.height}, {self.row_bytes}) "
                              f"{self.input_format}")
+
+    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+        """(B, H, row_bytes) uint8 host frames -> a tensor on the device."""
+        self._check_frames(frames)
         return torch.from_numpy(np.array(frames, np.uint8)).to(self.device)
 
     # --- encode ------------------------------------------------------------
@@ -454,11 +458,19 @@ class IntraCodec:
                                              ovf[:, gi], coeffs[ch][1][k]))
         return [(coeffs[ch][0], packed_by_ch[ch]) for ch in range(len(coeffs))]
 
-    def _frame_meta(self, batch, first_frame_number, frame_numbers, metadata):
+    @staticmethod
+    def _frame_args(batch, first_frame_number, frame_numbers, metadata):
+        """The frame numbers and metadata of a batch, one of each a
+        frame."""
         if frame_numbers is None:
             frame_numbers = [first_frame_number + i for i in range(batch)]
         if not isinstance(metadata, (list, tuple)):
             metadata = [metadata] * batch
+        return list(frame_numbers), list(metadata)
+
+    def _frame_meta(self, batch, first_frame_number, frame_numbers, metadata):
+        frame_numbers, metadata = self._frame_args(
+            batch, first_frame_number, frame_numbers, metadata)
         # per-frame metadata advance (UFRM + timecode), as the reference
         # bumps both on every EncodeSample
         # (`EncoderSDK/SampleEncoder.cpp:795-880`)
@@ -525,14 +537,32 @@ class IntraCodec:
     def encode_batch_device(self, frames: np.ndarray,
                             first_frame_number: int = 1, metadata=None,
                             cap_bits: int = 8,
-                            frame_numbers: list[int] | None = None
-                            ) -> list[bytes]:
+                            frame_numbers: list[int] | None = None,
+                            sharding=None) -> list[bytes]:
         """Encode (B, H, row_bytes) uint8 frames to CFHD samples with the
         transform and the entropy coding on the device.  `metadata` may be
-        one EncoderMetadata or one per frame."""
-        packed = self.forward_packed(self._upload(frames), cap_bits)
-        return self.write_samples(frames, packed, first_frame_number,
-                                  metadata, frame_numbers)
+        one EncoderMetadata or one per frame.  `sharding`, a mesh
+        (`parallel.mesh.batch_sharding`), splits the frames into contiguous
+        shards, one a device of the mesh (`parallel.mesh.map_shards`): each
+        shard is encoded on its device by a codec of this configuration
+        there, every shard's device work queued before any is fetched, and
+        the samples come in frame order, equal to the unsharded ones."""
+        if sharding is None:
+            packed = self.forward_packed(self._upload(frames), cap_bits)
+            return self.write_samples(frames, packed, first_frame_number,
+                                      metadata, frame_numbers)
+        self._check_frames(frames)
+        frame_numbers, metadata = self._frame_args(
+            frames.shape[0], first_frame_number, frame_numbers, metadata)
+        samples = []
+        for x, packed in map_shards(
+                sharding, self, np.asarray(frames, np.uint8),
+                lambda c, x: c.forward_packed(x, cap_bits)):
+            lo = len(samples)
+            samples += self.write_samples(
+                x, packed, frame_numbers=frame_numbers[lo:lo + len(x)],
+                metadata=metadata[lo:lo + len(x)])
+        return samples
 
     def encode_batch(self, frames: np.ndarray, first_frame_number: int = 1,
                      metadata=None, frame_numbers: list[int] | None = None,

@@ -64,8 +64,9 @@ def _run(wrapper, symbol: str, argtypes: tuple, *arrays: torch.Tensor):
     flags = torch.zeros(rows, dtype=torch.int32, device=dev)
     _build.launch(wrapper, "merge_network", symbol, argtypes, *arrays,
                   *outs, *tmps, flags, wrapper.flagged[dev], rows, n)
-    for branch in wrapper.branch_launches:
-        wrapper.branch_launches[branch] += 1
+    with _build.COUNT_LOCK:
+        for branch in wrapper.branch_launches:
+            wrapper.branch_launches[branch] += 1
     return tuple(outs)
 
 

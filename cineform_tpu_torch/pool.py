@@ -6,23 +6,29 @@ harvest samples strictly in submission order through
 WaitForSample/TestForSample, with a per-frame metadata snapshot and a
 bounded number of jobs in flight.
 
-The reference parallelises frames over CPU threads (SURVEY §2.4).  Here a
-batcher thread drains the submission queue and encodes whole batches of
-up to `DEVICE_BATCH` frames through the port's codecs on the card
-(`IntraCodec.encode_batch_device`, every input format of `api.Encoder`;
-progressive 2-frame GOP pairs through `GopCodec.encode_batch`); the host
-writes the samples.  Interlaced GOP pairs are refused, as the JAX pool
-refuses them.  A batcher takes
-whatever is queued, up to `DEVICE_BATCH` jobs, as the JAX pool does; only
-the real frames are encoded: a batch of any size is one call of the codec.
-The JAX pool's host worker pool (`use_device=False`) is not ported.
+The encoder pool routes a configuration as the JAX pool does.  The
+formats of `_DEVICE_POOL_FORMATS` (V210 only at a width that is a
+multiple of 48) go to a batcher thread, which drains the submission queue
+and encodes whole batches of up to `DEVICE_BATCH` frames through the
+port's codecs on the card (`IntraCodec.encode_batch_device`; progressive
+2-frame GOP pairs through `GopCodec.encode_batch`); where more than one
+card is visible, the batch's frames are sharded over a `parallel.mesh`
+frame mesh.  A batcher takes whatever is queued, up to `DEVICE_BATCH`
+jobs; only the real frames are encoded.  The other formats, and any with
+`use_device=False`, go to `thread_count` worker threads, each owning one
+`api.Encoder` on the same device, one frame a job, as the reference's
+CAsyncEncoder workers do; each worker keeps its own FILMSCAN2/3 rate
+control.  The reference parallelises frames over CPU threads (SURVEY
+§2.4); there is no host codec here: every route encodes on the device.
+Interlaced GOP pairs, and GOP pairs off the YUY2 batcher, are refused, as
+the JAX pool refuses them.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,6 +37,7 @@ import torch
 from cineform_tpu_torch import api
 from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch.models import gop_host
+from cineform_tpu_torch.parallel import mesh as frame_meshes
 
 
 @dataclass
@@ -125,6 +132,15 @@ class _Batches:
             return head
 
 
+#: the input formats the JAX pool's batcher takes (`cineform_tpu/pool.py:
+#: 40-49`): 4:2:2 YUY2, UYVY, V210 (at a width that is a multiple of 48)
+#: and YU64, the RGB 4:4:4 and RGBA 4:4:4:4 RG48, B64A and RG64, and Bayer
+_DEVICE_POOL_FORMATS = frozenset((
+    api.PixelFormat.YUY2, api.PixelFormat.UYVY, api.PixelFormat.V210,
+    api.PixelFormat.YU64, api.PixelFormat.RG48, api.PixelFormat.B64A,
+    api.PixelFormat.RG64, api.PixelFormat.BYR4, api.PixelFormat.BYR5))
+
+
 class EncoderPool(_Batches):
     """CFHD_CreateEncoderPool .. CFHD_ReleaseEncoderPool on `device`."""
 
@@ -133,11 +149,15 @@ class EncoderPool(_Batches):
         if thread_count < 1:
             raise api.CFHDError(api.ErrorCode.INVALID_ARGUMENT)
         super().__init__(job_queue_length)
+        self.thread_count = thread_count
         self.device = torch.device(device)
         self._prepared = False
         self._metadata = None
         self._codec = None
+        self._sharding = None
         self._batcher: threading.Thread | None = None
+        self._executor: ThreadPoolExecutor | None = None
+        self._tls = threading.local()
         self._gop_first = None
         self._gop_groups = 0
 
@@ -151,29 +171,55 @@ class EncoderPool(_Batches):
                           encoded_format=api.EncodedFormat.YUV_422,
                           encoding_flags=api.EncodingFlags.NONE,
                           quality=api.EncodingQuality.FILMSCAN1,
-                          use_device: bool = True) -> None:
+                          use_device: bool | None = None) -> None:
+        """`use_device`: None takes the batcher for the formats of
+        `_DEVICE_POOL_FORMATS` and the workers for the others; True the
+        batcher (BADFORMAT for a format it does not take); False the
+        workers."""
         probe = api.Encoder(self.device)  # validates arguments
         probe.prepare_to_encode(width, height, pixel_format, encoded_format,
                                 encoding_flags, quality)
+        gop = bool(encoding_flags & api.EncodingFlags.YUV_2FRAME_GOP)
         if encoding_flags & api.EncodingFlags.YUV_INTERLACED:
             # the JAX pool refuses it, though its sync Encoder encodes it
             # (`cineform_tpu/pool.py:91-93`)
             raise api.CFHDError(api.ErrorCode.BADFORMAT,
                                 "interlaced GOP is not supported in the pool")
-        if not use_device:
-            # the JAX pool's host worker pool of api.Encoders
-            # (`cineform_tpu/pool.py:217-238`)
-            raise api._not_ported("the host worker pool (use_device=False)")
-        self.gop = bool(encoding_flags & api.EncodingFlags.YUV_2FRAME_GOP)
+        batched = pixel_format in _DEVICE_POOL_FORMATS and not (
+            pixel_format == api.PixelFormat.V210 and width % 48)
+        if use_device is None:
+            use_device = batched
+        if use_device and not batched:
+            raise api.CFHDError(api.ErrorCode.BADFORMAT,
+                                f"no device path for {pixel_format!r}")
+        if gop and not (use_device and pixel_format == api.PixelFormat.YUY2):
+            # GOP pairing is stateful across submissions: the workers
+            # encode each job independently, the batcher pairs
+            # consecutive submissions
+            raise api.CFHDError(api.ErrorCode.BADFORMAT,
+                                "2-frame GOP needs the device path (YUY2)")
+        self.gop, self.use_device = gop, use_device
         self.width, self.height = width, height
+        self.pixel_format, self.encoded_format = pixel_format, encoded_format
+        # the workers' encoders take the quality's low byte, as the JAX
+        # pool's do: the V210 passthrough bits are dropped
+        self.quality = probe.quality
         self.row_bytes = probe.row_bytes
-        if self.gop:
+        self._codec = self._sharding = None
+        if use_device and gop:
             self._codec = api.gop_codec(width, height, int(probe.quality),
                                         self.device)
-        else:
+        elif use_device:
             self._codec = api.intra_codec(
                 width, height, int(probe.quality),
                 api.Encoder.CODEC_FORMATS[pixel_format], self.device)
+            # more than one card: the batch's frames sharded over them
+            # (`cineform_tpu/pool.py:114-131`)
+            ndev = len(frame_meshes.frame_mesh(device=self.device))
+            if ndev > 1:
+                self._sharding = frame_meshes.batch_sharding(
+                    frame_meshes.frame_mesh(min(ndev, self.DEVICE_BATCH),
+                                            device=self.device))
         self._prepared = True
 
     # CFHD_AttachEncoderPoolMetadata
@@ -184,7 +230,12 @@ class EncoderPool(_Batches):
     def start(self) -> None:
         if not self._prepared:
             raise api.CFHDError(api.ErrorCode.ENCODING_NOT_STARTED)
-        if self._batcher is None:
+        if not self.use_device:
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=self.thread_count,
+                    thread_name_prefix="cfhd-encoder")
+        elif self._batcher is None:
             self._stopping = False
             self._batcher = threading.Thread(
                 target=self._batch_loop, name="cfhd-device-batcher",
@@ -193,6 +244,9 @@ class EncoderPool(_Batches):
 
     # CFHD_StopEncoderPool
     def stop(self) -> None:
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
         if self._batcher is not None:
             with self._lock:
                 self._stopping = True
@@ -207,36 +261,76 @@ class EncoderPool(_Batches):
         while (jobs := self._next_batch()) is not None:
             try:
                 frames = [np.stack(f) for f in zip(*(j.frames for j in jobs))]
-                samples = (self._codec.encode_batch if self.gop
-                           else self._codec.encode_batch_device)(
-                    *frames, frame_numbers=[j.frame_number for j in jobs],
-                    metadata=[j.metadata for j in jobs])
+                numbers = [j.frame_number for j in jobs]
+                meta = [j.metadata for j in jobs]
+                if self.gop:
+                    samples = self._codec.encode_batch(
+                        *frames, frame_numbers=numbers, metadata=meta)
+                else:
+                    samples = self._codec.encode_batch_device(
+                        *frames, frame_numbers=numbers, metadata=meta,
+                        sharding=self._sharding)
                 for j, s in zip(jobs, samples):
                     j.future.set_result(s)
             except BaseException as exc:  # propagate to the harvesters
                 self._fail(jobs, exc)
 
+    # --- worker path --------------------------------------------------------
+
+    def _worker_encoder(self) -> api.Encoder:
+        """The worker thread's own sample encoder, as the reference's
+        CAsyncEncoder owns a CSampleEncoder (`AsyncEncoder.h:30-41`), so
+        each worker advances its own FILMSCAN2/3 rate control."""
+        enc = getattr(self._tls, "encoder", None)
+        if enc is None:
+            enc = api.Encoder(self.device)
+            enc.prepare_to_encode(self.width, self.height, self.pixel_format,
+                                  self.encoded_format, api.EncodingFlags.NONE,
+                                  self.quality)
+            self._tls.encoder = enc
+        return enc
+
+    def _encode_job(self, frame_number: int, frame: bytes,
+                    metadata) -> bytes:
+        enc = self._worker_encoder()
+        # per-frame metadata snapshot + explicit frame numbering
+        # (`EncoderPool.cpp:389-449`)
+        enc._metadata = metadata
+        enc._frame_number = frame_number - 1
+        enc.encode_sample(frame)
+        return enc.get_sample_data()
+
     # CFHD_EncodeAsyncSample
     def encode_async_sample(self, frame_number: int,
                             frame: bytes | np.ndarray,
                             metadata=None) -> None:
-        if self._batcher is None:
+        if self._batcher is None and self._executor is None:
             raise api.CFHDError(api.ErrorCode.ENCODING_NOT_STARTED)
         meta = metadata or self._metadata
-        buf = (np.frombuffer(frame, dtype=np.uint8)
-               if isinstance(frame, (bytes, bytearray))
-               else np.ascontiguousarray(frame).view(np.uint8).reshape(-1))
-        if buf.size != self.height * self.row_bytes:
-            raise api.CFHDError(api.ErrorCode.INVALID_ARGUMENT,
-                                "bad frame size")
+        if self._executor is not None:
+            # a worker's encoder checks the frame's size
+            frame = (np.ascontiguousarray(frame).tobytes()
+                     if isinstance(frame, np.ndarray) else frame)
+        else:
+            buf = (np.frombuffer(frame, dtype=np.uint8)
+                   if isinstance(frame, (bytes, bytearray))
+                   else np.ascontiguousarray(frame).view(np.uint8).reshape(-1))
+            if buf.size != self.height * self.row_bytes:
+                raise api.CFHDError(api.ErrorCode.INVALID_ARGUMENT,
+                                    "bad frame size")
         # The queue bound limits jobs in flight (unfinished encodes), not
         # unharvested results (`EncoderSDK/EncoderQueue.h:45-51` job
         # states).  Submit and enqueue under one lock acquisition so the
         # pending order always matches submission order.
         with self._lock:
             self._reserve()
-            fut = self._queue_device(
-                frame_number, buf.reshape(self.height, self.row_bytes), meta)
+            if self._executor is not None:
+                fut = self._executor.submit(self._encode_job, frame_number,
+                                            frame, meta)
+            else:
+                fut = self._queue_device(
+                    frame_number, buf.reshape(self.height, self.row_bytes),
+                    meta)
             fut.add_done_callback(self._job_done)
             self._pending.append((frame_number, fut))
             self._lock.notify_all()

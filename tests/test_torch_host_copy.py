@@ -3,7 +3,8 @@
 `models.gop_host`, `models.thumbnail`, `models.lens`, `metadata`,
 `models.active_metadata`'s develop parameters, `ref.intra`, `ref.gop`,
 `ref.demosaic`, `ref.scaler`, `ref.geomesh`, `utils.glibc_random`,
-`utils.override_db`, `testframes`, and the API's constants), on the CPU.
+`utils.override_db`, `utils.keyframes`, `testframes`, and the API's
+constants), on the CPU.
 
 The port imports nothing of the JAX package: no source names it, and the
 slice runs where it cannot be imported.  Each copy equals its original on
@@ -42,6 +43,7 @@ from cineform_tpu.spec import codebooks as jcb
 from cineform_tpu.spec import production as jprod
 from cineform_tpu.spec import tags as jtags
 from cineform_tpu.utils import glibc_random as jglibc
+from cineform_tpu.utils import keyframes as jkeyframes
 from cineform_tpu.utils import lutpath as jlutpath
 from cineform_tpu.utils import override_db as joverride
 from cineform_tpu.spec import quant as jquant
@@ -69,6 +71,7 @@ from cineform_tpu_torch.spec import codebooks as tcb
 from cineform_tpu_torch.spec import production as tprod
 from cineform_tpu_torch.spec import tags as ttags
 from cineform_tpu_torch.utils import glibc_random as tglibc
+from cineform_tpu_torch.utils import keyframes as tkeyframes
 from cineform_tpu_torch.utils import lutpath as tlutpath
 from cineform_tpu_torch.utils import override_db as toverride
 from cineform_tpu_torch.spec import quant as tquant
@@ -124,7 +127,9 @@ NEW_MODULES = ("models/gop.py", "models/gop_host.py", "models/stereo.py",
                "ops/develop.py", "ops/scaler.py", "ops/warp.py",
                "ref/scaler.py", "ref/geomesh.py", "utils/lutpath.py",
                "ops/dwt.py", "ops/quant.py", "ops/pyramid.py",
-               "spec/quant.py", "spec/wavelet.py")
+               "spec/quant.py", "spec/wavelet.py", "parallel/__init__.py",
+               "parallel/mesh.py", "parallel/dryrun.py",
+               "utils/keyframes.py")
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
@@ -195,6 +200,13 @@ assert enc.get_sample_data() == gold
 dec = api.Decoder("cpu")
 dec.prepare_to_decode(0, 0, sample=gold)
 assert dec.decode_sample(gold).tobytes() == want
+p = pool.EncoderPool(1, 2, device="cpu")
+p.prepare_to_encode(64, 48, api.PixelFormat.YUY2, use_device=False)
+p.attach_metadata(sample_metadata(gold))
+p.start()
+p.encode_async_sample(1, yuy2_frame(64, 48, 1))
+assert p.wait_for_sample(timeout=120).data == gold
+p.stop()
 p = pool.DecoderPool(device="cpu")
 p.prepare_to_decode(64, 48)
 p.start()
@@ -233,7 +245,8 @@ def test_port_runs_where_the_jax_package_cannot_be_imported():
     decodes byte for byte on both decode routes and through the API and
     the decoder pool, a GOP golden decodes on the device route, and a
     Bayer golden with a white balance, and one with the Protune LOOK,
-    decode to RG48."""
+    decode to RG48; the encoder pool's worker route encodes the golden
+    too."""
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -1244,3 +1257,16 @@ def test_demo_quant_and_wavelet_specs_match():
         assert tquant.demo_quant_tables(depth) == \
             jquant.demo_quant_tables(depth)
     assert twavelet.ROUNDING == jwavelet.ROUNDING
+
+
+@pytest.mark.parametrize("values", [[1.0, 2.5, 0.5], [(1.0, 1.0, 1.0),
+                                                    (2.0, 1.0, 0.5),
+                                                    (0.4, 3.0, 1.0)]])
+def test_keyframes_track_matches(values):
+    """The linear `Track` (unsorted keys, scalar and vector values) equals
+    the original's at, between and beyond its keyframes."""
+    frames = [10, 0, 24]
+    got = tkeyframes.Track(list(frames), list(values))
+    want = jkeyframes.Track(list(frames), list(values))
+    for f in (-3, 0, 2.5, 5, 10, 17, 24, 40):
+        np.testing.assert_array_equal(got.sample(f), want.sample(f))

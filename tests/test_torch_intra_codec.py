@@ -150,7 +150,7 @@ def test_codec_tables_match_jax(w, h, q, frame_index):
                                   jax_dither_rows(h, frame_index))
 
 
-def test_other_input_formats_are_not_ported():
+def test_every_jax_input_format_is_taken_and_an_unknown_one_raises():
     """The codec takes every input format of the JAX API (the JAX
     `IntraCodec`'s nine device formats and the thirteen its API encodes on
     the host); a format that no encoder takes (b48r, which the reference

@@ -1,11 +1,13 @@
 """The port's pools (`cineform_tpu_torch.pool`) on the CPU: in-order
 delivery, and samples and frames equal to the port's synchronous API
 (which `tests/test_torch_api.py` holds against the JAX API), byte for
-byte; the argument errors of the JAX pool; and the thread safety of the
-first library build.
+byte; the encoder pool's routing and its worker route held against the
+JAX pool itself (its workers run the JAX API's host route); the argument
+errors of the JAX pool; and the thread safety of the first library build.
 """
 
 import os
+import sys
 import threading
 import time
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cineform_tpu import api as japi
 from cineform_tpu.models import intra_host as jhost
 from cineform_tpu.ref import intra as jref
 from cineform_tpu.spec import tags as jtags
@@ -159,13 +162,22 @@ def test_encoder_pool_formats_equal_sync(fmt):
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_encoder_pool_formats_batch_behind_a_running_one(fmt):
-    """Every format's frames stack into one codec call: two frames queued
+    """The batcher's formats stack into one codec call: two frames queued
     behind a running batch of one go as a batch of 2, each sample the
-    sync Encoder's."""
+    sync Encoder's.  The formats the JAX pool sends to its workers (the
+    13 outside `_DEVICE_POOL_FORMATS`, and V210 at 64 wide, not a
+    multiple of 48) take the workers: each sample the sync Encoder's, and
+    no batch."""
     frames = _frames(fmt, 3)
-    out, p = _held_encode(fmt, frames)
+    probe = api.CFHD_CreateEncoderPool(1, 1, device="cpu")
+    probe.prepare_to_encode(W, H, api.PixelFormat[fmt])
+    if probe.use_device:
+        out, p = _held_encode(fmt, frames)
+        assert p.batches == [1, 2]
+    else:
+        out, p = _pool_encode(fmt, frames)
+        assert p.batches == []
     assert [b.get_encoded_sample() for b in out] == _sync(fmt, frames)
-    assert p.batches == [1, 2]
 
 
 def test_encoder_pool_gop_pairs_equal_sync():
@@ -181,13 +193,152 @@ def test_encoder_pool_gop_pairs_equal_sync():
     assert p.batches == [1, 2]
 
 
-def test_encoder_pool_host_workers_not_ported():
-    """The JAX pool's host worker pool (`use_device=False`) raises."""
-    p = api.CFHD_CreateEncoderPool(2, 2, device="cpu")
-    with pytest.raises(api.CFHDError) as e:
-        p.prepare_to_encode(W, H, api.PixelFormat.YUY2, use_device=False)
-    assert e.value.code == api.ErrorCode.BADFORMAT
-    assert "not ported yet" in str(e.value)
+def _noise(fmt: str, n: int, w: int = W, seed: int = 5) -> list[bytes]:
+    """n frames of `fmt` at w x H, each `default_rng(seed).integers(0,
+    256, H * row_bytes)` in turn."""
+    rb = IntraCodec(w, H, 4, device=CPU, input_format=fmt).row_bytes
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, H * rb, dtype=np.uint8).tobytes()
+            for _ in range(n)]
+
+
+def _run_pool(p, frames) -> list[bytes]:
+    """Start `p`, submit the frames, harvest them in order, stop."""
+    p.start()
+    for i, f in enumerate(frames):
+        p.encode_async_sample(i + 1, f)
+    out = [p.wait_for_sample(timeout=600) for _ in frames]
+    p.stop()
+    assert [b.frame_number for b in out] == list(range(1, len(frames) + 1))
+    return [b.get_encoded_sample() for b in out]
+
+
+def _both_pools(fmt, frames, w=W, threads=1, **prepare):
+    """The frames through the port's pool and the JAX pool, each with
+    `threads` workers and `prepare`'s arguments -> (port's, JAX's
+    samples, the port's pool)."""
+    p = api.CFHD_CreateEncoderPool(threads, len(frames), device="cpu")
+    p.prepare_to_encode(w, H, api.PixelFormat[fmt], **prepare)
+    jp = japi.CFHD_CreateEncoderPool(threads, len(frames))
+    jp.prepare_to_encode(w, H, japi.PixelFormat[fmt], **prepare)
+    assert p.use_device == jp.use_device
+    return _run_pool(p, frames), _run_pool(jp, frames), p
+
+
+@pytest.mark.parametrize("quality", [4, 5])
+@pytest.mark.parametrize("fmt", ["CT_UCHAR", "CT_SHORT", "V210"])
+def test_worker_route_equals_the_jax_pool(fmt, quality, monkeypatch):
+    """4 frames of 64x48 noise of a format the JAX pool sends to its
+    workers, one worker, at FILMSCAN1 and FILMSCAN2: byte-equal to the
+    JAX pool frame for frame.  At FILMSCAN2 the worker's encoder advances
+    the rate control frame by frame, so frame 1 is smaller than the
+    batcher's codec would write it (CT_UCHAR: 13,812 bytes, not
+    14,784)."""
+    monkeypatch.setenv("CINEFORM_API_DEVICE", "0")
+    frames = _noise(fmt, 4)
+    got, want, p = _both_pools(fmt, frames, quality=quality)
+    assert not p.use_device and p.batches == []
+    assert got == want
+    batcher = IntraCodec(W, H, quality, device=CPU, input_format=fmt)
+    unlimited = batcher.encode_batch_device(np.stack([
+        np.frombuffer(f, np.uint8).reshape(H, -1) for f in frames]))
+    assert (got[1] == unlimited[1]) == (quality == 4)
+    if fmt == "CT_UCHAR" and quality == 5:
+        assert (len(got[1]), len(unlimited[1])) == (13812, 14784)
+
+
+@pytest.mark.parametrize("w", [64, 96])
+def test_pools_drop_the_v210_passthrough_bits_as_jax(w, monkeypatch):
+    """V210 at quality 0x1004 (FILMSCAN1 with the uncompressed target
+    bits): both pools drop the target bits, the 96-wide frames on the
+    batcher and the 64-wide ones on the workers, byte-equal to each other
+    and to the sync Encoder at FILMSCAN1, where the sync Encoder at
+    0x1004 writes raw samples."""
+    monkeypatch.setenv("CINEFORM_API_DEVICE", "0")
+    frames = _noise("V210", 4, w, seed=7)
+    got, want, p = _both_pools("V210", frames, w, quality=0x1004)
+    assert p.use_device == (w == 96)
+    assert got == want
+
+    def sync(quality):
+        enc = api.Encoder("cpu")
+        enc.prepare_to_encode(w, H, api.PixelFormat.V210, quality=quality)
+        out = []
+        for f in frames:
+            enc.encode_sample(f)
+            out.append(enc.get_sample_data())
+        return out
+
+    passthrough = sync(0x1004)
+    assert got == sync(4)
+    assert any(s != r for s, r in zip(got, passthrough))
+
+
+@pytest.mark.parametrize("fmt", ["YUY2", "RG48"])
+def test_encoder_pool_host_workers(fmt, monkeypatch):
+    """`use_device=False` takes the workers for a format the batcher
+    takes too: byte-equal to the JAX pool's workers and to the sync
+    Encoder."""
+    monkeypatch.setenv("CINEFORM_API_DEVICE", "0")
+    frames = _frames(fmt, 3)
+    got, want, p = _both_pools(fmt, frames, threads=2, use_device=False)
+    assert not p.use_device and p.batches == []
+    assert got == want == _sync(fmt, frames)
+
+
+def _prepared_pool(fmt, threads):
+    p = api.CFHD_CreateEncoderPool(threads, 4, device="cpu")
+    p.prepare_to_encode(W, H, api.PixelFormat[fmt])
+    return p
+
+
+@pytest.mark.parametrize("workers", [2, 12])
+def test_workers_equal_one_worker_at_filmscan1(workers):
+    """Several workers on one device give one worker's bytes at
+    FILMSCAN1, in order, with no job left in flight; 12 workers (more
+    threads than a usual machine has cores) run with a short switch
+    interval, so that a lost update of the shared bookkeeping would
+    show."""
+    frames = _noise("CT_UCHAR", 12)
+    one = _run_pool(_prepared_pool("CT_UCHAR", 1), frames)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        p = _prepared_pool("CT_UCHAR", workers)
+        got = _run_pool(p, frames)
+    finally:
+        sys.setswitchinterval(interval)
+    assert got == one == _sync("CT_UCHAR", frames)
+    assert p._in_flight == 0 and not p._pending
+
+
+def _route(enums, pool_, fmt, use_device, gop, w):
+    """The route of `pool_` (of the API module `enums`) for one
+    configuration: its `use_device`, or the ErrorCode it raises."""
+    try:
+        pool_.prepare_to_encode(
+            w, H, enums.PixelFormat[fmt],
+            encoding_flags=enums.EncodingFlags(2 if gop else 0),
+            use_device=use_device)
+    except enums.CFHDError as e:
+        return int(e.code)
+    return pool_.use_device
+
+
+@pytest.mark.parametrize("gop", [False, True])
+@pytest.mark.parametrize("use_device", [None, True, False])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_routing_equals_the_jax_pool(fmt, use_device, gop):
+    """Every input format, `use_device` None, True and False, with and
+    without the 2-frame GOP, at 64 and 96 wide (V210's rule): the port's
+    pool and the JAX pool take the same route or raise the same
+    ErrorCode.  Nothing is encoded."""
+    for w in (64, 96):
+        got = _route(api, api.CFHD_CreateEncoderPool(1, 1, device="cpu"),
+                     fmt, use_device, gop, w)
+        want = _route(japi, japi.CFHD_CreateEncoderPool(1, 1), fmt,
+                      use_device, gop, w)
+        assert got == want, w
 
 
 def test_encoder_pool_wait_blocks_for_the_next_submission():
