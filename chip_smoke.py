@@ -227,7 +227,29 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     byte-equal to the unsharded `encode_batch_device`; it fails unless
     each path launched exactly the DWT, `chunk_pack` and `merge_network`
     launches of its encodes;
-15. fails if a module of the JAX package was imported.
+15. runs the decoder's error tolerance: first, not counted, the two
+    decoder merge forms against their plain versions on the band rows of
+    the 24 corrupt 1080p corpus cases below that the device route takes,
+    and on
+    hostile rows (displacements anywhere in int32, negative, past n; any
+    targets), with the rows that took the network branch; then, with the
+    launch counts set to 0, the 160x120 YUY2 q4 corpora of the CPU tests
+    (`tools/diff_fuzz.py`'s mutations, seed 0 with 200 cases and seed 7
+    with 150, and one tag value changed for each decoder rule,
+    `diff_fuzz.targeted`) and 40 mutations of the 1080p golden (each rule,
+    and 24 of seed 15, a case of each class) through `api.Decoder` on the
+    card, each outcome (the same bytes, or a CFHDError both times) equal
+    to the port's on the CPU through its host entropy route, with a
+    synchronize after each case, no decode over 10 s and no rejection
+    caused by a lookup or device error; a `DecoderPool` batch of 8 with
+    corrupt samples among pristine ones, each job given the sync
+    Decoder's outcome; `cfhd_tool fuzz` at its defaults (the JAX tool's
+    counts) and `cfhd_tool roundtrip` at 1920x1080; then the golden and
+    the batch must still decode byte-equal with no frame falling back;
+    it prints the counts by corpus, class and outcome and the phase's
+    seconds, and fails unless the phase launched every encode and decode
+    kernel of its path;
+16. fails if a module of the JAX package was imported.
 
 It uses one card: where more are visible it keeps the first.  It imports
 only the port, `cineform_tpu_torch`.
@@ -237,7 +259,10 @@ and `{"ok": true, "device": {...}}`.  Any failure exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -376,6 +401,13 @@ PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
 # the spin kernel in front of a call that `device_ms` times: 10^7 cycles,
 # about 5 ms at the card's clock, far longer than any timed call's host path
 SPIN_CYCLES = 10_000_000
+#: the SHA-256 of the 160x120 YUY2 q4 sample of `tools/diff_fuzz.py`, whose
+#: corpora `tests/test_torch_diff_fuzz*.py` decode on the CPU
+CORPUS_SHA256 = ("0c32dd698e8d9df2af21fbd8355c561f"
+                 "e9d42bec85961aa3971f2aebd685a222")
+#: `cfhd_tool fuzz` at its defaults, as the JAX tool prints it
+#: (`tests/test_torch_cfhd_tool.py`)
+FUZZ_LINE = "fuzz: 44 decoded, 6 rejected cleanly, 0 crashes"
 
 
 def log(msg: str) -> None:
@@ -552,7 +584,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: run it from the root of a checkout")
     sys.path.insert(0, ROOT)
 
-    from cineform_tpu_torch import _build, api
+    from cineform_tpu_torch import _build, api, cfhd_tool, diff_fuzz
     from cineform_tpu_torch.entropy import device as edev
     from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models.gop import GopCodec
@@ -626,7 +658,8 @@ def main() -> int:
             mode="level 1 from the YUY2 bytes (the unpack fused), Y, V, U "
                  "in one launch, bands in the entropy coder's layout",
             ops_per_elem=40,
-            paths=("yuy2", "encoder_inputs", "pool_workers", "mesh"),
+            paths=("yuy2", "encoder_inputs", "pool_workers", "mesh",
+                   "robustness"),
             library_note=dwt_library),
         "dwt_forward_groups": dict(
             wrapper=dwt_forward_groups, route="cuda", source=dwt_src,
@@ -637,7 +670,7 @@ def main() -> int:
                  "level 1 of UYVY, YU64 and V210 from the group buffers the "
                  "plain unpack builds", ops_per_elem=40,
             paths=("yuy2", "yuv10", "encoder_inputs", "pool_workers",
-                   "mesh"),
+                   "mesh", "robustness"),
             library_note=dwt_library,
             ms_covers=f"levels 2 and 3 of one batch-{BATCH} 1080p YUY2 "
                       "encode"),
@@ -659,14 +692,14 @@ def main() -> int:
             replaces="cineform_tpu/ops/pallas_pack.py:135",
             ops_per_elem=8 * 16,
             paths=ALL_PATHS + ("encoder_inputs", "bayer_develop",
-                               "pool_workers", "mesh")),
+                               "pool_workers", "mesh", "robustness")),
         "merge_network": dict(
             wrapper=merge_network, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="low-bit-first (encoder concat): guarded OR placement, "
                  "network on flagged rows", ops_per_elem=20,
             paths=ALL_PATHS + ("encoder_inputs", "bayer_develop",
-                               "pool_workers", "mesh")),
+                               "pool_workers", "mesh", "robustness")),
         "merge_network_tgt": dict(
             wrapper=merge_network_tgt, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -676,7 +709,7 @@ def main() -> int:
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
                                "geometry", "encoder_inputs", "bayer_develop",
-                               "stereo_composite")),
+                               "stereo_composite", "robustness")),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
@@ -685,7 +718,7 @@ def main() -> int:
             ms_covers=decode_calls, ops_per_elem=12,
             paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
                                "geometry", "encoder_inputs", "bayer_develop",
-                               "stereo_composite")),
+                               "stereo_composite", "robustness")),
     }
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
@@ -3569,6 +3602,271 @@ def main() -> int:
         f"{time.perf_counter() - t_phase:.3f} s ({the_card})")
     del scan, sdi, want_fs1, want_fs2, want_sdi, want_yuy2, want8, want7
 
+    # --- 15. the decoder's error tolerance ---------------------------------
+    t_phase = time.perf_counter()
+    gold = golden("cfhd")
+    launches_robust = dict.fromkeys(kernels, 0)
+    cpu = torch.device("cpu")
+    merge_forms = ("merge_network_tgt", "merge_network_highfirst")
+    tally = {}                  # (corpus, class, outcome) -> cases
+    slowest = [0.0, ""]
+
+    def outcome(sample, device):
+        """(the frame's bytes or None, the CFHDError or None) of
+        `sample` through `api.Decoder(device)` as the fuzzers decode it;
+        fails on any other exception, or on a rejection whose cause is
+        not deliberate (a lookup or device error relabelled)."""
+        d = api.Decoder(device)
+        try:
+            d.prepare_to_decode(0, 0, sample=sample)
+            out = d.decode_sample(sample)
+        except api.CFHDError as exc:
+            if isinstance(exc.__cause__, (KeyError, IndexError,
+                                          RuntimeError)):
+                raise AssertionError(f"a rejection on {device} caused by "
+                                     f"{exc.__cause__!r}") from exc
+            return None, exc
+        return (None if out is None else
+                np.ascontiguousarray(out).tobytes()), None
+
+    def host_route_outcome(sample):
+        """The port's outcome on the CPU with every intra frame decoded
+        by the host entropy route (`decode_checked`'s host route: the C++
+        entropy decoder, which the device route equals by the codec's own
+        semantics; the plain device route, which the CPU tests hold
+        against the JAX API, would take seconds a case at 1080p)."""
+        real = api.screen
+        api.screen = lambda c, info: real(c, info) or (0,)
+        try:
+            return outcome(sample, cpu)
+        finally:
+            api.screen = real
+
+    def held(name, case, cls, sample, want):
+        """`sample` on the card against `want`, its CPU outcome: the same
+        bytes, or a rejection both times; no decode over 10 s and no CUDA
+        error (a synchronize after each case)."""
+        t0 = time.perf_counter()
+        got, err = outcome(sample, dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if sec > slowest[0]:
+            slowest[:] = [sec, f"{name} case {case}"]
+        if sec > 10:
+            raise AssertionError(f"{name} case {case}: the decode took "
+                                 f"{sec:.3f} s")
+        if got != want[0]:
+            raise AssertionError(
+                f"{name} case {case} ({cls}): the card's outcome "
+                f"{'a reject' if got is None else 'a frame'} ({err}) "
+                f"differs from the CPU's "
+                f"{'a reject' if want[0] is None else 'a frame'} "
+                f"({want[1]})")
+        key = (name, cls, "rejected" if got is None else "decoded")
+        tally[key] = tally.get(key, 0) + 1
+        return got, err
+
+    # the 160x120 YUY2 q4 sample of tools/diff_fuzz.py, and its corpora of
+    # tests/test_torch_diff_fuzz*.py (seed 0, 200 cases; seed 7, 150)
+    small = IntraCodec(160, 120, 4, device=dev).encode_batch_device(
+        np.frombuffer(yuy2_frame(160, 120, 1), np.uint8).reshape(
+            1, 120, 320))[0]
+    if hashlib.sha256(small).hexdigest() != CORPUS_SHA256:
+        raise AssertionError("the 160x120 corpus sample differs from the "
+                             "CPU tests' (tests/test_torch_diff_fuzz.py)")
+    cases = [(f"160x120 seed {seed}", case, cls, m)
+             for seed, n in ((0, 200), (7, 150))
+             for case, cls, m in diff_fuzz.corpus(small, n, seed)]
+    cases += [("160x120 rules", rule, "header", m)
+              for rule, m in diff_fuzz.targeted(small)]
+    t0 = time.perf_counter()
+    small_want = [host_route_outcome(m) for *_, m in cases]
+    cpu_sec = time.perf_counter() - t0
+    # 1080p: the golden's targeted rules and a corpus of seed 15 with a
+    # case of each class
+    big = [(f"{GOLDEN} rules", rule, "header", m)
+           for rule, m in diff_fuzz.targeted(gold)]
+    big_corpus = diff_fuzz.corpus(gold, 40, 15)
+    classes = {cls for _, cls, _ in big_corpus}
+    if classes != {"payload", "structure", "header"}:
+        raise AssertionError(f"the 1080p corpus holds only {classes}")
+    big += [(f"{GOLDEN} seed 15", case, cls, m)
+            for case, cls, m in big_corpus[:24]]
+    t0 = time.perf_counter()
+    big_want = [host_route_outcome(m) for *_, m in big]
+    cpu_sec += time.perf_counter() - t0
+
+    # the decoder merge forms on the device route's rows of the corrupt
+    # 1080p corpus (a rule's case keeps the golden's payloads, which phase
+    # 2 checks) and on hostile rows (not counted)
+    log("kernel checks, the corrupt 1080p corpus' band rows and hostile "
+        "rows (tolerance 0)")
+    network_rows = dict.fromkeys(merge_forms, 0)
+    rows_checked = 0
+    for name, case, cls, m in big[-24:]:
+        c = api.intra_codec(WIDTH, HEIGHT, api.DECODE_QUALITY, "YUY2", dev)
+        rows = c._decode_rows_args([m])
+        if rows[-1]:
+            continue                    # the frame takes the host route
+        for ci, (lev, planes) in enumerate(c._DECODE_CLASSES):
+            bh, _, pitch = c._class_dims(lev, planes)
+            slots = ddec.band_slots(rows[0][ci], rows[1][ci], rows[2][ci],
+                                    rows[3][ci], bh * pitch)
+            val, rem, tgt = ddec.compact_inputs(*slots[:3])
+            varr = darr = None
+            for form, args in (("merge_network_tgt", (val, rem, tgt)),
+                               ("merge_network_highfirst", None)):
+                w = kernels[form]["wrapper"]
+                if args is None:
+                    args = ddec.spread_inputs(comp[2], comp[0], bh * pitch)
+                    varr, darr = args
+                plain = (edev._settle_network_tgt if form == merge_forms[0]
+                         else edev._settle_network_highfirst)
+                before = int(w.flagged[dev].item())
+                got = w(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                network_rows[form] += int(w.flagged[dev].item()) - before
+                err = max_abs_err(torch, flat(got), flat(want))
+                if err:
+                    raise AssertionError(f"{form} on {name} case {case} "
+                                         f"class {ci}: max abs err {err}")
+                if form == merge_forms[0]:
+                    comp = got
+            rows_checked += val.shape[0]
+        del rows, slots, val, rem, tgt, varr, darr, comp
+    rng = np.random.default_rng(15)
+    hostile_rows = 0
+    for n in (5000, 70001):
+        kinds = [(-(1 << 31), 1 << 31), (-n - 9, 0), (n, 2 * n + 9),
+                 (-9, n + 9)]
+        val = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (8, n)).astype(np.int32)).to(dev)
+        rem = torch.from_numpy(np.stack([
+            rng.integers(*kinds[r % 4], n) for r in range(8)]).astype(
+                np.int32)).to(dev)
+        tgt = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (8, n)).astype(np.int32)).to(dev)
+        for form, args in (("merge_network_tgt", (val, rem, tgt)),
+                           ("merge_network_highfirst", (val, rem))):
+            w = kernels[form]["wrapper"]
+            before = int(w.flagged[dev].item())
+            got = w(*args)
+            plain = (edev._settle_network_tgt if form == merge_forms[0]
+                     else edev._settle_network_highfirst)
+            err = max_abs_err(torch, flat(got), flat(plain(*args)))
+            torch.cuda.synchronize()
+            network_rows[form] += int(w.flagged[dev].item()) - before
+            if err:
+                raise AssertionError(f"{form} on hostile rows of {n} slots: "
+                                     f"max abs err {err}")
+        hostile_rows += 8
+    del val, rem, tgt, got
+    log(f"  merge_network_tgt and merge_network_highfirst: max_abs_err 0 "
+        f"on {rows_checked} band rows of the corrupt 1080p corpus cases the "
+        f"device route takes and on {hostile_rows} hostile rows a form (rem "
+        f"anywhere in int32, negative, past n); rows through the network "
+        f"branch {network_rows}")
+
+    # the path: every case on the card against its CPU outcome, the pool,
+    # the command line
+    reset_counts()
+    t0 = time.perf_counter()
+    for (name, case, cls, m), want in zip(cases + big,
+                                          small_want + big_want):
+        held(name, case, cls, m, want)
+    card_sec = time.perf_counter() - t0
+    # a DecoderPool batch of 8: corrupt samples among pristine ones, each
+    # job given what the sync Decoder gives its sample
+    batch_samples = codec.encode_batch_device(frames, metadata=meta)
+    batch_want = codec.decode_batch(batch_samples)
+    picked = {"rejected": [], "host": [], "device": []}
+    for (name, case, cls, m), want in zip(big, big_want):
+        kind = ("rejected" if want[0] is None else
+                "host" if name.endswith("rules") else "device")
+        picked[kind].append((f"{name} {case}", m, want[0]))
+    jobs = [(f"batch frame {i}", s_, w.tobytes())
+            for i, (s_, w) in enumerate(zip(batch_samples, batch_want))]
+    jobs[1], jobs[6] = picked["rejected"][:2]
+    jobs[3], jobs[4] = picked["host"][0], picked["device"][0]
+    # the fallback frames the sync Decoder counts for the same samples
+    want_fallback = 0
+    for _, s_, want in jobs:
+        d = api.Decoder(dev)
+        if want is not None:
+            d.prepare_to_decode(0, 0, sample=s_)
+            d.decode_sample(s_)
+            want_fallback += d.fallback_frames
+    p = DecoderPool(2, 16, device=dev)
+    p.prepare_to_decode(WIDTH, HEIGHT)
+    p.start()
+    for i, (_, s_, _) in enumerate(jobs):
+        p.decode_async_sample(i + 1, s_)
+    pool_outcomes = []
+    for what, _, want in jobs:
+        try:
+            got = p.wait_for_frame(timeout=600).data.tobytes()
+        except api.CFHDError as exc:
+            got = None
+            if exc.code != api.ErrorCode.BADSAMPLE:
+                raise
+        if got != want:
+            raise AssertionError(f"DecoderPool job {what}: outcome differs "
+                                 "from the sync Decoder's")
+        pool_outcomes.append("rejected" if got is None else "frame")
+    p.stop()
+    torch.cuda.synchronize()
+    if p.batches != [8] or p.fallback_frames != want_fallback:
+        raise AssertionError(f"DecoderPool: batches {p.batches}, fallback "
+                             f"frames {p.fallback_frames}: expected [8], "
+                             f"{want_fallback} (the sync Decoder's)")
+    # the command line: fuzz at its defaults, roundtrip at 1920x1080
+    lines = {}
+    for argv in (["fuzz"], ["roundtrip"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cfhd_tool.main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        lines[argv[0]] = buf.getvalue().strip()
+        if rc:
+            raise AssertionError(f"cfhd_tool {argv[0]} exited {rc}: "
+                                 f"{lines[argv[0]]}")
+    if lines["fuzz"] != FUZZ_LINE:
+        raise AssertionError(f"cfhd_tool fuzz printed {lines['fuzz']!r}, "
+                             f"not {FUZZ_LINE!r} (the JAX tool's counts)")
+    if not lines["roundtrip"].startswith(f"{WIDTH}x{HEIGHT} q4: sample "):
+        raise AssertionError(f"cfhd_tool roundtrip: {lines['roundtrip']!r}")
+    book(launches_robust)
+    path = [n for n, k in kernels.items() if "robustness" in k["paths"]]
+    if not all(launches_robust[n] for n in path):
+        raise AssertionError(f"the robustness phase launched "
+                             f"{launches_robust}: expected each of {path}")
+    # the context is alive: the golden and the batch decode as before
+    out, fallback = golden_codec.decode_batch_device([gold])
+    if fallback or out.tobytes() != golden("yuy2"):
+        raise AssertionError(f"after the corpus the 1080p golden decodes "
+                             f"differently (fallback {fallback})")
+    out, fallback = codec.decode_batch_device(batch_samples)
+    torch.cuda.synchronize()
+    if fallback or out.tobytes() != batch_want.tobytes():
+        raise AssertionError(f"after the corpus the batch decodes "
+                             f"differently (fallback {fallback})")
+    log("robustness: " + "; ".join(
+        f"{name} {cls} {kind} {n}" for (name, cls, kind), n in
+        sorted(tally.items())))
+    log(f"robustness: {len(cases)} 160x120 and {len(big)} 1080p cases, "
+        f"each outcome on the card equal to the port's on the CPU through "
+        f"its host entropy route (CPU "
+        f"{cpu_sec:.3f} s, card {card_sec:.3f} s; slowest card decode "
+        f"{slowest[0]:.4f} s, {slowest[1]}); DecoderPool batch of 8 with "
+        f"corrupt jobs {pool_outcomes}, fallback frames {p.fallback_frames};"
+        f" cfhd_tool fuzz: {lines['fuzz']!r}; cfhd_tool roundtrip: "
+        f"{lines['roundtrip']!r}; after the corpus the golden and the batch "
+        f"decode byte-equal with 0 fallback frames; launches "
+        f"{launches_robust}; phase {time.perf_counter() - t_phase:.3f} s "
+        f"({the_card})")
+    del cases, big, small_want, big_want, batch_samples, batch_want, jobs
+
     jax_modules = sorted(m for m in sys.modules
                          if m.split(".")[0] in ("cineform_tpu", "jax"))
     if jax_modules:
@@ -3586,7 +3884,8 @@ def main() -> int:
                "encoder_inputs": launches_inputs,
                "bayer_develop": launches_develop,
                "stereo_composite": launches_composite,
-               "pool_workers": launches_workers, "mesh": launches_mesh}
+               "pool_workers": launches_workers, "mesh": launches_mesh,
+               "robustness": launches_robust}
     log(json.dumps({"kernels": [
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],

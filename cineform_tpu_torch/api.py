@@ -296,11 +296,33 @@ def intra_codec(width: int, height: int, quality: int, fmt: str,
                 device: torch.device, fs_rate_limiter: int | None = None,
                 custom_quant: tuple | None = None,
                 convert: tuple[int, int] | None = None,
-                quality_tag: int | None = None) -> IntraCodec:
+                quality_tag: int | None = None,
+                precision: int | None = None) -> IntraCodec:
     return IntraCodec(width, height, quality, device=device,
                       input_format=fmt, fs_rate_limiter=fs_rate_limiter,
                       custom_quant=custom_quant, convert=convert,
-                      quality_tag=quality_tag)
+                      quality_tag=quality_tag, precision=precision)
+
+
+def screen(codec: IntraCodec, info) -> tuple[int, ...]:
+    """The JAX API's accept/reject rules for an intra sample's parse
+    `info`, decoded by `codec` at full resolution, applied before any device
+    work (`IntraCodec.screen`): CFHDError(BADSAMPLE) where the JAX host
+    decoder rejects the sample; `decode_batch_device`'s `host`, (0,) where
+    the frame takes the host route, () where the device route reads it."""
+    try:
+        return () if codec.screen(info) else (0,)
+    except intra_host.BadSampleError as exc:
+        raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
+
+
+def device_fault(exc: BaseException) -> bool:
+    """Whether `exc` is an error of the CUDA runtime (a device-side assert,
+    a launch failure), which no sample causes: the decoder lets it through
+    instead of reporting a bad sample."""
+    fault = getattr(torch, "AcceleratorError", None)
+    return (fault is not None and isinstance(exc, fault)) or (
+        isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error"))
 
 
 @functools.lru_cache(maxsize=16)
@@ -816,10 +838,12 @@ class Decoder:
         def blend_with_left(right: torch.Tensor) -> torch.Tensor:
             return stereo.blend_eyes(left["eye"], right, blend)[0]
 
+        host = [screen(codec, parse_sample(eye)) for eye in eyes[:2]]
         _, fb_left = codec.decode_batch_device([eyes[0]], output="YUY2",
-                                               then=keep)
+                                               then=keep, host=host[0])
         out, fb_right = codec.decode_batch_device(
-            [eyes[1]], frame_index=1, output="YUY2", then=blend_with_left)
+            [eyes[1]], frame_index=1, output="YUY2", then=blend_with_left,
+            host=host[1])
         self.fallback_frames += len(fb_left) + len(fb_right)
         return np.ascontiguousarray(out[0]).reshape(-1)
 
@@ -907,11 +931,15 @@ class Decoder:
         resolution; `output` names it where the caller has checked it,
         `then` runs on the decoded frame on the device."""
         codec = intra_codec(info0.width * scale, info0.height * scale,
-                            DECODE_QUALITY, fmt, self.device)
+                            DECODE_QUALITY, fmt, self.device,
+                            precision=info0.precision)
+        host = ()
+        if self.resolution == DecodedResolution.FULL:
+            host = screen(codec, info0)
         out, fallback = codec.decode_batch_device(
             [sample], output=output or self._output(kind),
             develop=None if develop is None else [develop],
-            resolution=int(self.resolution), then=then)
+            resolution=int(self.resolution), then=then, host=host)
         self.fallback_frames += len(fallback)
         return out[0]
 
@@ -948,10 +976,10 @@ class Decoder:
                 [sample], "YU64", frame, scale)
         else:
             codec = intra_codec(info.width, info.height, DECODE_QUALITY,
-                                "YUY2", self.device)
-            out, fallback = codec.decode_batch_device([sample],
-                                                      output="YU64",
-                                                      then=scale)
+                                "YUY2", self.device, precision=info.precision)
+            out, fallback = codec.decode_batch_device(
+                [sample], output="YU64", then=scale,
+                host=screen(codec, info))
         self.fallback_frames += len(fallback)
         return out[0]
 
@@ -1083,6 +1111,8 @@ class Decoder:
         except CFHDError:
             raise
         except Exception as exc:
+            if device_fault(exc):
+                raise
             raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
 
     def _decode_route(self, sample: bytes, info0, then=None) -> np.ndarray:

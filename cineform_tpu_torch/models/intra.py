@@ -48,7 +48,7 @@ stage runs eagerly, once per call; there is no tracing or staging.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import lru_cache
 
 import numpy as np
@@ -231,7 +231,10 @@ class IntraCodec:
     place of the quality presets, in the quantizers and the band headers;
     `convert`, a YUY2 codec's (limit_yuv, conv_601_709) LYUV/CV67 input
     transform; `quality_tag`, the QUALITY_L its samples are labelled
-    with in place of `quality` (`intra_host.relabel_quality`)."""
+    with in place of `quality` (`intra_host.relabel_quality`).  A decoder's
+    option: `precision`, the PRECISION of the samples it decodes where it is
+    not the format's (the JAX host decoder takes the inverse's prescale and
+    the 16-bit outputs' shifts from the sample's tag)."""
 
     width: int
     height: int
@@ -242,6 +245,7 @@ class IntraCodec:
     custom_quant: tuple | None = None
     convert: tuple[int, int] | None = None
     quality_tag: int | None = None
+    precision: int | None = None
 
     def __post_init__(self):
         if self.input_format not in _DEVICE_FORMATS:
@@ -270,14 +274,21 @@ class IntraCodec:
                       fs_rate_limiter=self.fs_rate_limiter,
                       custom_quant=self.custom_quant)
         if self.encoded == "YUV":
-            return IntraParams(width=self.width, height=self.height, **common)
-        if self.encoded == "BAYER":
-            return IntraParams(width=self.width // 2, height=self.height // 2,
-                               precision=tags.PRECISION_12BIT,
-                               chroma_full_res=True, rgb_quality=3, **common)
-        return IntraParams(width=self.width, height=self.height,
-                           precision=tags.PRECISION_12BIT,
-                           chroma_full_res=self.encoded != "RGBA", **common)
+            params = IntraParams(width=self.width, height=self.height,
+                                 **common)
+        elif self.encoded == "BAYER":
+            params = IntraParams(width=self.width // 2,
+                                 height=self.height // 2,
+                                 precision=tags.PRECISION_12BIT,
+                                 chroma_full_res=True, rgb_quality=3, **common)
+        else:
+            params = IntraParams(width=self.width, height=self.height,
+                                 precision=tags.PRECISION_12BIT,
+                                 chroma_full_res=self.encoded != "RGBA",
+                                 **common)
+        if self.precision is None:
+            return params
+        return replace(params, precision=self.precision)
 
     @property
     def num_channels(self) -> int:
@@ -846,18 +857,55 @@ class IntraCodec:
                   if output == "RG24" else None)
         return yout.pack(output, *planes, rg24_dither=dither)
 
-    def host_entropy_decode(self, samples: list[bytes],
-                            resolution: int = 1):
-        """Parse the samples and entropy-decode every band on the host (C++
-        decoder); returns the batched per-channel (lowpass, bands) int32
-        tensors on the device.  A reduced `resolution` decodes only the
-        bands of the levels k >= resolution - 1, as the JAX package's
-        `decode_sample_scaled` does, and gives None for the others."""
+    def lowpass_dims(self) -> tuple[int, tuple[int, ...]]:
+        """(lh, per-channel lw): the lowpass dims of the codec's samples."""
+        return (self.params.height >> 3,
+                tuple(self.plane_width(ch) >> 3
+                      for ch in range(self.num_channels)))
+
+    def screen(self, s) -> bool:
+        """The JAX API's accept/reject rules for a parsed intra sample `s`
+        at full resolution, before any device work: raises BadSampleError
+        where the JAX host decode rejects it (`intra_host.intra_channels`
+        and `wavelet_band_plan` on every channel; a frame of another size
+        than this codec's, which the JAX API's output size check refuses).
+        Returns True where the device route reads every band as
+        `collect_wavelet_bands` does (`intra_host.regular_bands`), False
+        where the frame takes the host route (`decode_checked`'s `host`)."""
+        channels = intra_host.intra_channels(s)
+        plans = [intra_host.wavelet_band_plan(c) for c in channels]
+        lh, lws = self.lowpass_dims()
+        dims = (self.params.height, *(self.plane_width(ch)
+                                      for ch in range(self.num_channels)))
+        if len(channels) != self.num_channels or any(
+                c.lowpass.shape != (lh, lw)
+                for c, lw in zip(channels, lws)) or any(
+                d % 8 for d in dims):
+            raise intra_host.BadSampleError(
+                f"{len(channels)} channels of lowpass "
+                f"{[c.lowpass.shape for c in channels]}: not a "
+                f"{self.width}x{self.height} frame")
+        return all(intra_host.regular_bands(c, placed)
+                   for c, (_, placed) in zip(channels, plans))
+
+    def _host_channels(self, sample: bytes, resolution: int = 1):
+        """One sample's per-channel (lowpass, bands) int32 arrays, entropy
+        decoded on the host (C++ decoder), bands[k] None for the levels a
+        `resolution` does not read.  At full resolution the bands are
+        collected by the JAX host decoder's rules (`screen`, then
+        `intra_host.collect_wavelet_bands`: missing bands zero, a
+        duplicate overwriting, the out-of-map and other-level bands
+        dropped, band slot 0 replacing the lowpass), and a sample that
+        they reject raises BadSampleError; a reduced resolution indexes
+        the bands as the JAX package's `decode_sample_scaled` does."""
         kmin = resolution - 1
-        per_frame = []
-        for sample in samples:
-            s = parse_sample(sample)
-            chans = []
+        s = parse_sample(sample)
+        if resolution == 1:
+            self.screen(s)
+            collected = [intra_host.collect_wavelet_bands(c)
+                         for c in s.channels]
+        else:
+            collected = []
             for c in s.channels:
                 bands: list[dict] = [dict() for _ in range(3)]
                 for b in c.bands:
@@ -870,18 +918,36 @@ class IntraCodec:
                         quant=b.quantization)
                     bands[widx][b.band] = vals.reshape(
                         b.height, pitchw)[:, :b.width]
-                # the reference's lowpass load bias at odd lowpass widths
-                # of the 8-bit output (`Codec/decoder.c:12479`), as the
-                # host oracle and the JAX device decoder apply it; the deep
-                # RGB paths take none (`decoder.c:12296-12319`)
-                lowpass = c.lowpass.astype(np.int32)
-                if self.encoded == "YUV":
-                    lowpass += intra_host.lowpass_channel_offset(
-                        c.lowpass.shape[1])
-                chans.append((lowpass,
-                              [(bands[k][1], bands[k][2], bands[k][3])
-                               if k >= kmin else None for k in range(3)]))
-            per_frame.append(chans)
+                collected.append((c.lowpass, [
+                    (bands[k][1], bands[k][2], bands[k][3])
+                    if k >= kmin else None for k in range(3)]))
+        chans = []
+        for lowpass, wb in collected:
+            # the reference's lowpass load bias at odd lowpass widths of
+            # the 8-bit output (`Codec/decoder.c:12479`), as the host
+            # oracle and the JAX device decoder apply it; the deep RGB
+            # paths take none (`decoder.c:12296-12319`)
+            lowpass = lowpass.astype(np.int32)
+            if self.encoded == "YUV":
+                lowpass += intra_host.lowpass_channel_offset(
+                    lowpass.shape[1])
+            chans.append((lowpass, wb))
+        return chans
+
+    def host_entropy_decode(self, samples: list[bytes],
+                            resolution: int = 1):
+        """Parse the samples and entropy-decode every band on the host (C++
+        decoder, `_host_channels`); returns the batched per-channel
+        (lowpass, bands) int32 tensors on the device.  A reduced
+        `resolution` decodes only the bands of the levels k >= resolution
+        - 1, as the JAX package's `decode_sample_scaled` does, and gives
+        None for the others."""
+        return self._batch_channels(
+            [self._host_channels(sample, resolution) for sample in samples],
+            resolution)
+
+    def _batch_channels(self, per_frame, resolution: int = 1):
+        kmin = resolution - 1
 
         def batched(arrays):
             return torch.from_numpy(
@@ -977,7 +1043,7 @@ class IntraCodec:
         return coeffs, ovf
 
     def _decode_rows_host(self, samples: list[bytes], walks=None,
-                          resolution: int = 1):
+                          resolution: int = 1, host=()):
         """Host header walk: samples -> per-class row tensors on the host
         (pinned when the codec's device is CUDA).  `walks`: the samples'
         `fastwalk.walk` results where the caller has them already.  The
@@ -989,8 +1055,9 @@ class IntraCodec:
         `decode_classes(resolution)` (rows ordered frame, channel, band),
         the lowpass planes (B, lh, lw) int32 with the decoder's lowpass
         bias, and the set of frame indices the device route does not take
-        (wrong dimensions, a band outside subbands 1-9, with peaks or with
-        an unaligned payload); those frames get empty rows.  The native
+        (those in `host`, the frames `screen` sends to the host route; wrong
+        dimensions, a band outside subbands 1-9, with peaks or with an
+        unaligned payload); those frames get empty rows.  The native
         walker finds the bands in one C pass per sample and copies their
         payloads straight into the row buffers."""
         batch = len(samples)
@@ -998,15 +1065,14 @@ class IntraCodec:
         nch = self.num_channels
         p = self.params
         kmin = resolution - 1
-        lh = p.height >> 3
-        lws = tuple(self.plane_width(ch) >> 3 for ch in range(nch))
+        lh, lws = self.lowpass_dims()
         #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
         parts: dict = {}
-        fallback = set()
+        fallback = set(host)
         if walks is None:
             walks = [fastwalk.walk(sample) for sample in samples]
         for i, r in enumerate(walks):
-            if r is None or (r.width, r.height) != (p.width, p.height) \
+            if i in fallback or r is None or (r.width, r.height) != (p.width, p.height) \
                     or r.nchannels != nch or 0 in r.lowpass_off \
                     or r.lowpass_h != (lh,) * nch or r.lowpass_w != lws:
                 fallback.add(i)
@@ -1076,47 +1142,67 @@ class IntraCodec:
         return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
                   for g in groups), fallback)
 
-    def _decode_rows_args(self, samples: list[bytes], resolution: int = 1):
+    def _decode_rows_args(self, samples: list[bytes], resolution: int = 1,
+                          host=()):
         """`_decode_rows_host` with its tensors uploaded to the device."""
         return self._upload_rows(self._decode_rows_host(
-            samples, resolution=resolution))
+            samples, resolution=resolution, host=host))
 
     def decode_checked(self, samples: list[bytes], finish, rows=None,
-                       resolution: int = 1):
+                       resolution: int = 1, host=(), errors=None):
         """The device route's one per-frame fallback: entropy-decode the
         samples on the device and run `finish(coeffs, frames)` (a batched
         device computation of `frames`' coefficients, `frames` a slice or
         a list of batch indices) on them; the frames the device route does
-        not take (wrong dimensions, a band outside subbands 1-9, with
-        peaks or an unaligned payload) or that overflow their device band
-        region get `finish` of their host-decoded coefficients
-        (`host_entropy_decode`) instead.  `finish` is queued before the
-        overflow flags are read, so the device runs on while the host
-        waits.  `rows`: the samples' `_decode_rows_args`, where the caller
-        has uploaded them already.  Both entropy decodes read only the
-        bands of `decode_classes(resolution)`.
+        not take (those in `host`, which `screen` sent there; wrong
+        dimensions, a band outside subbands 1-9, with peaks or an
+        unaligned payload) or that overflow their device band region get
+        `finish` of their host-decoded coefficients (`_host_channels`)
+        instead.  `finish` is queued before the overflow flags are read,
+        so the device runs on while the host waits.  `rows`: the samples'
+        `_decode_rows_args`, where the caller has uploaded them already
+        (with `host` applied).  Both entropy decodes read only the bands
+        of `decode_classes(resolution)`.
+
+        A frame whose host decode raises (a sample the JAX host decoder
+        rejects) raises here, or, where `errors` is a dict, puts its
+        exception in `errors[i]` and leaves no frame in its row.
 
         Returns (the downloaded result, fallback): fallback is the sorted
-        tuple of the frame indices that took the host entropy decode."""
+        tuple of the frame indices that took the host entropy decode; the
+        result is None where every frame's exception is in `errors`."""
         batch = len(samples)
-        *rows, fallback = rows or self._decode_rows_args(samples, resolution)
+        *rows, fallback = rows or self._decode_rows_args(samples, resolution,
+                                                         host)
         fallback = set(fallback)
-        if len(fallback) == batch:
-            return (_download(finish(self.host_entropy_decode(
-                samples, resolution), slice(None))), tuple(range(batch)))
-        coeffs, ovf = self.decode_coefficients(*rows, resolution)
-        out = _download(finish(coeffs, slice(None)))
-        fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+        if len(fallback) < batch:
+            coeffs, ovf = self.decode_coefficients(*rows, resolution)
+            out = _download(finish(coeffs, slice(None)))
+            fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
         fallback = tuple(sorted(fallback))
-        if fallback:
-            host = self.host_entropy_decode([samples[i] for i in fallback],
-                                            resolution)
-            out[list(fallback)] = _download(finish(host, list(fallback)))
+        decoded = {}
+        for i in fallback:
+            try:
+                decoded[i] = self._host_channels(samples[i], resolution)
+            except Exception as exc:
+                if errors is None:
+                    raise
+                errors[i] = exc
+        if decoded:
+            got = _download(finish(self._batch_channels(
+                list(decoded.values()), resolution), list(decoded)))
+            if len(decoded) == batch:
+                return got, fallback
+            if len(fallback) == batch:
+                out = np.zeros((batch, *got.shape[1:]), got.dtype)
+            out[list(decoded)] = got
+        elif len(fallback) == batch:
+            return None, fallback
         return out, fallback
 
     def decode_batch_device(self, samples: list[bytes], frame_index: int = 0,
                             output: str | None = None, develop=None,
-                            resolution: int = 1, then=None):
+                            resolution: int = 1, then=None, host=()):
         """Decode CFHD samples with the band entropy decode, the inverse
         DWT and the output on the device; the host only walks sample
         headers and copies payloads.  The output, `develop` and
@@ -1124,7 +1210,8 @@ class IntraCodec:
         entropy-decodes only the bands it reads.  `then`, where given, is
         a function of the decoded batch on the device (as `inverse_output`
         gives it) that runs there before the download: the decoder's
-        geometry stage (a scale or a warp).
+        geometry stage (a scale or a warp).  `host`: the indices of the
+        frames that `screen` sends to the host route.
 
         Returns (frames, fallback): fallback is the sorted tuple of the
         frame indices that `decode_checked` decoded on the host entropy
@@ -1143,4 +1230,5 @@ class IntraCodec:
                  else [develop[i] for i in frames]), resolution)
             return out if then is None else then(out)
 
-        return self.decode_checked(samples, finish, resolution=resolution)
+        return self.decode_checked(samples, finish, resolution=resolution,
+                                   host=host)

@@ -6,8 +6,10 @@ sample writer for a 4:2:2, RGB 4:4:4, RGBA 4:4:4:4 or Bayer intra frame,
 the uncompressed passthrough's sample writer, its per-frame decision and
 its fallback frames' quality label, the host band encoder (the C++
 coder, for bands that overflow the device's capacity, and the two-frame
-group's coder), the decoder's lowpass offsets and the R408 output's
-dither lanes.  Its samples equal the
+group's coder), the decoder's lowpass offsets, the R408 output's
+dither lanes, and the decoder's error tolerance: the reference's
+accept/reject rules for a sample's channels and bands
+(`intra_channels`, `collect_wavelet_bands`).  Its samples equal the
 reference SDK's byte for byte (tests/golden/samples).
 
 Sample layout contract: `Codec/encoder.c:7461-7885` (EncodeQuantizedGroup,
@@ -435,3 +437,150 @@ def lowpass_offset_absolute(lowpass_width: int, deep_yuv: bool,
 #: takes the other, and the patterns swap on odd rows
 _R408_DITHER_EVEN = np.array([2, 30, 6, 26, 10, 22, 14, 18], np.int64)
 _R408_DITHER_ODD = np.array([18, 14, 22, 10, 26, 6, 30, 2], np.int64)
+
+
+class BadSampleError(ValueError):
+    """Raised when a sample fails a validation the reference decoder
+    enforces (it returns CFHD_ERROR_CODEC_ERROR); api.Decoder wraps this
+    into CFHDError(BADSAMPLE)."""
+
+
+#: intra subband -> wavelet index (`Codec/decoder.c:11596`); subbands
+#: 10..16 are legal tag values (CODEC_MAX_SUBBANDS) that route past the
+#: intra map — the reference decodes them into an out-of-map wavelet that
+#: reconstruction never reads, so their content is dropped.
+_INTRA_SUBBAND_WAVELET = {**{sb: 2 for sb in (1, 2, 3)},
+                          **{sb: 1 for sb in (4, 5, 6)},
+                          **{sb: 0 for sb in (7, 8, 9)},
+                          **{sb: None for sb in range(10, 17)}}
+
+
+def intra_channels(s):
+    """Channels in stream order, validated like the reference: a channel
+    header whose number breaks the 0,1,2,... sequence is a bad frame
+    (`DecodeSampleChannelHeader`, `Codec/decoder.c:11894`)."""
+    if not s.channels:
+        raise BadSampleError("no channels")
+    for i, c in enumerate(s.channels):
+        if c.channel != i:
+            raise BadSampleError(f"channel header {c.channel} != {i}")
+    if s.end_marker is not None and s.end_marker >> 8 != 0x0C:
+        # the frame-end MARKER's high value byte is validated by the
+        # reference (low byte is not -- pinned by tools/diff_fuzz.py)
+        raise BadSampleError(f"frame end marker {s.end_marker:#06x}")
+    return s.channels
+
+
+def wavelet_band_plan(c):
+    """`collect_wavelet_bands`' accept/reject rules for one intra channel,
+    without its entropy decode: raises BadSampleError where it does.
+
+    Returns (expected, placed): expected[k] is wavelet k's band dims (k = 0
+    finest .. 2 coarsest, from the lowpass dims), and placed lists, in
+    stream order, (band, k, quantization) of the bands that are decoded
+    into place (the out-of-map subbands and the bands with another level's
+    dims are left out).
+    """
+    if c.lowpass is None:
+        raise BadSampleError(f"channel {c.channel}: no lowpass band")
+    if c.num_levels != 3:
+        raise BadSampleError(f"channel {c.channel}: NUM_LEVELS "
+                             f"{c.num_levels} != 3")
+    if not 1 <= ((c.lowpass_quant + 0x8000) % 0x10000) - 0x8000:
+        raise BadSampleError(f"lowpass quantization {c.lowpass_quant}")
+    if len(c.bands) < 9:
+        # a channel cut short mid-walk: the reference hits end-of-stream
+        # (or the next channel header) before its subband count is met
+        raise BadSampleError(
+            f"channel {c.channel}: {len(c.bands)} of 9 highpass bands")
+    lh, lw = c.lowpass.shape
+    expected = {2: (lh, lw), 1: (2 * lh, 2 * lw), 0: (4 * lh, 4 * lw)}
+    placed = []
+    for b in c.bands:
+        if b.truncated:
+            # a band chunk that extends past the sample end: the
+            # reference's tag walk hits end-of-stream mid-band and
+            # errors (`GetSegment` BITSTREAM_ERROR, decoder.c:11627)
+            raise BadSampleError(f"subband {b.subband} band truncated")
+        if b.data[-4:] != b"\x00\x38\x00\x00":
+            # after the band-end codeword the reference scans for the
+            # (BAND_TRAILER, 0) pair and validates it exactly
+            # (`DecodeBandTrailer` IsTagValue, `Codec/codec.c:2614`)
+            raise BadSampleError(f"subband {b.subband} band trailer")
+        if not 1 <= b.subband <= 16:
+            raise BadSampleError(f"subband {b.subband} out of range")
+        if not 0 <= b.band <= 3:
+            raise BadSampleError(f"band number {b.band} out of range")
+        if b.encoding != 3:
+            raise BadSampleError(f"band encoding {b.encoding} != runlengths")
+        quant = ((b.quantization + 0x8000) % 0x10000) - 0x8000
+        if quant < 1:
+            raise BadSampleError(f"band quantization {b.quantization}")
+        widx = _INTRA_SUBBAND_WAVELET[b.subband]
+        if widx is None:
+            continue                      # out-of-map: decoded then dropped
+        if (b.height, b.width) != expected[widx]:
+            if (b.height, b.width) in expected.values():
+                # a rerouted subband number carrying another level's dims:
+                # the reference reallocs the target wavelet to these dims
+                # and the level's real bands realloc it back, wiping the
+                # content -- the band data is effectively dropped
+                continue
+            raise BadSampleError(
+                f"subband {b.subband} dims {b.width}x{b.height} != "
+                f"wavelet dims {expected[widx][1]}x{expected[widx][0]}")
+        placed.append((b, widx, quant))
+    return expected, placed
+
+
+def regular_bands(c, placed) -> bool:
+    """Whether `collect_wavelet_bands` reads channel `c` as the device
+    route does (`IntraCodec._decode_rows_host`): each of its bands placed
+    once, in slots 1-3 of wavelets 0-2 -- no band dropped, duplicated or
+    left missing, and none overwriting the lowpass."""
+    return (len(placed) == len(c.bands) == 9
+            and len({(k, b.band) for b, k, _ in placed}) == 9
+            and all(b.band >= 1 for b, _, _ in placed))
+
+
+def collect_wavelet_bands(c, *, codeset: int = 17):
+    """ERROR_TOLERANT band collection for one intra channel, pinned
+    against the reference binary's accept/reject behavior on corrupted
+    headers (`Codec/decoder.c:11920` DecodeSampleSubband + the FSM loop
+    `decoder.c:19532`); the rules are `wavelet_band_plan`'s:
+
+    - NUM_LEVELS must be 3 (the intra pyramid depth) -> else reject
+    - lowpass QUANTIZATION as int16 must be >= 1 -> else reject
+    - BAND_SUBBAND outside [1, 16] -> reject (CODEC_MAX_SUBBANDS);
+      subbands 10..16 decode-then-drop (out-of-map wavelet)
+    - BAND_NUMBER must be 0..3 (a wavelet band slot); slot 0 overwrites
+      the lowpass content loaded from the LOWPASS_SUBBAND chunk
+    - band dims must match the target wavelet's pyramid dims (a resize
+      makes the reference's reconstruction fail) -> else reject
+    - BAND_ENCODING must be run-lengths (3) -> else reject
+    - BAND_QUANTIZATION as int16 must be >= 1 -> else reject
+    - missing bands stay zero (fresh wavelets are zero-filled); a
+      duplicate band overwrites the earlier one
+
+    Returns (lowpass int32 (lh, lw), wb) where wb[k] = (lh, hl, hh) for
+    wavelet k = 0 (finest) .. 2 (coarsest).
+    """
+    expected, placed = wavelet_band_plan(c)
+    lowpass = c.lowpass
+    slots: list[list] = [[None] * 4 for _ in range(3)]
+    for b, widx, quant in placed:
+        pitchw = align16_pixels(b.width)
+        vals, _ = entropy_native.decode_band(
+            b.data, pitchw * b.height, codeset=codeset, quant=quant)
+        plane = vals.reshape(b.height, pitchw)[:, :b.width]
+        if widx == 2 and b.band == 0:
+            lowpass = plane.astype(np.int32)
+        else:
+            slots[widx][b.band] = plane
+    wb = []
+    for k in range(3):
+        eh, ew = expected[k]
+        wb.append(tuple(
+            slots[k][n] if slots[k][n] is not None
+            else np.zeros((eh, ew), np.int32) for n in (1, 2, 3)))
+    return lowpass, wb

@@ -410,11 +410,15 @@ class DecoderPool(_Batches):
     decode of a batch runs after its uploads; the batch keeps its pinned
     rows until its decode has been fetched.  Samples the device route does
     not take (a band with peaks or an unaligned payload, other dimensions,
-    a device overflow) take the host entropy decode there, as in
-    `decode_batch_device`, and are counted in `fallback_frames`.  A BGRA
-    job whose sample `api.Decoder` refuses (`api.check_bgra_source`) fails
-    with the same error from the parse thread; the rest of its batch
-    decodes.
+    a device overflow, bands that the JAX API's rules read otherwise than
+    the device route) take the host entropy decode there, as in
+    `decode_batch_device`, and are counted in `fallback_frames`.  Each job
+    gets what `api.Decoder` gives its sample: a job whose sample the API
+    refuses (`_screen`: a corrupt sample the JAX API rejects, or a BGRA
+    output `api.check_bgra_source` refuses) fails with the same
+    CFHDError(BADSAMPLE), and the rest of its batch decodes.  (The JAX
+    pool checks no band of the frames its device program decodes, and a
+    frame that its host route cannot decode fails the whole batch.)
     """
 
     def __init__(self, thread_count: int = 2, job_queue_length: int = 32,
@@ -471,39 +475,49 @@ class DecoderPool(_Batches):
 
     # --- pipeline stages -----------------------------------------------------
 
-    @staticmethod
-    def _refuse_bgra(jobs: list[_Job], walks: list) -> tuple[list, list]:
-        """Fail the jobs whose samples `api.check_bgra_source` refuses,
-        each reading its chroma lowpass width from its header walk
-        (`fastwalk.walk`; a sample the walker does not read is parsed
-        whole, and fails its job if it does not parse); returns the other
-        jobs and their walks."""
-        kept = []
-        for j, r in zip(jobs, walks):
+    def _screen(self, jobs: list[_Job]):
+        """The sync API's checks of each job's sample before any device
+        work: its parse, `api.screen` (the JAX API's accept/reject rules)
+        and, for a BGRA output, `api.check_bgra_source`.  A job whose
+        sample fails them fails with the API's CFHDError(BADSAMPLE); the
+        rest of its batch decodes.  Returns the other jobs, their header
+        walks, and the indices among them of the frames that take the host
+        route (`IntraCodec.decode_checked`'s `host`)."""
+        kept, walks, host = [], [], []
+        for j in jobs:
+            sample = j.frames[0]
             try:
-                if r is None:
-                    info = parse_sample(j.frames[0])
-                    api.check_bgra_source(info.width,
-                                          info.channels[-1].lowpass_width)
-                else:
-                    api.check_bgra_source(r.width, r.lowpass_w[-1])
-            except Exception as exc:
+                try:
+                    info = parse_sample(sample)
+                    if self._output == "BGRA":
+                        api.check_bgra_source(
+                            info.width, info.channels[-1].lowpass_width)
+                except api.CFHDError:
+                    raise
+                except Exception as exc:
+                    raise api.CFHDError(api.ErrorCode.BADSAMPLE,
+                                        str(exc)) from exc
+                to_host = api.screen(self._codec, info)
+            except api.CFHDError as exc:
                 j.future.set_exception(exc)
                 continue
-            kept.append((j, r))
-        return [j for j, _ in kept], [r for _, r in kept]
+            if to_host:
+                host.append(len(kept))
+            kept.append(j)
+            walks.append(fastwalk.walk(sample))
+        return kept, walks, host
 
     def _parse_loop(self) -> None:
-        """Stage 1: host header walk, pinned row fill and upload."""
+        """Stage 1: the checks, host header walk, pinned row fill and
+        upload."""
         while (jobs := self._next_batch()) is not None:
             try:
-                walks = [fastwalk.walk(j.frames[0]) for j in jobs]
-                if self._output == "BGRA":
-                    jobs, walks = self._refuse_bgra(jobs, walks)
-                    if not jobs:
-                        continue
+                jobs, walks, host = self._screen(jobs)
+                if not jobs:
+                    continue
                 samples = [j.frames[0] for j in jobs]
-                rows = self._codec._decode_rows_host(samples, walks)
+                rows = self._codec._decode_rows_host(samples, walks,
+                                                     host=host)
                 item = (jobs, samples, rows, self._codec._upload_rows(rows))
             except BaseException as exc:
                 self._fail(jobs, exc)
@@ -526,14 +540,21 @@ class DecoderPool(_Batches):
                     return  # the parse thread stopped and all is drained
                 jobs, samples, rows, args = self._device_queue.popleft()
             try:
+                errors: dict = {}
                 out, fallback = codec.decode_checked(
                     samples, lambda coeffs, frames: codec.inverse_output(
-                        coeffs, 0, self._output), rows=args)
+                        coeffs, 0, self._output), rows=args, errors=errors)
                 del rows        # the uploads are done: the fetch synced
                 with self._lock:
-                    self.fallback_frames += len(fallback)
-                for j, frame in zip(jobs, out):
-                    j.future.set_result(frame)
+                    self.fallback_frames += len(fallback) - len(errors)
+                for i, j in enumerate(jobs):
+                    if i in errors:
+                        exc = api.CFHDError(api.ErrorCode.BADSAMPLE,
+                                            str(errors[i]))
+                        exc.__cause__ = errors[i]
+                        j.future.set_exception(exc)
+                    else:
+                        j.future.set_result(out[i])
             except BaseException as exc:
                 self._fail(jobs, exc)
 

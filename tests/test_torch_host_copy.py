@@ -1270,3 +1270,102 @@ def test_keyframes_track_matches(values):
     want = jkeyframes.Track(list(frames), list(values))
     for f in (-3, 0, 2.5, 5, 10, 17, 24, 40):
         np.testing.assert_array_equal(got.sample(f), want.sample(f))
+
+
+# ---------------------------------------------------------------------------
+# The decoder's error tolerance and the corrupt-sample corpus
+# ---------------------------------------------------------------------------
+
+def _outcome(fn, *args):
+    """(None, fn's result), or (its exception's type name, message)."""
+    try:
+        return None, fn(*args)
+    except Exception as exc:  # noqa: BLE001 - the outcome compared
+        return type(exc).__name__, str(exc)
+
+
+def _jax_fuzz_tool():
+    """`tools/diff_fuzz.py`, loaded from its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_diff_fuzz", os.path.join(REPO, "tools", "diff_fuzz.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _corrupt_corpus(name, cases, seed):
+    """`cases` mutations of a golden (the 160x120 corpus sample for None)
+    drawn as the JAX tool draws them, and the port's `diff_fuzz`."""
+    from cineform_tpu_torch import diff_fuzz
+
+    if name is None:
+        sample = jhost.encode_sample(jframes.yuy2_frame(160, 120, 1),
+                                     160, 120, 4)
+    else:
+        sample = _read(name)
+    jfuzz = _jax_fuzz_tool()
+    rng = np.random.default_rng(seed)
+    return [jfuzz.mutate(rng, sample) for _ in range(cases)], diff_fuzz
+
+
+@pytest.mark.parametrize("name,cases,seed", [
+    (None, 120, 5), ("rg48_320x240_q4_p1.cfhd", 40, 6),
+    ("byr4_320x240_q4_p1.cfhd", 40, 7), ("b64a_320x240_q4_p1.cfhd", 30, 8)])
+def test_intra_channels_and_collect_wavelet_bands_match(name, cases, seed):
+    """On corrupt samples `intra_channels` and `collect_wavelet_bands` give
+    the original's channels, arrays or BadSampleError message;
+    `wavelet_band_plan` raises where the original does and places the
+    bands it decodes."""
+    samples, _ = _corrupt_corpus(name, cases, seed)
+    rejected = 0
+    for sample in samples:
+        try:
+            s_j, s_t = jparse_sample(sample), tparse_sample(sample)
+        except Exception:  # noqa: BLE001 - a parse error: no channel
+            continue
+        raised, chans_j = _outcome(jhost.intra_channels, s_j)
+        if raised:
+            assert _outcome(thost.intra_channels, s_t) == (raised, chans_j)
+            rejected += 1
+            continue
+        chans_t = thost.intra_channels(s_t)
+        assert [c.channel for c in chans_t] == [c.channel for c in chans_j]
+        for cj, ct in zip(chans_j, chans_t):
+            want = _outcome(jhost.collect_wavelet_bands, cj)
+            got = _outcome(thost.collect_wavelet_bands, ct)
+            raised, plan = _outcome(thost.wavelet_band_plan, ct)
+            if want[0] == "BadSampleError":
+                assert got == want == (raised, plan)
+                rejected += 1
+                continue
+            assert _plain(got) == _plain(want)
+            assert {b.data_offset for b, _, _ in plan[1]} <= {
+                b.data_offset for b in ct.bands}
+    assert rejected > 0
+
+
+def test_diff_fuzz_helpers_match():
+    """`mutate`, `payload_ranges` and `classify_mutation` of the port's
+    `diff_fuzz` draw the same bytes and classes from a seed as those of
+    `tools/diff_fuzz.py`, and `corpus` the same cases as its `run`."""
+    jfuzz = _jax_fuzz_tool()
+    for name in (None, "rg48_320x240_q4_p1.cfhd"):
+        samples, tfuzz = _corrupt_corpus(name, 1, 0)
+        sample = (_read(name) if name else jhost.encode_sample(
+            jframes.yuy2_frame(160, 120, 1), 160, 120, 4))
+        ranges = jfuzz.payload_ranges(sample)
+        assert tfuzz.payload_ranges(sample) == ranges
+        rng_j, rng_t = (np.random.default_rng(11) for _ in range(2))
+        for _ in range(60):
+            m = jfuzz.mutate(rng_j, sample)
+            assert tfuzz.mutate(rng_t, sample) == m
+            assert tfuzz.classify_mutation(sample, m, ranges) == \
+                jfuzz.classify_mutation(sample, m, ranges)
+        rng_j = np.random.default_rng(0)
+        want = []
+        for case in range(8):
+            m = jfuzz.mutate(rng_j, sample)
+            want.append((case, jfuzz.classify_mutation(sample, m, ranges), m))
+        assert tfuzz.corpus(sample, 8, 0) == want

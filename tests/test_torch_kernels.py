@@ -891,6 +891,62 @@ def test_guarded_merge_kernels_match_plain(cuda, form, seed, rows, n, bad):
     assert wrapper.branch_launches == {b: c + 1 for b, c in branches.items()}
 
 
+def _hostile_rows(seed, rows, n, form):
+    """Rows for the decoder's merge forms outside any codec's range, as a
+    corrupt payload could hand them over if a guard upstream failed: per
+    row, displacements drawn from the whole int32 range, small negative
+    ones, ones past n, or in no order below n + 9; random values, and for
+    `tgt` random targets of either sign.  Returns int32 tensors (val, rem,
+    tgt) or (val, rem)."""
+    rng = np.random.default_rng(seed)
+    val = rng.integers(-(1 << 31), 1 << 31, (rows, n))
+    kinds = [(-(1 << 31), 1 << 31), (-n - 9, 0), (n, 2 * n + 9),
+             (-9, n + 9)]
+    rem = np.stack([rng.integers(*kinds[r % 4], n) for r in range(rows)])
+    if form == "tgt":
+        tgt = rng.integers(-(1 << 31), 1 << 31, (rows, n))
+        return tuple(torch.from_numpy(a.astype(np.int32))
+                     for a in (val, rem, tgt))
+    return tuple(torch.from_numpy(a.astype(np.int32)) for a in (val, rem))
+
+
+HOSTILE_CASES = [(0, 4, 5000), (1, 8, 2049), (2, 2, 70001), (3, 4, 1)]
+
+
+@pytest.mark.parametrize("seed,rows,n", HOSTILE_CASES)
+def test_hostile_rows_fail_every_guard(seed, rows, n):
+    """The hostile rows of the decoder's merge forms lie outside their
+    guards (each row fails the form's guard where it has more than one
+    slot), and the plain networks settle them without raising."""
+    val, rem, tgt = _hostile_rows(seed, rows, n, "tgt")
+    assert (rem < 0).any() and (rem >= n).any()
+    if n > 1:
+        assert not tdev._concat_guard(rem).any()
+    for out in (tdev._settle_network_tgt(val, rem, tgt),
+                tdev._settle_network_highfirst(
+                    *_hostile_rows(seed, rows, n, "highfirst"))):
+        assert all(o.shape == (rows, n) for o in out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["tgt", "highfirst"])
+@pytest.mark.parametrize("seed,rows,n", HOSTILE_CASES)
+def test_decoder_merge_kernels_on_hostile_rows(cuda, form, seed, rows, n):
+    """The decoder's two merge forms on hostile rows (`_hostile_rows`):
+    each equals its plain network bit for bit, and the context runs the
+    same launch again after them."""
+    arrays = _hostile_rows(seed, rows, n, form)
+    wrapper, which = GUARDED[form]
+    got, want = _merge(which, *(a.to(cuda) for a in arrays))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    # the context still runs a launch after them
+    again, want = _merge(which, *(a.to(cuda) for a in arrays))
+    torch.cuda.synchronize()
+    assert torch.equal(again[0].cpu(), want[0])
+
+
 @pytest.mark.gpu
 def test_device_decode_on_the_card_matches_golden(cuda):
     from cineform_tpu_torch.models.intra import IntraCodec

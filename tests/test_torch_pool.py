@@ -456,8 +456,10 @@ def test_decoder_pool_refuses_the_bgra_samples_the_decoder_refuses():
     """Two 144x48 UYVY frames (chroma lowpass width 9, odd): `api.Decoder`
     refuses them to BGRA, and so does the pool, each job with BADFORMAT
     from its future; the same samples to YUY2 decode, equal to the sync
-    Decoder.  In a batch that mixes such a sample with a 64-wide one, only
-    the first job fails."""
+    Decoder.  In a batch that mixes such a sample with a 64-wide one, each
+    job fails on its own: the first with BADFORMAT, the second with
+    BADSAMPLE (a frame of another size than the pool's), and no walk or
+    upload is made for either."""
     frames = np.random.default_rng(144).integers(0, 256, (2, 48, 288))
     samples = IntraCodec(144, 48, 4, device=CPU,
                          input_format="UYVY").encode_batch(
@@ -491,10 +493,11 @@ def test_decoder_pool_refuses_the_bgra_samples_the_decoder_refuses():
     walks = [fastwalk.walk(j.frames[0]) for j in jobs]
     assert walks[0].lowpass_w[-1] == parse_sample(
         samples[0]).channels[-1].lowpass_width == 9
-    assert pool.DecoderPool._refuse_bgra(jobs, walks) == (jobs[1:],
-                                                          walks[1:])
-    assert isinstance(jobs[0].future.exception(), api.CFHDError)
-    assert not jobs[1].future.done()
+    p = pool.DecoderPool(2, 4, device="cpu")
+    p.prepare_to_decode(144, 48, api.PixelFormat.BGRA)
+    assert p._screen(jobs) == ([], [], [])
+    assert [j.future.exception().code for j in jobs] == [
+        api.ErrorCode.BADFORMAT, api.ErrorCode.BADSAMPLE]
 
 
 # ---------------------------------------------------------------------------
