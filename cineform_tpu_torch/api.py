@@ -55,7 +55,7 @@ from cineform_tpu_torch.ref.demosaic import compose_develop_matrix
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import (custom_quant_tables,
                                                 update_fs_rate_limiter)
-from cineform_tpu_torch.utils import override_db
+from cineform_tpu_torch.utils import override_db, timing
 
 
 def _fourcc(s: str) -> int:
@@ -783,7 +783,8 @@ class Decoder:
         the eyes' decode on the device, or of the blend, reaches the
         caller."""
         try:
-            info = parse_sample(sample)
+            with timing.span("api.parse"):
+                info = parse_sample(sample)
             if info.encoded_channels < 2:
                 return sample, info, None
             eyes = stereo.split_3d(sample)
@@ -1056,64 +1057,67 @@ class Decoder:
 
     # CFHD_DecodeSample
     def decode_sample(self, sample: bytes) -> np.ndarray | None:
-        if not self._prepared:
-            raise CFHDError(ErrorCode.UNEXPECTED, "not prepared")
-        if len(sample) % 4:
-            # the tag/value stream is a sequence of 32-bit pairs; a
-            # partial trailing pair is a bitstream error
-            raise CFHDError(ErrorCode.BADSAMPLE,
-                            f"sample size {len(sample)} not 32-bit aligned")
-        sample, info0, composite = self._route_stereo(sample)
-        if composite is not None:
-            return composite
-        try:
-            if sample[:4] == b"\x00\x01\x00\x07":
-                # video sequence header: ignored by the decoder, no frame
-                # (`DecodeSample` SAMPLE_TYPE_SEQUENCE_HEADER,
-                # decoder.c:11023-11026)
-                return None
-            if sample[:4] == b"\x00\x01\x00\x01":
-                # FRAME samples carry no pixel data; the held group's
-                # warp metadata applies, with no size check
-                held = self._held_group
-                warp = None if held is None else self._lens(held)
-                detour = warp is not None and warp[1] in ("YUY2", "WP13")
-                out = self._decode_frame_sample(
-                    None if warp is None or detour else self._warp(*warp))
-                if detour:
-                    raise self._no_warp_decode()
-                return np.ascontiguousarray(out).view(np.uint8).reshape(
-                    self.height, -1)
-            if info0 is None:
-                info0 = parse_sample(sample)
-            if not info0.channels:
-                raise CFHDError(ErrorCode.BADSAMPLE, "no coded channel")
-            warp = self._lens(sample, info0)
-            # the YUY2 and WP13 outputs warp through the WP13 detour, the
-            # others their own output
-            detour = warp is not None and warp[1] in ("YUY2", "WP13")
-            if detour and self._takes_warp_decode(info0):
-                out = self._warp_decode(sample, info0, *warp)
-            else:
-                out = self._decode_route(
-                    sample, info0,
-                    None if warp is None or detour else self._warp(*warp))
-            row_bytes = self._ROW_BYTES[self.output_format](self.width)
-            out = np.ascontiguousarray(out).view(np.uint8)
-            if out.size != self.height * row_bytes:
+        with timing.span("api.decode_sample", 1, root=True):
+            if not self._prepared:
+                raise CFHDError(ErrorCode.UNEXPECTED, "not prepared")
+            if len(sample) % 4:
+                # the tag/value stream is a sequence of 32-bit pairs; a
+                # partial trailing pair is a bitstream error
                 raise CFHDError(
                     ErrorCode.BADSAMPLE,
-                    f"decoded {out.size} bytes, expected "
-                    f"{self.height * row_bytes}")
-            if detour and not self._takes_warp_decode(info0):
-                raise self._no_warp_decode()
-            return out.reshape(self.height, row_bytes)
-        except CFHDError:
-            raise
-        except Exception as exc:
-            if device_fault(exc):
+                    f"sample size {len(sample)} not 32-bit aligned")
+            sample, info0, composite = self._route_stereo(sample)
+            if composite is not None:
+                return composite
+            try:
+                if sample[:4] == b"\x00\x01\x00\x07":
+                    # video sequence header: ignored by the decoder, no frame
+                    # (`DecodeSample` SAMPLE_TYPE_SEQUENCE_HEADER,
+                    # decoder.c:11023-11026)
+                    return None
+                if sample[:4] == b"\x00\x01\x00\x01":
+                    # FRAME samples carry no pixel data; the held group's
+                    # warp metadata applies, with no size check
+                    held = self._held_group
+                    warp = None if held is None else self._lens(held)
+                    detour = warp is not None and warp[1] in ("YUY2", "WP13")
+                    out = self._decode_frame_sample(
+                        None if warp is None or detour else self._warp(*warp))
+                    if detour:
+                        raise self._no_warp_decode()
+                    return np.ascontiguousarray(out).view(np.uint8).reshape(
+                        self.height, -1)
+                if info0 is None:
+                    with timing.span("api.parse"):
+                        info0 = parse_sample(sample)
+                if not info0.channels:
+                    raise CFHDError(ErrorCode.BADSAMPLE, "no coded channel")
+                warp = self._lens(sample, info0)
+                # the YUY2 and WP13 outputs warp through the WP13 detour, the
+                # others their own output
+                detour = warp is not None and warp[1] in ("YUY2", "WP13")
+                if detour and self._takes_warp_decode(info0):
+                    out = self._warp_decode(sample, info0, *warp)
+                else:
+                    out = self._decode_route(
+                        sample, info0,
+                        None if warp is None or detour else self._warp(*warp))
+                row_bytes = self._ROW_BYTES[self.output_format](self.width)
+                out = np.ascontiguousarray(out).view(np.uint8)
+                if out.size != self.height * row_bytes:
+                    raise CFHDError(
+                        ErrorCode.BADSAMPLE,
+                        f"decoded {out.size} bytes, expected "
+                        f"{self.height * row_bytes}")
+                if detour and not self._takes_warp_decode(info0):
+                    raise self._no_warp_decode()
+                return out.reshape(self.height, row_bytes)
+            except CFHDError:
                 raise
-            raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
+            except Exception as exc:
+                if device_fault(exc):
+                    raise
+                raise CFHDError(ErrorCode.BADSAMPLE, str(exc)) from exc
 
     def _decode_route(self, sample: bytes, info0, then=None) -> np.ndarray:
         """The decode of an intra or GROUP sample by its kind, the

@@ -23,6 +23,8 @@ from functools import lru_cache
 import numpy as np
 
 from cineform_tpu_torch import native
+from cineform_tpu_torch.utils import timing
+
 
 class _Header(ctypes.Structure):
     _fields_ = [
@@ -95,27 +97,28 @@ class WalkResult:
 
 def walk(sample: bytes) -> WalkResult | None:
     """Walk one sample's headers; None if the oracle parser is needed."""
-    hdr = _Header()
-    recs = (_BandRec * _MAX_BANDS)()
-    n = _lib().walk_sample(sample, len(sample), ctypes.byref(hdr),
-                         recs, _MAX_BANDS)
-    if n < 0 or hdr.complex_flag:
-        return None
-    bands = {}
-    for i in range(n):
-        r = recs[i]
-        bands[(r.channel, r.band, r.subband)] = (
-            r.data_off, r.data_len, r.quant,
-            1 if r.coding_flags == 18 else 0, r.flags)
-    nch = hdr.nchannels
-    return WalkResult(
-        width=hdr.width, height=hdr.height, nchannels=nch,
-        transform_type=hdr.transform_type, num_frames=hdr.num_frames,
-        sample_type=hdr.sample_type,
-        lowpass_off=tuple(hdr.lowpass_off[:nch]),
-        lowpass_w=tuple(hdr.lowpass_w[:nch]),
-        lowpass_h=tuple(hdr.lowpass_h[:nch]),
-        bands=bands)
+    with timing.span("fastwalk.walk", 1):
+        hdr = _Header()
+        recs = (_BandRec * _MAX_BANDS)()
+        n = _lib().walk_sample(sample, len(sample), ctypes.byref(hdr),
+                             recs, _MAX_BANDS)
+        if n < 0 or hdr.complex_flag:
+            return None
+        bands = {}
+        for i in range(n):
+            r = recs[i]
+            bands[(r.channel, r.band, r.subband)] = (
+                r.data_off, r.data_len, r.quant,
+                1 if r.coding_flags == 18 else 0, r.flags)
+        nch = hdr.nchannels
+        return WalkResult(
+            width=hdr.width, height=hdr.height, nchannels=nch,
+            transform_type=hdr.transform_type, num_frames=hdr.num_frames,
+            sample_type=hdr.sample_type,
+            lowpass_off=tuple(hdr.lowpass_off[:nch]),
+            lowpass_w=tuple(hdr.lowpass_w[:nch]),
+            lowpass_h=tuple(hdr.lowpass_h[:nch]),
+            bands=bands)
 
 
 def fill_rows(dst: np.ndarray, sample: bytes, offs: np.ndarray,

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from cineform_tpu_torch.spec import codebooks as cb
 from cineform_tpu_torch.ops.merge_network import (merge_network_highfirst,
                                                   merge_network_tgt)
+from cineform_tpu_torch.utils import timing
 
 NPHASE = 27      # max codeword incl. sign = 26 bits -> entry phase in [0,27)
 DONE = 27        # absorbing "band ended" phase
@@ -363,17 +364,23 @@ def band_slots(payload: torch.Tensor, nchunks: torch.Tensor,
     row's real chunks."""
     *lead, nb = payload.shape
     s = nb // 4
-    packed = classify(payload).reshape(*lead, s, 32)
-    entry, base = scan_entries_rows(*chunk_transfers(packed))
-    act = final_walk(packed, entry)
-    cidx = torch.arange(s, dtype=torch.int32, device=payload.device)
-    act = act * (cidx < nchunks[..., None]).to(torch.int32)[..., None]
-    shape = (*lead, s)
-    return emit_slots(
-        packed, act, base,
-        torch.zeros(shape, dtype=torch.int32, device=payload.device),
-        torch.full(shape, nout, dtype=torch.int32, device=payload.device),
-        quant[..., None].expand(shape), linear[..., None].expand(shape))
+    with timing.span("entropy.classify"):
+        packed = classify(payload).reshape(*lead, s, 32)
+    with timing.span("entropy.chunk_transfers"):
+        transfers = chunk_transfers(packed)
+    with timing.span("entropy.scan_entries_rows"):
+        entry, base = scan_entries_rows(*transfers)
+    with timing.span("entropy.final_walk"):
+        act = final_walk(packed, entry)
+    with timing.span("entropy.emit_slots"):
+        cidx = torch.arange(s, dtype=torch.int32, device=payload.device)
+        act = act * (cidx < nchunks[..., None]).to(torch.int32)[..., None]
+        shape = (*lead, s)
+        return emit_slots(
+            packed, act, base,
+            torch.zeros(shape, dtype=torch.int32, device=payload.device),
+            torch.full(shape, nout, dtype=torch.int32, device=payload.device),
+            quant[..., None].expand(shape), linear[..., None].expand(shape))
 
 
 def decode_band_rows(payload: torch.Tensor, nchunks: torch.Tensor,
@@ -386,5 +393,8 @@ def decode_band_rows(payload: torch.Tensor, nchunks: torch.Tensor,
     dense region size (band h * pitch) shared by the class.  Returns
     (coeffs (R, nout) int32, ovf (R,) bool)."""
     ctgt, cval, nval, covf = band_slots(payload, nchunks, quant, linear, nout)
-    tgt, val = compact_rows(ctgt, cval, nval)
-    return spread_rows(tgt, val, nout), covf.any(dim=-1)
+    with timing.span("entropy.compact_rows"):
+        tgt, val = compact_rows(ctgt, cval, nval)
+    with timing.span("entropy.spread_rows"):
+        out = spread_rows(tgt, val, nout)
+    return out, covf.any(dim=-1)

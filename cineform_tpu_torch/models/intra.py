@@ -75,6 +75,7 @@ from cineform_tpu_torch.ref.intra import byr4_log90_curve, rg24_dither
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.spec.production import IntraParams
 from cineform_tpu_torch.state import CodecTables, codec_tables
+from cineform_tpu_torch.utils import timing
 
 # The input formats the port encodes, by `api.PixelFormat`'s names: the
 # COLOR_FORMAT code of the sample header, the bytes of a frame row, the
@@ -196,7 +197,8 @@ def develop_plans(develop, batch: int) -> list:
 def _download(t: torch.Tensor) -> np.ndarray:
     """A decoded batch on the device -> numpy: uint8 YUY2, or the 16-bit
     outputs' int16 bit patterns as little-endian uint16."""
-    a = t.cpu().numpy()
+    with timing.span("intra.download"):
+        a = t.cpu().numpy()
     return a.view("<u2") if a.dtype == np.int16 else a
 
 
@@ -387,7 +389,9 @@ class IntraCodec:
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         """(B, H, row_bytes) uint8 host frames -> a tensor on the device."""
         self._check_frames(frames)
-        return torch.from_numpy(np.array(frames, np.uint8)).to(self.device)
+        with timing.span("intra.upload"):
+            return torch.from_numpy(np.array(frames, np.uint8)).to(
+                self.device)
 
     # --- encode ------------------------------------------------------------
 
@@ -456,18 +460,21 @@ class IntraCodec:
         of the entropy coder a level and group, and the level's quantized
         (LH, HL, HH) coefficients, each (B, h, w), which the host re-encodes
         where a band overflowed."""
-        levels = self.forward_levels(frames)
-        coeffs = self._channels(levels)
-        packed_by_ch: list[list] = [[] for _ in coeffs]
-        for k, (_, highs) in enumerate(levels):
-            for grp, bands in zip(self.groups, highs):
-                words, nbits, ovf = edev.encode_band_arrays(
-                    self.group_bands(bands), codeset=17,
-                    cap_bits_per_elem=cap_bits)
-                for gi, ch in enumerate(grp):
-                    packed_by_ch[ch].append((words[:, gi], nbits[:, gi],
-                                             ovf[:, gi], coeffs[ch][1][k]))
-        return [(coeffs[ch][0], packed_by_ch[ch]) for ch in range(len(coeffs))]
+        with timing.span("intra.forward_packed"):
+            levels = self.forward_levels(frames)
+            coeffs = self._channels(levels)
+            packed_by_ch: list[list] = [[] for _ in coeffs]
+            for k, (_, highs) in enumerate(levels):
+                for grp, bands in zip(self.groups, highs):
+                    words, nbits, ovf = edev.encode_band_arrays(
+                        self.group_bands(bands), codeset=17,
+                        cap_bits_per_elem=cap_bits)
+                    for gi, ch in enumerate(grp):
+                        packed_by_ch[ch].append(
+                            (words[:, gi], nbits[:, gi], ovf[:, gi],
+                             coeffs[ch][1][k]))
+        return [(coeffs[ch][0], packed_by_ch[ch])
+                for ch in range(len(coeffs))]
 
     @staticmethod
     def _frame_args(batch, first_frame_number, frame_numbers, metadata):
@@ -510,17 +517,33 @@ class IntraCodec:
         finish each band's bytes and write the samples.  A band that
         overflowed its device capacity is re-encoded on the host by the
         C++ coder, from its coefficients as `forward_packed` computed them
-        on the device (only those bands are downloaded)."""
+        on the device (only those bands are downloaded).  The tracer
+        counts the batch's coded and overflowed bands, one event each."""
         p = self.params
-        result = [(lowpass.cpu().numpy(),
-                   [(w.cpu().numpy(), n.cpu().numpy(), o.cpu().numpy(), bands)
-                    for w, n, o, bands in levels])
-                  for lowpass, levels in packed]
         batch = frames.shape[0]
-        frame_numbers, metadata = self._frame_meta(
-            batch, first_frame_number, frame_numbers, metadata)
-        samples = []
-        for i in range(batch):
+        with timing.span("intra.write_samples", batch):
+            with timing.span("intra.fetch"):
+                result = [(lowpass.cpu().numpy(),
+                           [(w.cpu().numpy(), n.cpu().numpy(),
+                             o.cpu().numpy(), bands)
+                            for w, n, o, bands in levels])
+                          for lowpass, levels in packed]
+            if timing.active():
+                flags = [o for _, levels in result for _, _, o, _ in levels]
+                timing.count("intra.bands_coded",
+                             sum(o.size for o in flags))
+                timing.count("intra.bands_overflowed",
+                             sum(int(o.sum()) for o in flags))
+            frame_numbers, metadata = self._frame_meta(
+                batch, first_frame_number, frame_numbers, metadata)
+            return [self._write_frame(result, i, frame_numbers[i],
+                                      metadata[i]) for i in range(batch)]
+
+    def _write_frame(self, result, i: int, frame_number: int,
+                     metadata) -> bytes:
+        """Frame `i`'s sample from `write_samples`' fetched bands."""
+        p = self.params
+        with timing.span("intra.write_frame", 1):
             channels = []
             for ch, (lowpass, levels) in enumerate(result):
                 payloads, bands = [], []
@@ -541,9 +564,7 @@ class IntraCodec:
                 channels.append(intra_host.EncodedChannel(
                     lowpass=lowpass[i], bands=bands,
                     quants=p.band_quant(ch), payloads=payloads))
-            samples.append(self._write_sample(channels, frame_numbers[i],
-                                              metadata[i]))
-        return samples
+            return self._write_sample(channels, frame_number, metadata)
 
     def encode_batch_device(self, frames: np.ndarray,
                             first_frame_number: int = 1, metadata=None,
@@ -558,22 +579,23 @@ class IntraCodec:
         shard is encoded on its device by a codec of this configuration
         there, every shard's device work queued before any is fetched, and
         the samples come in frame order, equal to the unsharded ones."""
-        if sharding is None:
-            packed = self.forward_packed(self._upload(frames), cap_bits)
-            return self.write_samples(frames, packed, first_frame_number,
-                                      metadata, frame_numbers)
-        self._check_frames(frames)
-        frame_numbers, metadata = self._frame_args(
-            frames.shape[0], first_frame_number, frame_numbers, metadata)
-        samples = []
-        for x, packed in map_shards(
-                sharding, self, np.asarray(frames, np.uint8),
-                lambda c, x: c.forward_packed(x, cap_bits)):
-            lo = len(samples)
-            samples += self.write_samples(
-                x, packed, frame_numbers=frame_numbers[lo:lo + len(x)],
-                metadata=metadata[lo:lo + len(x)])
-        return samples
+        with timing.span("intra.encode_batch", frames.shape[0]):
+            if sharding is None:
+                packed = self.forward_packed(self._upload(frames), cap_bits)
+                return self.write_samples(frames, packed, first_frame_number,
+                                          metadata, frame_numbers)
+            self._check_frames(frames)
+            frame_numbers, metadata = self._frame_args(
+                frames.shape[0], first_frame_number, frame_numbers, metadata)
+            samples = []
+            for x, packed in map_shards(
+                    sharding, self, np.asarray(frames, np.uint8),
+                    lambda c, x: c.forward_packed(x, cap_bits)):
+                lo = len(samples)
+                samples += self.write_samples(
+                    x, packed, frame_numbers=frame_numbers[lo:lo + len(x)],
+                    metadata=metadata[lo:lo + len(x)])
+            return samples
 
     def encode_batch(self, frames: np.ndarray, first_frame_number: int = 1,
                      metadata=None, frame_numbers: list[int] | None = None,
@@ -655,18 +677,19 @@ class IntraCodec:
         (`deep_yuv` True for YU64, v210 and NV12, False for the others)
         take the absolute offset of `_decode_row16u_planes` in place of the
         8-bit bias its lowpass carries: +4 or +24, +5 at odd widths."""
-        p = self.params
-        planes = []
-        for lowpass, bands in coeffs:
-            if deep_yuv is not None:
-                w = lowpass.shape[-1]
-                lowpass = lowpass + (
-                    intra_host.lowpass_offset_absolute(w, deep_yuv)
-                    - intra_host.lowpass_channel_offset(w))
-            planes.append(ops.h26_inverse_to_row16u(
-                *ops.inverse_channel_strips(lowpass, bands, p.prescale),
-                p.precision))
-        return planes
+        with timing.span("intra.row16u_planes"):
+            p = self.params
+            planes = []
+            for lowpass, bands in coeffs:
+                if deep_yuv is not None:
+                    w = lowpass.shape[-1]
+                    lowpass = lowpass + (
+                        intra_host.lowpass_offset_absolute(w, deep_yuv)
+                        - intra_host.lowpass_channel_offset(w))
+                planes.append(ops.h26_inverse_to_row16u(
+                    *ops.inverse_channel_strips(lowpass, bands, p.prescale),
+                    p.precision))
+            return planes
 
     def inverse_rg48(self, coeffs) -> torch.Tensor:
         """RGB or RGBA coefficients (channels G, R, B[, A]) -> (B, H, 3W)
@@ -733,39 +756,40 @@ class IntraCodec:
 
         `develop`: None (the raw chain), or one `ops.demosaic.DevelopPlan`
         (or None) a frame."""
-        planes = self._row16u_planes(coeffs)
-        dev = planes[0].device
-        plans = develop_plans(develop, planes[0].shape[0])
-        c2l = _table(curve2linear_lut, dev)
-        l2c = _table(linear2curve_lut, dev)
-        if output == "YUY2":
-            parity = _yuyv_parity(self.height, dev)
-        frames = []
-        for i in range(planes[0].shape[0]):
-            one = [p[i:i + 1] for p in planes]
-            plan = plans[i]
+        with timing.span("intra.inverse_bayer_rgb", coeffs[0][0].shape[0]):
+            planes = self._row16u_planes(coeffs)
+            dev = planes[0].device
+            plans = develop_plans(develop, planes[0].shape[0])
+            c2l = _table(curve2linear_lut, dev)
+            l2c = _table(linear2curve_lut, dev)
             if output == "YUY2":
-                rgb = dmops.demosaic_bilinear_rgb(*one)
-                if plan is None or plan.matrix is None:
-                    frames.append(dmops.convert_rgb16_to_yuyv(rgb, parity))
-                else:
-                    out13 = dmops.develop_1d(rgb.clamp(0, 65535),
-                                             plan.on(dev)["lcm"], c2l, l2c)
-                    frames.append(dmops.convert_rgb16_to_yuyv(
-                        out13, parity, whitepoint=13))
-                continue
-            rgb = dmops.demosaic_raw(*one)
-            if plan is not None:
-                rgb = dmops.develop_rgb16(rgb, plan, c2l, l2c)
-            if output in ("WP13", "W13A"):
-                rgb = rgb >> 3
-            fill = {"b64a": 0xFFFF, "W13A": 8191}.get(output)
-            if fill is not None:
-                alpha = torch.full_like(rgb[..., :1], fill)
-                rgb = torch.cat([alpha, rgb] if output == "b64a"
-                                else [rgb, alpha], dim=-1)
-            frames.append(rgb.flatten(-2))
-        return torch.cat(frames)
+                parity = _yuyv_parity(self.height, dev)
+            frames = []
+            for i in range(planes[0].shape[0]):
+                one = [p[i:i + 1] for p in planes]
+                plan = plans[i]
+                if output == "YUY2":
+                    rgb = dmops.demosaic_bilinear_rgb(*one)
+                    if plan is None or plan.matrix is None:
+                        frames.append(dmops.convert_rgb16_to_yuyv(rgb, parity))
+                    else:
+                        out13 = dmops.develop_1d(rgb.clamp(0, 65535),
+                                                 plan.on(dev)["lcm"], c2l, l2c)
+                        frames.append(dmops.convert_rgb16_to_yuyv(
+                            out13, parity, whitepoint=13))
+                    continue
+                rgb = dmops.demosaic_raw(*one)
+                if plan is not None:
+                    rgb = dmops.develop_rgb16(rgb, plan, c2l, l2c)
+                if output in ("WP13", "W13A"):
+                    rgb = rgb >> 3
+                fill = {"b64a": 0xFFFF, "W13A": 8191}.get(output)
+                if fill is not None:
+                    alpha = torch.full_like(rgb[..., :1], fill)
+                    rgb = torch.cat([alpha, rgb] if output == "b64a"
+                                    else [rgb, alpha], dim=-1)
+                frames.append(rgb.flatten(-2))
+            return torch.cat(frames)
 
     def inverse_bayer_linear(self, coeffs) -> torch.Tensor:
         """Bayer coefficients -> (B, h, w, 3) int32 quarter-res 12-bit
@@ -872,21 +896,22 @@ class IntraCodec:
         Returns True where the device route reads every band as
         `collect_wavelet_bands` does (`intra_host.regular_bands`), False
         where the frame takes the host route (`decode_checked`'s `host`)."""
-        channels = intra_host.intra_channels(s)
-        plans = [intra_host.wavelet_band_plan(c) for c in channels]
-        lh, lws = self.lowpass_dims()
-        dims = (self.params.height, *(self.plane_width(ch)
-                                      for ch in range(self.num_channels)))
-        if len(channels) != self.num_channels or any(
-                c.lowpass.shape != (lh, lw)
-                for c, lw in zip(channels, lws)) or any(
-                d % 8 for d in dims):
-            raise intra_host.BadSampleError(
-                f"{len(channels)} channels of lowpass "
-                f"{[c.lowpass.shape for c in channels]}: not a "
-                f"{self.width}x{self.height} frame")
-        return all(intra_host.regular_bands(c, placed)
-                   for c, (_, placed) in zip(channels, plans))
+        with timing.span("intra.screen"):
+            channels = intra_host.intra_channels(s)
+            plans = [intra_host.wavelet_band_plan(c) for c in channels]
+            lh, lws = self.lowpass_dims()
+            dims = (self.params.height, *(self.plane_width(ch)
+                                          for ch in range(self.num_channels)))
+            if len(channels) != self.num_channels or any(
+                    c.lowpass.shape != (lh, lw)
+                    for c, lw in zip(channels, lws)) or any(
+                    d % 8 for d in dims):
+                raise intra_host.BadSampleError(
+                    f"{len(channels)} channels of lowpass "
+                    f"{[c.lowpass.shape for c in channels]}: not a "
+                    f"{self.width}x{self.height} frame")
+            return all(intra_host.regular_bands(c, placed)
+                       for c, (_, placed) in zip(channels, plans))
 
     def _host_channels(self, sample: bytes, resolution: int = 1):
         """One sample's per-channel (lowpass, bands) int32 arrays, entropy
@@ -1030,14 +1055,17 @@ class IntraCodec:
         `inverse_output` takes them, the bands of the classes not read
         None, (B,) overflow flags)."""
         coeffs_by = {}
-        ovf = torch.zeros(lowpass[0].shape[0], dtype=torch.bool,
-                          device=lowpass[0].device)
-        for (ci, k, planes), pay, nch, qn, lin in zip(
-                self.decode_classes(resolution), pays, nchs, qns, lins):
-            co, class_ovf = self._decode_class_program(pay, nch, qn, lin, ci)
-            for pi, ch in enumerate(planes):
-                coeffs_by[(ch, k)] = tuple(co[:, pi, b] for b in range(3))
-            ovf = ovf | class_ovf
+        batch = lowpass[0].shape[0]
+        with timing.span("intra.decode_coefficients", batch):
+            ovf = torch.zeros(batch, dtype=torch.bool,
+                              device=lowpass[0].device)
+            for (ci, k, planes), pay, nch, qn, lin in zip(
+                    self.decode_classes(resolution), pays, nchs, qns, lins):
+                co, class_ovf = self._decode_class_program(pay, nch, qn, lin,
+                                                           ci)
+                for pi, ch in enumerate(planes):
+                    coeffs_by[(ch, k)] = tuple(co[:, pi, b] for b in range(3))
+                ovf = ovf | class_ovf
         coeffs = [(lowpass[ch], [coeffs_by.get((ch, k)) for k in range(3)])
                   for ch in range(self.num_channels)]
         return coeffs, ovf
@@ -1060,87 +1088,92 @@ class IntraCodec:
         unaligned payload); those frames get empty rows.  The native
         walker finds the bands in one C pass per sample and copies their
         payloads straight into the row buffers."""
-        batch = len(samples)
-        pin = self.device.type == "cuda"
-        nch = self.num_channels
-        p = self.params
-        kmin = resolution - 1
-        lh, lws = self.lowpass_dims()
-        #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
-        parts: dict = {}
-        fallback = set(host)
-        if walks is None:
-            walks = [fastwalk.walk(sample) for sample in samples]
-        for i, r in enumerate(walks):
-            if i in fallback or r is None or (r.width, r.height) != (p.width, p.height) \
-                    or r.nchannels != nch or 0 in r.lowpass_off \
-                    or r.lowpass_h != (lh,) * nch or r.lowpass_w != lws:
-                fallback.add(i)
-                continue
-            for (ch, bandno, subband), (off, ln, q, lin, fl) in \
-                    r.bands.items():
-                k = 2 - (subband - 1) // 3
-                if 1 <= subband <= 9 and k < kmin:
-                    continue
-                if not 1 <= subband <= 9 or fl & 1 or ln % 4:
+        with timing.span("intra.decode_rows_host", len(samples)):
+            batch = len(samples)
+            pin = self.device.type == "cuda"
+            nch = self.num_channels
+            p = self.params
+            kmin = resolution - 1
+            lh, lws = self.lowpass_dims()
+            #: (ch, k, band, i) -> (data_off, data_len, quant, lin)
+            parts: dict = {}
+            fallback = set(host)
+            if walks is None:
+                walks = [fastwalk.walk(sample) for sample in samples]
+            for i, r in enumerate(walks):
+                if i in fallback or r is None \
+                        or (r.width, r.height) != (p.width, p.height) \
+                        or r.nchannels != nch or 0 in r.lowpass_off \
+                        or r.lowpass_h != (lh,) * nch or r.lowpass_w != lws:
                     fallback.add(i)
-                    break
-                parts[(ch, k, bandno, i)] = (off, ln, q, lin)
-            if i not in fallback and any(
-                    (ch, k, band, i) not in parts for ch in range(nch)
-                    for k in range(kmin, 3) for band in (1, 2, 3)):
-                fallback.add(i)
-        live = [i for i in range(batch) if i not in fallback]
+                    continue
+                for (ch, bandno, subband), (off, ln, q, lin, fl) in \
+                        r.bands.items():
+                    k = 2 - (subband - 1) // 3
+                    if 1 <= subband <= 9 and k < kmin:
+                        continue
+                    if not 1 <= subband <= 9 or fl & 1 or ln % 4:
+                        fallback.add(i)
+                        break
+                    parts[(ch, k, bandno, i)] = (off, ln, q, lin)
+                if i not in fallback and any(
+                        (ch, k, band, i) not in parts for ch in range(nch)
+                        for k in range(kmin, 3) for band in (1, 2, 3)):
+                    fallback.add(i)
+            live = [i for i in range(batch) if i not in fallback]
 
-        pays, nchs, qns, lins = [], [], [], []
-        for _, k, planes in self.decode_classes(resolution):
-            rows = [(0, 0, 1, 0) if i in fallback else parts[(ch, k, band, i)]
-                    for i in range(batch) for ch in planes
-                    for band in (1, 2, 3)]
-            cap = self.MIN_ROW_CHUNKS
-            while cap < max(ln for _, ln, _, _ in rows) // 4:
-                cap *= 2
-            meta = torch.tensor([(ln // 4, q, lin) for _, ln, q, lin in rows],
-                                dtype=torch.int32).t().contiguous()
-            if pin:
-                meta = meta.pin_memory()
-            pay = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
-                              pin_memory=pin)
-            per_frame = len(rows) // batch
-            for i in live:
-                sl = rows[i * per_frame:(i + 1) * per_frame]
-                fastwalk.fill_rows(
-                    pay.numpy(), samples[i],
-                    np.asarray([o for o, _, _, _ in sl], np.int64),
-                    np.asarray([ln for _, ln, _, _ in sl], np.int64),
-                    np.arange(i * per_frame, (i + 1) * per_frame))
-            pays.append(pay)
-            nchs.append(meta[0])
-            qns.append(meta[1])
-            lins.append(meta[2])
+            pays, nchs, qns, lins = [], [], [], []
+            for _, k, planes in self.decode_classes(resolution):
+                rows = [(0, 0, 1, 0) if i in fallback
+                        else parts[(ch, k, band, i)]
+                        for i in range(batch) for ch in planes
+                        for band in (1, 2, 3)]
+                cap = self.MIN_ROW_CHUNKS
+                while cap < max(ln for _, ln, _, _ in rows) // 4:
+                    cap *= 2
+                meta = torch.tensor(
+                    [(ln // 4, q, lin) for _, ln, q, lin in rows],
+                    dtype=torch.int32).t().contiguous()
+                if pin:
+                    meta = meta.pin_memory()
+                pay = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
+                                  pin_memory=pin)
+                per_frame = len(rows) // batch
+                for i in live:
+                    sl = rows[i * per_frame:(i + 1) * per_frame]
+                    fastwalk.fill_rows(
+                        pay.numpy(), samples[i],
+                        np.asarray([o for o, _, _, _ in sl], np.int64),
+                        np.asarray([ln for _, ln, _, _ in sl], np.int64),
+                        np.arange(i * per_frame, (i + 1) * per_frame))
+                pays.append(pay)
+                nchs.append(meta[0])
+                qns.append(meta[1])
+                lins.append(meta[2])
 
-        lowpass = []
-        for ch in range(nch):
-            w = lws[ch]
-            arr = torch.zeros((batch, lh, w), dtype=torch.int32,
-                              pin_memory=pin)
-            # the 4:2:2 outputs' bias; the deep RGB and Bayer paths take
-            # none
-            bias = (intra_host.lowpass_channel_offset(w)
-                    if self.encoded == "YUV" else 0)
-            for i in live:
-                fastwalk.lowpass_i32(samples[i], walks[i].lowpass_off[ch],
-                                     lh, w, bias, arr[i].numpy())
-            lowpass.append(arr)
-        return (tuple(pays), tuple(nchs), tuple(qns), tuple(lins),
-                tuple(lowpass), fallback)
+            lowpass = []
+            for ch in range(nch):
+                w = lws[ch]
+                arr = torch.zeros((batch, lh, w), dtype=torch.int32,
+                                  pin_memory=pin)
+                # the 4:2:2 outputs' bias; the deep RGB and Bayer paths take
+                # none
+                bias = (intra_host.lowpass_channel_offset(w)
+                        if self.encoded == "YUV" else 0)
+                for i in live:
+                    fastwalk.lowpass_i32(samples[i], walks[i].lowpass_off[ch],
+                                         lh, w, bias, arr[i].numpy())
+                lowpass.append(arr)
+            return (tuple(pays), tuple(nchs), tuple(qns), tuple(lins),
+                    tuple(lowpass), fallback)
 
     def _upload_rows(self, rows):
         """`_decode_rows_host`'s tensors -> the device (asynchronous copies
         from pinned memory on CUDA); the fallback set passes through."""
-        *groups, fallback = rows
-        return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
-                  for g in groups), fallback)
+        with timing.span("intra.upload_rows"):
+            *groups, fallback = rows
+            return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
+                      for g in groups), fallback)
 
     def _decode_rows_args(self, samples: list[bytes], resolution: int = 1,
                           host=()):
@@ -1178,7 +1211,9 @@ class IntraCodec:
         if len(fallback) < batch:
             coeffs, ovf = self.decode_coefficients(*rows, resolution)
             out = _download(finish(coeffs, slice(None)))
-            fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+            with timing.span("intra.overflow_read"):
+                ovf = ovf.cpu()
+            fallback |= {int(i) for i in torch.nonzero(ovf).flatten()}
         fallback = tuple(sorted(fallback))
         decoded = {}
         for i in fallback:
@@ -1218,17 +1253,18 @@ class IntraCodec:
         route instead (streams the device route does not take, or that
         overflow their device band region), byte-identical by the codec's
         own semantics."""
-        output = self.decode_output(output, resolution)
-        if develop is not None:
-            develop = develop_plans(develop, len(samples))
+        with timing.span("intra.decode_batch_device", len(samples)):
+            output = self.decode_output(output, resolution)
+            if develop is not None:
+                develop = develop_plans(develop, len(samples))
 
-        def finish(coeffs, frames):
-            out = self.inverse_output(
-                coeffs, frame_index, output,
-                None if develop is None else
-                (develop[frames] if isinstance(frames, slice)
-                 else [develop[i] for i in frames]), resolution)
-            return out if then is None else then(out)
+            def finish(coeffs, frames):
+                out = self.inverse_output(
+                    coeffs, frame_index, output,
+                    None if develop is None else
+                    (develop[frames] if isinstance(frames, slice)
+                     else [develop[i] for i in frames]), resolution)
+                return out if then is None else then(out)
 
-        return self.decode_checked(samples, finish, resolution=resolution,
-                                   host=host)
+            return self.decode_checked(samples, finish, resolution=resolution,
+                                       host=host)

@@ -32,6 +32,7 @@ from cineform_tpu_torch.spec.production import (
     pack_prescale_table,
     spatial_band_scales,
 )
+from cineform_tpu_torch.utils import timing
 from cineform_tpu_torch.utils.glibc_random import glibc_rand_sequence
 
 
@@ -251,12 +252,16 @@ def write_sample(channels: list[EncodedChannel], params: IntraParams,
                 w.put_tag(tags.BAND_SCALE, scales[k][b + 1])
                 w.push_chunk(tags.SUBBAND_SIZE)
                 w.put_tag(tags.BAND_HEADER, 0)
-                payload = (enc.payloads[k][b]
-                           if enc.payloads is not None
-                           and enc.payloads[k] is not None
-                           and enc.payloads[k][b] is not None else None)
-                w.put_bytes(payload if payload is not None
-                            else encode_band_payload(bands[b]))
+                given = (enc.payloads[k] if enc.payloads is not None
+                         else None)
+                if given is None:
+                    payload = encode_band_payload(bands[b])
+                elif given[b] is None:   # overflowed the device coder
+                    with timing.span("intra.reencode"):
+                        payload = encode_band_payload(bands[b])
+                else:
+                    payload = given[b]
+                w.put_bytes(payload)
                 w.pad_to_tag()
                 w.put_tag(tags.BAND_TRAILER, 0)
                 w.pop_chunk()

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from cineform_tpu_torch.ref import demosaic as dm
 from cineform_tpu_torch.ref.demosaic import _RGB2YUV_709, _RGB2YUV_VS709
+from cineform_tpu_torch.utils import timing
 
 
 def _sat16(v: torch.Tensor) -> torch.Tensor:
@@ -337,8 +338,12 @@ def demosaic_raw(G, RG, BG, GD) -> torch.Tensor:
     high-quality debayer, the horizontal then the vertical sharpening.
     (N, h, w) int32 Row16u planes -> (N, 2h, 2w, 3) int32 in [0, 65535],
     `ref/demosaic.demosaic_raw_rg48`."""
-    rgb = debayer(color_difference_to_bayer(G, RG, BG, GD), True)
-    return sharpen_v(sharpen_h(rgb))
+    with timing.span("demosaic.to_bayer"):
+        bayer = color_difference_to_bayer(G, RG, BG, GD)
+    with timing.span("demosaic.debayer"):
+        rgb = debayer(bayer, True)
+    with timing.span("demosaic.sharpen"):
+        return sharpen_v(sharpen_h(rgb))
 
 
 def demosaic_bilinear_rgb(G, RG, BG, GD) -> torch.Tensor:

@@ -38,6 +38,7 @@ from cineform_tpu_torch import api
 from cineform_tpu_torch.bitstream import fastwalk, parse_sample
 from cineform_tpu_torch.models import gop_host
 from cineform_tpu_torch.parallel import mesh as frame_meshes
+from cineform_tpu_torch.utils import timing
 
 
 @dataclass
@@ -259,19 +260,22 @@ class EncoderPool(_Batches):
     def _batch_loop(self) -> None:
         """Drain submissions and encode whole batches on the device."""
         while (jobs := self._next_batch()) is not None:
+            numbers = [j.frame_number for j in jobs]
             try:
-                frames = [np.stack(f) for f in zip(*(j.frames for j in jobs))]
-                numbers = [j.frame_number for j in jobs]
-                meta = [j.metadata for j in jobs]
-                if self.gop:
-                    samples = self._codec.encode_batch(
-                        *frames, frame_numbers=numbers, metadata=meta)
-                else:
-                    samples = self._codec.encode_batch_device(
-                        *frames, frame_numbers=numbers, metadata=meta,
-                        sharding=self._sharding)
-                for j, s in zip(jobs, samples):
-                    j.future.set_result(s)
+                with timing.span("pool.batch", len(jobs), numbers, root=True):
+                    with timing.span("pool.stack"):
+                        frames = [np.stack(f)
+                                  for f in zip(*(j.frames for j in jobs))]
+                    meta = [j.metadata for j in jobs]
+                    if self.gop:
+                        samples = self._codec.encode_batch(
+                            *frames, frame_numbers=numbers, metadata=meta)
+                    else:
+                        samples = self._codec.encode_batch_device(
+                            *frames, frame_numbers=numbers, metadata=meta,
+                            sharding=self._sharding)
+                    for j, s in zip(jobs, samples):
+                        j.future.set_result(s)
             except BaseException as exc:  # propagate to the harvesters
                 self._fail(jobs, exc)
 
@@ -512,13 +516,15 @@ class DecoderPool(_Batches):
         upload."""
         while (jobs := self._next_batch()) is not None:
             try:
-                jobs, walks, host = self._screen(jobs)
-                if not jobs:
-                    continue
-                samples = [j.frames[0] for j in jobs]
-                rows = self._codec._decode_rows_host(samples, walks,
-                                                     host=host)
-                item = (jobs, samples, rows, self._codec._upload_rows(rows))
+                with timing.span("pool.parse_batch", len(jobs), root=True):
+                    jobs, walks, host = self._screen(jobs)
+                    if not jobs:
+                        continue
+                    samples = [j.frames[0] for j in jobs]
+                    rows = self._codec._decode_rows_host(samples, walks,
+                                                         host=host)
+                    item = (jobs, samples, rows,
+                            self._codec._upload_rows(rows))
             except BaseException as exc:
                 self._fail(jobs, exc)
                 continue
@@ -540,21 +546,23 @@ class DecoderPool(_Batches):
                     return  # the parse thread stopped and all is drained
                 jobs, samples, rows, args = self._device_queue.popleft()
             try:
-                errors: dict = {}
-                out, fallback = codec.decode_checked(
-                    samples, lambda coeffs, frames: codec.inverse_output(
-                        coeffs, 0, self._output), rows=args, errors=errors)
-                del rows        # the uploads are done: the fetch synced
-                with self._lock:
-                    self.fallback_frames += len(fallback) - len(errors)
-                for i, j in enumerate(jobs):
-                    if i in errors:
-                        exc = api.CFHDError(api.ErrorCode.BADSAMPLE,
-                                            str(errors[i]))
-                        exc.__cause__ = errors[i]
-                        j.future.set_exception(exc)
-                    else:
-                        j.future.set_result(out[i])
+                with timing.span("pool.decode_batch", len(jobs), root=True):
+                    errors: dict = {}
+                    out, fallback = codec.decode_checked(
+                        samples, lambda coeffs, frames: codec.inverse_output(
+                            coeffs, 0, self._output), rows=args,
+                        errors=errors)
+                    del rows    # the uploads are done: the fetch synced
+                    with self._lock:
+                        self.fallback_frames += len(fallback) - len(errors)
+                    for i, j in enumerate(jobs):
+                        if i in errors:
+                            exc = api.CFHDError(api.ErrorCode.BADSAMPLE,
+                                                str(errors[i]))
+                            exc.__cause__ = errors[i]
+                            j.future.set_exception(exc)
+                        else:
+                            j.future.set_result(out[i])
             except BaseException as exc:
                 self._fail(jobs, exc)
 

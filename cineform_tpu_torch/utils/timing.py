@@ -1,100 +1,261 @@
-"""Stage timing and codec counters: the reference's TIMER/COUNTER analog.
+"""The program's tracer: spans and counters at its layer boundaries, the
+reference's TIMER/COUNTER analog (`Codec/timing.h:88-115`), with its CSV
+statistics (`PrintStatistics`, `timing.h:42`) as `report()`.
 
-Port of `cineform_tpu.utils.timing`.  The reference instruments its
-pipeline with `TIMER`/`COUNTER` macros (`Codec/timing.h:88-115`) and prints
-CSV statistics (`PrintStatistics`, `timing.h:42`).
+Off by default.  Off, `span()` tests one module-level flag and returns a
+shared no-op context; `count()` returns at once.  `enable(capacity)` turns
+it on: then
 
-Here: a context-manager stage timer that waits for the device work of the
-tensors it is given (`torch.cuda.synchronize` of each CUDA device they lie
-on), so a device stage measures its compute and not its launch; counters;
-and a CSV report.  For device profiles use `torch.profiler` alongside.
+- a span (`with span(name):`) records its id, its parent's id (the span
+  open around it on the same thread), its request id, its name, the
+  native id of its thread, its start and end on `time.perf_counter_ns()`
+  (the clock of `time.perf_counter()`), and the frames it worked on (with
+  their frame numbers where the caller gives them).  A span opened with
+  `root=True` starts a new request; the others inherit their parent's
+  request id, 0 outside any request.  While a `torch.profiler` session
+  records on the span's thread, the span also opens a `record_function`
+  range of its name;
+- a counter increment (`count(name, n)`) is an event with its time, so a
+  reader can sum it over any window; `report()` keeps the running totals;
+- each thread's `threading.get_ident()` is kept once beside its native id
+  (a profiler names a thread it recorded no operator on by the former);
+- spans and counter events are kept in a ring of `capacity` records; the
+  records it pushed out are counted in `dropped`, and `lost_until` is the
+  time of the newest of them, so a reader can tell whether a window lost
+  any.
+
+`snapshot()` copies the ring out.  The tracer never synchronizes the
+device or touches device memory.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
+import threading
 import time
-from collections import defaultdict
-from contextlib import contextmanager
-from dataclasses import dataclass, field
+from collections import deque
+from typing import NamedTuple
 
 import torch
 
-
-@dataclass
-class StageStats:
-    calls: int = 0
-    total_s: float = 0.0
-    min_s: float = float("inf")
-    max_s: float = 0.0
-
-    def add(self, dt: float) -> None:
-        self.calls += 1
-        self.total_s += dt
-        self.min_s = min(self.min_s, dt)
-        self.max_s = max(self.max_s, dt)
+DEFAULT_CAPACITY = 1 << 16
 
 
-def _devices(tree, out: set) -> set:
-    """The devices of the tensors in nested lists, tuples and dicts."""
-    if isinstance(tree, torch.Tensor):
-        out.add(tree.device)
-    elif isinstance(tree, (list, tuple)):
-        for t in tree:
-            _devices(t, out)
-    elif isinstance(tree, dict):
-        for t in tree.values():
-            _devices(t, out)
-    else:
-        raise TypeError(f"Timing.stage: cannot wait for a {type(tree)}; "
-                        "sync takes tensors in lists, tuples and dicts")
-    return out
+class SpanRecord(NamedTuple):
+    id: int
+    parent: int            # 0: no span was open around it
+    request: int           # 0: outside any request
+    name: str
+    thread: int            # threading.get_native_id()
+    start: int             # time.perf_counter_ns()
+    end: int
+    frames: int
+    numbers: list | None   # the frames' numbers, where the caller gave them
 
 
-def wait_for(tree) -> None:
-    """Wait until the device work behind the tensors of `tree` is done: a
-    CUDA device is synchronized; a CPU tensor is complete when it is
-    returned."""
-    for dev in _devices(tree, set()):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        elif dev.type != "cpu":
-            raise ValueError(f"Timing.stage: no way to wait for {dev}")
+class CountEvent(NamedTuple):
+    name: str
+    thread: int
+    time: int              # time.perf_counter_ns()
+    n: int
 
 
-@dataclass
-class Timing:
-    """Collects per-stage wall times and event counters."""
+class Snapshot(NamedTuple):
+    spans: list            # SpanRecord, in the order they ended
+    counts: list           # CountEvent, in time order
+    dropped: int           # records the ring pushed out
+    lost_until: int        # the time of the newest of them; -1: none
+    threads: dict          # native thread id -> threading.get_ident()
 
-    stages: dict = field(default_factory=lambda: defaultdict(StageStats))
-    counters: dict = field(default_factory=lambda: defaultdict(int))
 
-    @contextmanager
-    def stage(self, name: str, sync=None):
-        """Time a stage; pass its tensors as `sync` (or set
-        `result["sync"]` on the yielded dict) to wait for their device work
-        before the clock stops."""
-        t0 = time.perf_counter()
-        result = {}
-        try:
-            yield result
-        finally:
-            if sync is not None:
-                wait_for(sync)
-            elif "sync" in result:
-                wait_for(result["sync"])
-            self.stages[name].add(time.perf_counter() - t0)
+_on = False
+_lock = threading.Lock()
+#: span records as plain tuples in SpanRecord's order, counter events in
+#: CountEvent's; `snapshot` names their fields
+_ring: deque = deque(maxlen=DEFAULT_CAPACITY)
+_dropped = 0
+_lost_until = -1
+_threads: dict[int, int] = {}
+_totals: dict[str, list] = {}     # name -> [calls, total, min, max] in ns
+_counters: dict[str, int] = {}
+_ids = itertools.count(1)
+_requests = itertools.count(1)
+_local = threading.local()
+_clock = time.perf_counter_ns
+_profiling = torch.autograd._profiler_enabled
 
-    def count(self, name: str, n: int = 1) -> None:
-        self.counters[name] += n
 
-    def report(self) -> str:
-        out = io.StringIO()
-        out.write("stage,calls,total_ms,mean_ms,min_ms,max_ms\n")
-        for name, s in sorted(self.stages.items()):
-            out.write(f"{name},{s.calls},{s.total_s*1e3:.3f},"
-                      f"{s.total_s/max(s.calls,1)*1e3:.3f},"
-                      f"{s.min_s*1e3:.3f},{s.max_s*1e3:.3f}\n")
-        for name, v in sorted(self.counters.items()):
-            out.write(f"counter:{name},{v}\n")
-        return out.getvalue()
+class _Off:
+    """The span of a tracer that is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Thread:
+    """A thread's native id, entered in the thread table once, and its
+    stack of open spans: (id, request id) each."""
+
+    __slots__ = ("native", "stack")
+
+    def __init__(self):
+        self.native = threading.get_native_id()
+        self.stack = []
+        _threads[self.native] = threading.get_ident()
+
+
+def _thread() -> _Thread:
+    try:
+        return _local.state
+    except AttributeError:
+        _local.state = state = _Thread()
+        return state
+
+
+def _keep(rec: tuple) -> None:
+    """Under the lock: put `rec` in the ring, counting what it pushes
+    out."""
+    global _dropped, _lost_until
+    ring = _ring
+    if len(ring) == ring.maxlen:
+        old = ring[0]
+        _dropped += 1
+        _lost_until = old[6] if len(old) == len(SpanRecord._fields) \
+            else old[2]
+    ring.append(rec)
+
+
+class _Span:
+    __slots__ = ("name", "frames", "numbers", "root", "state", "id",
+                 "parent", "request", "start", "range")
+
+    def __init__(self, name, frames, numbers, root):
+        self.name, self.frames, self.numbers, self.root = \
+            name, frames, numbers, root
+
+    def __enter__(self):
+        self.state = state = _thread()
+        stack = state.stack
+        self.id = next(_ids)
+        self.parent, request = stack[-1] if stack else (0, 0)
+        self.request = next(_requests) if self.root else request
+        stack.append((self.id, self.request))
+        self.range = None
+        if _profiling():
+            self.range = torch.autograd.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start = _clock()
+
+    def __exit__(self, *exc):
+        end = _clock()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        self.state.stack.pop()
+        name, start = self.name, self.start
+        dt = end - start
+        rec = (self.id, self.parent, self.request, name, self.state.native,
+               start, end, self.frames, self.numbers)
+        with _lock:
+            _keep(rec)
+            t = _totals.get(name)
+            if t is None:
+                _totals[name] = [1, dt, dt, dt]
+            else:
+                t[0] += 1
+                t[1] += dt
+                if dt < t[2]:
+                    t[2] = dt
+                if dt > t[3]:
+                    t[3] = dt
+        return False
+
+
+def span(name: str, frames: int = 0, numbers: list | None = None,
+         root: bool = False):
+    """A context that records one span of `name` while the tracer is on:
+    `frames` the frames it works on, `numbers` their frame numbers,
+    `root` True to start a new request."""
+    if not _on:
+        return _OFF
+    return _Span(name, frames, numbers, root)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name`: one event, with its time."""
+    if not _on:
+        return
+    rec = (name, _thread().native, _clock(), n)
+    with _lock:
+        _keep(rec)
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def active() -> bool:
+    """Whether the tracer is on: a caller computes a counter's value only
+    then."""
+    return _on
+
+
+def enable(capacity: int = DEFAULT_CAPACITY) -> None:
+    """Turn the tracer on, with an empty ring of `capacity` records."""
+    global _on, _ring
+    if capacity < 1:
+        raise ValueError(f"a ring of {capacity} records")
+    with _lock:
+        _ring = deque(maxlen=capacity)
+    reset()
+    _on = True
+
+
+def disable() -> None:
+    """Turn the tracer off; what it recorded stays until `reset`."""
+    global _on
+    _on = False
+
+
+def reset() -> None:
+    """Forget every record, the dropped count and the totals."""
+    global _dropped, _lost_until
+    with _lock:
+        _ring.clear()
+        _dropped, _lost_until = 0, -1
+        _totals.clear()
+        _counters.clear()
+
+
+def snapshot() -> Snapshot:
+    """A copy of the ring's records, the dropped count and the threads."""
+    with _lock:
+        records = list(_ring)
+        dropped, lost_until = _dropped, _lost_until
+        threads = dict(_threads)
+    n = len(SpanRecord._fields)
+    return Snapshot([SpanRecord._make(r) for r in records if len(r) == n],
+                    [CountEvent._make(r) for r in records if len(r) != n],
+                    dropped, lost_until, threads)
+
+
+def report() -> str:
+    """CSV: per span name its calls and total, mean, min and max ms, then
+    each counter's running total (`counter:<name>,<total>`)."""
+    with _lock:
+        totals = {k: list(v) for k, v in _totals.items()}
+        counters = dict(_counters)
+    out = io.StringIO()
+    out.write("span,calls,total_ms,mean_ms,min_ms,max_ms\n")
+    for name, (calls, total, lo, hi) in sorted(totals.items()):
+        out.write(f"{name},{calls},{total / 1e6:.3f},"
+                  f"{total / calls / 1e6:.3f},{lo / 1e6:.3f},"
+                  f"{hi / 1e6:.3f}\n")
+    for name, v in sorted(counters.items()):
+        out.write(f"counter:{name},{v}\n")
+    return out.getvalue()

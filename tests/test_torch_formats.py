@@ -27,7 +27,6 @@ from cineform_tpu_torch.ops import bgra
 from cineform_tpu_torch.ops.demosaic import DevelopPlan
 from cineform_tpu_torch.ops import intra_transform as tops
 from cineform_tpu_torch.ref.intra import byr4_log90_curve
-from cineform_tpu_torch.utils.timing import Timing
 from tests.test_formats import _golden
 
 torch.set_num_threads(1)
@@ -443,22 +442,3 @@ def test_outputs_of_the_new_formats_and_their_checks():
     assert codec("BYR5").row_bytes == 144
     assert (codec("BYR4").params.width, codec("BYR4").params.height) == \
         (48, 24)
-
-
-def test_timing_stage_on_cpu_tensors():
-    """`Timing.stage` times a stage whose tensors are on the CPU (nothing
-    to wait for), counts, reports, and refuses to wait for what it cannot."""
-    t = Timing()
-    x = torch.arange(10)
-    with t.stage("a", sync=x):
-        x = x * 2
-    with t.stage("a") as r:
-        r["sync"] = {"y": [x, (x + 1,)]}
-    t.count("frames", 3)
-    assert t.stages["a"].calls == 2 and t.stages["a"].total_s >= 0
-    report = t.report().splitlines()
-    assert report[0] == "stage,calls,total_ms,mean_ms,min_ms,max_ms"
-    assert report[1].startswith("a,2,") and report[2] == "counter:frames,3"
-    with pytest.raises(TypeError, match="cannot wait"):
-        with t.stage("b", sync=np.zeros(3)):
-            pass

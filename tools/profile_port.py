@@ -14,17 +14,20 @@ through `cineform_tpu_torch.models.intra.IntraCodec` and prints:
   decode device (`inverse` + download), and the parts of the device
   decode route (`decode_batch_device`): header walk and fill, upload,
   device entropy decode, inverse with pack, download;
-- within the host tails, the seconds spent in each host function they call
-  (parsing, the C++ band decoder, the C++ band encoder that re-encodes
-  the overflowed bands, the sample writer), over the same 5 runs;
-- within the device entropy decode, the ms per batch of each decoder stage
-  (`entropy.device_decode`: classify, chunk_transfers, scan_entries_rows,
-  final_walk, emit_slots, compact_rows, spread_rows), each ended by a
-  device synchronize, over the same 5 runs;
+- the program's own spans over those runs, from its tracer
+  (`cineform_tpu_torch.utils.timing.report()`: calls and total, mean, min
+  and max host ms a span name, and the band counters), which split the
+  host tails (the fetch, each frame's sample, the C++ re-encode of the
+  overflowed bands) and the device decode route (header walk, upload, each
+  band decoder stage, download);
 - for the device stages under torch.profiler (3 runs after a warm-up):
   the profiled wall ms per batch, the device's busy ms (the union of its
   kernel, copy and memset intervals) and its share of the wall, and the
-  operators and kernels with the most device time.
+  operators and kernels with the most device time; for the device decode
+  route also the device ms per batch of each band decoder stage
+  (`entropy.device_decode`: classify, chunk_transfers, scan_entries_rows,
+  final_walk, emit_slots, compact_rows, spread_rows), the profiler's
+  `key_averages()` row of the tracer's `entropy.*` range.
 
 It ends with the card's name and power limit, and writes everything it
 printed to --out as well.
@@ -53,38 +56,6 @@ _lines: list[str] = []
 def log(msg: str) -> None:
     _lines.append(msg)
     print(msg, flush=True)
-
-
-class Timed:
-    """Replaces `module.name` by a wrapper that sums its seconds and calls,
-    for the duration of a `with` block.  With `sync`, each call is bounded
-    by device synchronizes, so a device stage's time is its own."""
-
-    def __init__(self, module, name: str, sync=None):
-        self.module, self.name, self.sync = module, name, sync
-        self.seconds, self.calls = 0.0, 0
-
-    def __enter__(self):
-        fn = self.orig = getattr(self.module, self.name)
-
-        def wrapped(*args, **kwargs):
-            if self.sync:
-                self.sync()
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-                if self.sync:
-                    self.sync()
-                return out
-            finally:
-                self.seconds += time.perf_counter() - t0
-                self.calls += 1
-
-        setattr(self.module, self.name, wrapped)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
 
 
 def device_busy_ms(prof, out_dir: str) -> float:
@@ -117,11 +88,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from cineform_tpu_torch.entropy import device_decode as ddec
-    from cineform_tpu_torch.entropy import native
-    from cineform_tpu_torch.models import intra_host
     from cineform_tpu_torch.models import intra as port_intra
     from cineform_tpu_torch.testframes import yuy2_frame
+    from cineform_tpu_torch.utils import timing
 
     dev = torch.device("cuda", 0)
     out_dir = os.path.dirname(os.path.abspath(args.out))
@@ -167,59 +136,32 @@ def main() -> int:
         "device decode route: download": lambda: dev_out.cpu().numpy(),
         "device decode route, whole (decode_batch_device)": dec_route,
     }
-    host_fns = [
-        (port_intra, "parse_sample", "decode: bitstream.parse_sample"),
-        (native, "decode_band", "decode: entropy.native.decode_band (C++)"),
-        (intra_host, "encode_band_payload",
-         "encode: C++ band encoder (intra_host.encode_band_payload)"),
-        (intra_host, "write_sample", "encode: intra_host.write_sample"),
-    ]
     overflowed = sum(int(o.sum()) for _, levels in packed
                      for _, _, o, _ in levels)
     log(f"{BATCH} frames of {WIDTH}x{HEIGHT} YUY2 at quality {QUALITY}, "
         f"cap_bits 8: {overflowed} of {BATCH * 27} bands overflowed; "
         f"torch {torch.__version__}, {torch.cuda.get_device_name(0)}")
 
-    dec_stages = ("classify", "chunk_transfers", "scan_entries_rows",
-                  "final_walk", "emit_slots", "compact_rows", "spread_rows")
-    timers = [Timed(m, n) for m, n, _ in host_fns]
-    stage_timers = [Timed(ddec, n, torch.cuda.synchronize)
-                    for n in dec_stages]
-    entropy_name = "device decode route: entropy decode (decode_coefficients)"
-    for t in timers:
-        t.__enter__()
+    timing.enable()
     try:
         for name, fn in stages.items():
             fn()
             ms = []
-            if name == entropy_name:
-                for t in stage_timers:
-                    t.__enter__()
             for _ in range(REPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-            if name == entropy_name:
-                for t in stage_timers:
-                    t.__exit__()
             log(f"{name}: median {statistics.median(ms)} ms per batch of "
                 f"{BATCH}, {statistics.median(ms) / BATCH} ms per frame "
                 f"(runs: {ms})")
+        # each stage ran once to warm up and REPS times timed
+        log(f"== the program's spans over those runs ({REPS + 1} of each "
+            f"stage; host ms, a span's device work not waited for):")
+        log(timing.report().rstrip())
     finally:
-        for t in timers:
-            t.__exit__()
-    # each host function ran in the warm-up and the REPS timed runs of its
-    # stage
-    for t, (_, _, what) in zip(timers, host_fns):
-        per_frame = t.seconds * 1e3 / ((REPS + 1) * BATCH)
-        log(f"  {what}: {per_frame} ms per frame ({t.calls} calls)")
-    for t in stage_timers:
-        log(f"  device entropy decode stage {t.name}: "
-            f"{t.seconds * 1e3 / REPS} ms per batch, "
-            f"{t.seconds * 1e3 / (REPS * BATCH)} ms per frame "
-            f"({t.calls} calls, device-synchronized)")
+        timing.disable()
 
     for name in ("encode device (upload + forward_packed)",
                  "decode device (inverse + download)",
@@ -227,18 +169,28 @@ def main() -> int:
         fn = stages[name]
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / PROFILED
+        timing.enable()     # the spans' ranges name the decoder's stages
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED
+        finally:
+            timing.disable()
         busy = device_busy_ms(prof, out_dir) / PROFILED
         log(f"== {name}, profiled: wall {wall} ms per batch of {BATCH}, "
             f"device busy {busy} ms ({100 * busy / wall}% of wall)")
-        log(prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=20, max_name_column_width=60))
+        rows = prof.key_averages()
+        for row in sorted(rows, key=lambda r: r.key):
+            if row.key.startswith("entropy."):
+                ms = row.device_time_total / 1e3 / PROFILED
+                log(f"  band decoder stage {row.key}: device {ms} ms per "
+                    f"batch, {ms / BATCH} ms per frame ({row.count} ranges)")
+        log(rows.table(sort_by="self_device_time_total", row_limit=20,
+                       max_name_column_width=60))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
