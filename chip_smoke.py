@@ -13,8 +13,12 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    level 1 from the YUY2 bytes and the two three-channel levels, on that
    batch and on the 1080p golden's frame, and the single-plane level on
    the batch's luma; every chunk_pack and merge_network call of the band
-   groups, one frame being seeded noise so that chunks overflow, which
-   chunk_pack packs by its tree and whose rows merge_network sends
+   groups at the encoder's chunk schedule (`chunk_schedule`: every chunk
+   at its worst case, so none may take the tree and no row fail the
+   guard), timed with their device times, bytes and bounds, and again at
+   a checked schedule of 12 bits a coefficient, booked apart as
+   `chunk_cap_12`, where frame 7, seeded noise, has chunks that overflow,
+   which chunk_pack packs by its tree and whose rows merge_network sends
    through its network: the counts of both must equal those of the plain
    criteria `_pack_fits` and `_concat_guard`) and of a batch-8 1080p
    decode (the merge_network_tgt compaction and the
@@ -39,13 +43,15 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
    function, that call's time, go beside its time;
 4. fails unless every kernel was launched by that main-path run (the DWT
    3 times a batch, the single-plane level never), and, for
-   the three merge forms, unless both branches were launched, and no
-   decoder row failed its guard (encoder rows may: their count is
-   printed, as is the count of chunks chunk_pack packed by its tree);
+   the three merge forms, unless both branches were launched, no row
+   failed its guard and no chunk took chunk_pack's tree;
 5. holds frames 0 and 7 of the batch, encoded and decoded, against the
    port's own plain path on the CPU (the plain PyTorch versions of the
-   kernels), byte for byte, and the batch's overflow count, PSNR and ratio
-   against the content figures of BENCH_r05.json;
+   kernels), byte for byte, the batch's PSNR and ratio against the
+   content figures of BENCH_r05.json, and its overflow count (none);
+   then encodes the batch with frame 7 seeded noise, whose bands pass
+   their own capacity: some must overflow, and the samples, those bands
+   re-encoded on the host, must equal `encode_batch`'s (the host coder's);
 6. runs the RGB 4:4:4 and RGBA 4:4:4:4 path: first each kernel against its
    plain version at the shapes of a batch-8 1080p RG48 encode and decode
    (`dwt_forward_planes`' three levels, timed like the YUY2 DWT, and every
@@ -392,8 +398,15 @@ RAW_GOLDENS = (("R210", "raw_r210", 4), ("DPX0", "raw_DPX0", 4),
 SCAN_WIDTH, SCAN_HEIGHT, SCAN_BATCH = 4096, 2160, 4
 CUSTOM_TABLES = {"all 1": [1] * 17, "largest": [0xFFFF] * 17}
 # BENCH_r05.json's content figures for this batch (1080p, batch 8,
-# quality 4, cap_bits 8): the codec is integer, so the port repeats them
-OVERFLOWED_BANDS, PSNR_DB, RATIO = 57, 47.26, 2.93
+# quality 4, cap_bits 8): the codec is integer, so the port repeats its
+# PSNR and ratio.  Its 57 overflowed bands were chunks past the JAX
+# coder's 12 bits a coefficient; the port packs every chunk at its worst
+# case, and no band of this batch passes its own 8 bits a coefficient.
+OVERFLOWED_BANDS, PSNR_DB, RATIO = 0, 47.26, 2.93
+# a checked chunk schedule (the JAX coder's), beside the encoder's: chunks
+# past 12 bits a coefficient take chunk_pack's tree there, and the rows of
+# their bands merge_network's network
+CHECKED_CHUNK_CAP = 12
 # the card's published peaks (H100 SXM data sheet, at 700 W): memory, and
 # float32 outside the tensor cores, the nearest listed rate for the kernels'
 # 32-bit integer operations
@@ -746,7 +759,7 @@ def main() -> int:
         k.update(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=None)
     for name in ("dwt_forward_yuy2", "dwt_forward_groups",
-                 "dwt_forward_planes"):
+                 "dwt_forward_planes", "chunk_pack", "merge_network"):
         kernels[name].update(device_ms=0.0, bytes=0)
 
     def compare(name, call, plain, what, inputs, ops=None, library=None,
@@ -883,87 +896,111 @@ def main() -> int:
         return int(counter.item())
 
     codes = edev.encode_tables(17)
+    schedule = edev.chunk_schedule(codes)
+    checked = (codes.max_code_bits, CHECKED_CHUNK_CAP)
+
+    def pack_checks(what, bits, sizes, sched, **opts):
+        """chunk_pack at the chunk schedule `sched` against `tree_pack`,
+        and merge_network on its concat rows against the network, with
+        the chunks taking the tree and the rows failing the guard, each
+        equal to its plain criterion; `opts` go to `compare`.  Returns
+        (a chunk overflowed, tree chunks, flagged rows)."""
+        tree = counted(chunk_pack.tree_chunks.setdefault(
+            dev, torch.zeros(1, dtype=torch.int32, device=dev)),
+            lambda: chunk_pack(bits, sizes, *sched))
+        want_tree = int((~edev._pack_fits(sizes, *sched)).sum())
+        packed = compare(
+            "chunk_pack", lambda: chunk_pack(bits, sizes, *sched),
+            lambda: edev.tree_pack(bits, sizes, *sched),
+            f"{what} {tuple(bits.shape)}", (bits, sizes), **opts)
+        log(f"  chunk_pack {what}: {tree} of {sizes.shape[:-1].numel()} "
+            f"chunks took the tree path ({want_tree} do not fit)")
+        if tree != want_tree:
+            raise AssertionError(f"chunk_pack {what}: {tree} chunks took "
+                                 f"the tree, {want_tree} do not fit")
+        val, rem, _ = edev._concat_slots(packed[0], packed[1])
+        merges.reset_counts()
+        flagged = counted(merge_network.flagged.setdefault(
+            dev, torch.zeros(1, dtype=torch.int32, device=dev)),
+            lambda: merge_network(val, rem))
+        guard = edev._concat_guard(rem)
+        branches = dict(merge_network.branch_launches)
+        log(f"  merge_network {what}: {flagged} of {guard.numel()} rows "
+            f"flagged ({int((~guard).sum())} fail _concat_guard), branch "
+            f"launches {branches}")
+        if flagged != int((~guard).sum()) or set(branches.values()) != {1}:
+            raise AssertionError(f"merge_network {what}: {flagged} rows "
+                                 f"flagged, branch launches {branches}")
+        # the same function as one PyTorch call on the rows that pass the
+        # guard, where the words' bits are disjoint and a sum is an OR: a
+        # scatter_add_ into a zeroed row with a spare column for the slots
+        # that fall off, its index built here, outside the timed window
+        n = val.shape[-1]
+        ok_val, ok_rem = val[guard], rem[guard]
+        dest = torch.arange(n, dtype=torch.int32, device=dev) - ok_rem
+        index = torch.where(dest >= 0, dest, n).long()
+
+        def library():
+            return torch.zeros((ok_val.shape[0], n + 1), dtype=torch.int32,
+                               device=dev).scatter_add_(-1, index, ok_val)
+
+        got = compare("merge_network", lambda: merge_network(val, rem),
+                      lambda: edev._settle_network(val, rem),
+                      f"{what} {tuple(val.shape)}", (val, rem),
+                      library=library if guard.any() else None, **opts)
+        if not torch.equal(library()[:, :n], got[0][guard]):
+            raise AssertionError(f"merge_network {what}: the library "
+                                 "yardstick computes another function")
+        return bool(packed[2].any()), tree, flagged
 
     def encode_checks(c, levels, **opts):
         """chunk_pack and merge_network against their plain versions on
-        every band group of `levels` (`c.forward_levels`' output), with the
-        counts of chunks taking the tree and rows failing the guard; `opts`
-        go to `compare`.  Returns (a chunk overflowed, tree chunks, flagged
-        rows)."""
+        every band group of `levels` (`c.forward_levels`' output): at the
+        encoder's chunk schedule, where no chunk may take the tree and no
+        row fail the guard, with `opts` going to `compare`; then at the
+        checked schedule `checked`, untallied (booked as `chunk_cap_12`
+        where `opts` tally, else untimed).  Returns, of the checked
+        schedule, (a chunk overflowed, tree chunks, flagged rows)."""
+        tally = opts.get("tally", True)
+        at_checked = dict(opts, tally=False, book="chunk_cap_12") if tally \
+            else dict(opts, timed=False)
         any_chunk_ovf, tree_total, flagged_total = False, 0, 0
         for lev in range(3):
             for grp, bands in zip(c.groups, levels[lev][1]):
                 bits, sizes = edev.chunk_codes(c.group_bands(bands), codes)
                 what = f"level {lev + 1} channels {grp}"
-                tree = counted(chunk_pack.tree_chunks.setdefault(
-                    dev, torch.zeros(1, dtype=torch.int32, device=dev)),
-                    lambda: chunk_pack(bits, sizes))
-                want_tree = int((~edev._pack_fits(
-                    sizes, cap_bits_per_elem=12)).sum())
-                packed = compare(
-                    "chunk_pack", lambda: chunk_pack(bits, sizes),
-                    lambda: edev.tree_pack(bits, sizes,
-                                           cap_bits_per_elem=12),
-                    f"{what} {tuple(bits.shape)}", (bits, sizes), **opts)
-                log(f"  chunk_pack {what}: {tree} of "
-                    f"{sizes.shape[:-1].numel()} chunks took the tree path "
-                    f"({want_tree} do not fit)")
-                if tree != want_tree:
-                    raise AssertionError(f"chunk_pack {what}: {tree} chunks "
-                                         f"took the tree, {want_tree} do "
-                                         "not fit")
-                any_chunk_ovf |= bool(packed[2].any())
+                got = pack_checks(what, bits, sizes, schedule, **opts)
+                if got != (False, 0, 0):
+                    raise AssertionError(
+                        f"{what}: at the encoder's chunk schedule a chunk "
+                        f"overflowed, took the tree or failed the guard "
+                        f"{got}")
+                ovf, tree, flagged = pack_checks(
+                    f"{what} at chunk cap {CHECKED_CHUNK_CAP}", bits, sizes,
+                    checked, **at_checked)
+                any_chunk_ovf |= ovf
                 tree_total += tree
-                val, rem, _ = edev._concat_slots(packed[0], packed[1])
-                merges.reset_counts()
-                flagged = counted(merge_network.flagged.setdefault(
-                    dev, torch.zeros(1, dtype=torch.int32, device=dev)),
-                    lambda: merge_network(val, rem))
-                guard = edev._concat_guard(rem)
-                branches = dict(merge_network.branch_launches)
-                log(f"  merge_network {what}: {flagged} of {guard.numel()} "
-                    f"rows flagged ({int((~guard).sum())} fail "
-                    f"_concat_guard), branch launches {branches}")
-                if flagged != int((~guard).sum()) or \
-                        set(branches.values()) != {1}:
-                    raise AssertionError(f"merge_network {what}: {flagged} "
-                                         "rows flagged, branch launches "
-                                         f"{branches}")
                 flagged_total += flagged
-                # the same function as one PyTorch call on the rows that
-                # pass the guard, where the words' bits are disjoint and a
-                # sum is an OR: a scatter_add_ into a zeroed row with a
-                # spare column for the slots that fall off, its index built
-                # here, outside the timed window
-                n = val.shape[-1]
-                ok_val, ok_rem = val[guard], rem[guard]
-                dest = torch.arange(n, dtype=torch.int32, device=dev) - ok_rem
-                index = torch.where(dest >= 0, dest, n).long()
-
-                def library():
-                    return torch.zeros((ok_val.shape[0], n + 1),
-                                       dtype=torch.int32, device=dev
-                                       ).scatter_add_(-1, index, ok_val)
-
-                got = compare("merge_network",
-                              lambda: merge_network(val, rem),
-                              lambda: edev._settle_network(val, rem),
-                              f"{what} {tuple(val.shape)}", (val, rem),
-                              library=library if guard.any() else None,
-                              **opts)
-                if not torch.equal(library()[:, :n], got[0][guard]):
-                    raise AssertionError(f"merge_network {what}: the library "
-                                         "yardstick computes another "
-                                         "function")
         return any_chunk_ovf, tree_total, flagged_total
 
     any_chunk_ovf, tree_total, flagged_total = encode_checks(codec, levels)
     if not any_chunk_ovf or not tree_total:
-        raise AssertionError("no chunk overflowed: the tree path of "
-                             "chunk_pack was not checked")
+        raise AssertionError("no chunk overflowed at the checked schedule: "
+                             "the tree path of chunk_pack was not checked")
     if not flagged_total:
-        raise AssertionError("no encoder row failed the guard: the network "
-                             "branch of merge_network was not checked")
+        raise AssertionError("no encoder row failed the guard at the checked "
+                             "schedule: the network branch of merge_network "
+                             "was not checked")
+    for name in ("chunk_pack", "merge_network"):
+        k = kernels[name]
+        b = k["chunk_cap_12"]
+        log(f"  {name}, a batch at the encoder's schedule: kernel "
+            f"{k['ms']:.4f} ms (CUDA events), device {k['device_ms']:.4f} ms "
+            f"(device_ms), bound {k['bound_ms']:.4f} ms ({k['bytes']} bytes, "
+            f"{100 * k['bound_ms'] / k['device_ms']:.1f}% of the device "
+            f"time); at chunk cap {CHECKED_CHUNK_CAP}: device "
+            f"{b['device_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bytes']} bytes); {b['calls']} launches each")
     del x, gx, ll, levels
 
     def decode_checks(c, samples, **opts):
@@ -1174,12 +1211,14 @@ def main() -> int:
                          merge_network_highfirst)}
     for name, (branches, flagged) in guarded.items():
         if branches["placement"] != launches[name] \
-                or branches["network"] != launches[name] \
-                or (flagged and name != "merge_network"):
+                or branches["network"] != launches[name] or flagged:
             raise AssertionError(f"{name}: branch launches {branches} for "
                                  f"{launches[name]} calls, {flagged} "
-                                 "decoder rows failed the guard")
+                                 "rows failed the guard")
     tree_chunks = int(chunk_pack.tree_chunks[dev].item())
+    if tree_chunks:
+        raise AssertionError(f"chunk_pack: {tree_chunks} chunks of the main "
+                             "path took the tree")
 
     # --- 4. the batch against the plain path and BENCH_r05 ----------------------
     if decoded.shape != frames.shape or decoded.dtype != np.uint8:
@@ -1188,7 +1227,7 @@ def main() -> int:
             OVERFLOWED_BANDS, PSNR_DB, RATIO):
         raise AssertionError(
             f"{overflowed} bands overflowed, PSNR {rt_psnr}, ratio "
-            f"{bench_ratio}: BENCH_r05 has {OVERFLOWED_BANDS}, {PSNR_DB}, "
+            f"{bench_ratio}: expected {OVERFLOWED_BANDS}, {PSNR_DB}, "
             f"{RATIO}")
     picks = [0, BATCH - 1]
     t0 = time.perf_counter()
@@ -1205,6 +1244,21 @@ def main() -> int:
                                  "differs from the plain path's")
     log(f"plain path on the CPU, frames {picks}: samples and decodes "
         f"byte-equal to the card's ({time.perf_counter() - t0:.3f} s)")
+    # bands past their own capacity: frame 7 of `check` is seeded noise,
+    # whose bands the host's C++ coder re-encodes from the card's
+    # coefficients
+    noisy = codec.forward_packed(codec._upload(check))
+    noisy_ovf = sum(int(o.sum()) for _, levels in noisy
+                    for _, _, o, _ in levels)
+    if not noisy_ovf or codec.write_samples(check, noisy) \
+            != codec.encode_batch(check):
+        raise AssertionError(f"noise batch: {noisy_ovf} bands overflowed, "
+                             "or the samples differ from encode_batch's "
+                             "(the host coder's)")
+    log(f"noise batch (frame 7 seeded noise): {noisy_ovf} of {nbands} bands "
+        "overflowed at cap_bits 8, re-encoded on the host; samples "
+        "byte-equal to encode_batch's (the host coder's)")
+    del noisy
 
     med = statistics.median
     log(f"batch {BATCH} at {WIDTH}x{HEIGHT} q4 (bench.py content): "
@@ -3890,7 +3944,8 @@ def main() -> int:
         {"name": n, "route": k["route"], "source": k["source"],
          "replaces": k["replaces"],
          **{key: k[key] for key in ("also_replaces", "mode", "device_ms",
-                                    "library_note", "gop") if key in k},
+                                    "bytes", "library_note", "gop",
+                                    "chunk_cap_12") if key in k},
          "launches": sum(by[n] for by in by_path.values()),
          "launches_by_path": {path: by[n] for path, by in by_path.items()},
          "max_abs_err": k["max_abs_err"],

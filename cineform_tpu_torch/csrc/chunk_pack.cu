@@ -26,12 +26,13 @@
 // below so the select tree moves b by all of la, and the merged node fits
 // its words; no bit is lost.  The root is the codes laid end to end: word j
 // holds bits 32j .. 32j+31 of the concatenation, zeros past the length.  A
-// chunk whose flag is clear fits at the main path's schedule (levels 1-4
-// have room for 27-bit codes, the others are checked), so only overflowed
-// chunks run the tree: rare on real content, common on noise.
+// chunk whose flag is clear fits at any schedule whose levels 1-4 have room
+// for 27-bit codes, so only overflowed chunks run the tree.  The encoder's
+// schedule gives every level room for 27-bit codes and checks none, so
+// there every chunk fits; the tree runs only at a checked schedule.
 //
 // What bounds it on this card: device memory.  A chunk reads 2,048 bytes
-// and writes 4 w[7] + 5 (389 at the main path's schedule).  A tree whose 8
+// and writes 4 w[7] + 5 (869 at the encoder's schedule).  A tree whose 8
 // dependent levels each end in a block barrier is bound by their latency
 // instead, so the tree runs only where it must.
 //

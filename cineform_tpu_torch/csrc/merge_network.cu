@@ -41,11 +41,12 @@
 //   d_i = p at each p >= 0, zeros above d[n-1], rem 0.  Unlike the
 //   decoder's compaction, several nonzero slots share a target: the last
 //   word of a chunk that does not end on a word boundary and the next
-//   chunk's first word, and the runs of one target can be long (the 98
+//   chunk's first word, and the runs of one target can be long (the 218
 //   slots of each zero-length chunk of a sparse band land on the previous
 //   tail word).  `_concat_slots` builds rows that pass whenever no chunk of
-//   the band overflowed; an overflowed chunk longer than its M - 1 words
-//   makes the displacements fall, and the row fails.
+//   the band overflowed, as none does at the encoder's schedule; an
+//   overflowed chunk longer than its M - 1 words makes the displacements
+//   fall, and the row fails.
 // - tgt form (low-bit-first).  Guard, per row, with rem[-1] = 0: every step
 //   rem[i] - rem[i-1] is 0 or 1; a slot whose step is 1 has val = tgt = 0; a
 //   slot whose step is 0 has tgt >= 0.  Then d is nondecreasing with steps
@@ -91,11 +92,11 @@
 // flag in the placement pass; the network then runs on the device with no
 // host synchronisation, returning at once where a row's flag is clear, and
 // overwrites each flagged row's output with the network's, counting the
-// row.  The encoder's concat has such rows (every band of noise content,
-// and the bands of real content with a badly overflowed chunk), so its
-// network spreads each flagged row over the whole card, in launches of as
-// many blocks as the card holds at once, which stride over the work and
-// skip the rows whose flag is clear: one shared-memory pass over levels
+// row.  The encoder's concat has such rows only where chunks are packed
+// at a checked schedule and overflow, so its network spreads each flagged
+// row over the whole card, in launches of as many blocks as the card
+// holds at once, which stride over the work and skip the rows whose flag
+// is clear: one shared-memory pass over levels
 // 0..9 on the flagged rows' tiles (a block loads a tile of kTile slots plus
 // the kHalo = 2^10 - 1 slots to its right: a level pulls from j + 2^k, so
 // the stale right edge grows by 2^k per level and the halo absorbs all of

@@ -54,6 +54,12 @@ class EncodeTables:
     def max_mag(self) -> int:
         return len(self.mag_bits) - 1
 
+    @property
+    def max_code_bits(self) -> int:
+        """The longest code `band_codes` emits: a magnitude code and its
+        sign bit, or a run code."""
+        return max(max(self.mag_sizes) + 1, max(self.run_sizes))
+
 
 @lru_cache(maxsize=None)
 def encode_tables(codeset: int = 17) -> EncodeTables:
@@ -359,11 +365,6 @@ def _pack_direct(bits: torch.Tensor, sizes: torch.Tensor,
 # Stage 3b: across-chunk assembly by monotone-displacement compaction
 # ---------------------------------------------------------------------------
 
-# Within-chunk buffer capacity in bits per element.  12 is generous (CFHD
-# bands pack to ~2); a denser chunk flags overflow -> host fallback.
-_CHUNK_CAP_BITS = 12
-
-
 def _network_level(val: torch.Tensor, rem: torch.Tensor, k: int,
                    tgt: torch.Tensor | None = None):
     """One level of the displacement network: slots whose displacement has
@@ -585,22 +586,33 @@ def chunk_codes(values: torch.Tensor, t: EncodeTables, chunk: int = 256):
             sizes.reshape(*lead, nt, chunk).contiguous())
 
 
+def chunk_schedule(t: EncodeTables) -> tuple[int, int]:
+    """The encoder's within-chunk schedule, `(max_code_bits,
+    cap_bits_per_elem)` for `chunk_pack` and `tree_pack`: every chunk at
+    its worst case, the longest code a coefficient, so `pack_schedule`
+    checks no level and no chunk truncates or flags."""
+    return t.max_code_bits, t.max_code_bits
+
+
 def encode_band_arrays(values: torch.Tensor, codeset: int = 17,
                        cap_bits_per_elem: int = 8, chunk: int = 256):
     """(…, N) coefficients -> (words int32, total_bits int32, overflow bool).
 
     Packing is two-level: the chunk_pack kernel within chunks, then the
-    merge_network kernel across them."""
+    merge_network kernel across them.  Each chunk is packed at its worst
+    case (`chunk_schedule`), so no chunk truncates and `total_bits` is
+    always the band's exact length; a band overflows only where that
+    passes its own capacity, `cap_bits_per_elem` a coefficient, and its
+    words are then the first `out_words` words of the exact bitstream."""
     from cineform_tpu_torch.ops.chunk_pack import chunk_pack
 
     n = values.shape[-1]
-    bits, sizes = chunk_codes(values, encode_tables(codeset), chunk)
-    chunk_cap = max(_CHUNK_CAP_BITS, cap_bits_per_elem)
-    bufs, lens, c_ovf = chunk_pack(bits, sizes, cap_bits_per_elem=chunk_cap)
+    t = encode_tables(codeset)
+    bits, sizes = chunk_codes(values, t, chunk)
+    bufs, lens, _ = chunk_pack(bits, sizes, *chunk_schedule(t))
     out_words = _word_cap(max(cap_bits_per_elem * n, 64))
     words, total = _concat_chunks(bufs, lens, out_words)
-    overflow = c_ovf.any(dim=-1) | (total > 32 * out_words)
-    return words, total, overflow
+    return words, total, total > 32 * out_words
 
 
 def finish_band_bytes(words: np.ndarray, total_bits: int,

@@ -8,8 +8,9 @@ gradient + xorshift32 noise), so that golden samples are reproducible: the
 pattern 1 encoded by the reference SDK, and the 320x240 quality-4 goldens
 `<format>_320x240_q4_p1.cfhd` are pattern 1 of each format's frame.  Also
 `uyvy_frame`, the YUY2 frame in UYVY byte order (the frame of
-`uyvy_320x240_q4_p1.cfhd`), and `raw_fill`, the probe's raw fill, which
-`raw_RG64.cfhd` and `raw_BYR5.cfhd` encode.
+`uyvy_320x240_q4_p1.cfhd`), `raw_fill`, the probe's raw fill, which
+`raw_RG64.cfhd` and `raw_BYR5.cfhd` encode, and `plasma_noise_frames`,
+rolled copies of the plasma gradient with seeded noise.
 """
 
 from __future__ import annotations
@@ -46,6 +47,21 @@ def yuy2_frame(width: int, height: int, pattern: int = 0) -> bytes:
         cr = (cr + ((r >> 9) & 7)) & 0xFF
     quad = np.stack([l0, cb, l1, cr], axis=-1).astype(np.uint8)
     return quad.tobytes()
+
+
+def plasma_noise_frames(width: int, height: int, rolls, seed: int
+                        ) -> np.ndarray:
+    """(len(rolls), height, 2 * width) uint8 YUY2 frames: `yuy2_frame`'s
+    plasma gradient (pattern 0) rolled down by each of `rolls` rows, plus
+    3 bits of noise on every component from `seed`.  The gradient wraps,
+    so a roll puts sharp edges inside the bands: dense chunks in sparse
+    bands, as in the benchmark's encode content."""
+    base = np.frombuffer(yuy2_frame(width, height), np.uint8).reshape(
+        height, 2 * width)
+    g = np.random.default_rng(seed)
+    return np.stack([np.roll(base, r, axis=0)
+                     + (g.integers(0, 256, base.shape, dtype=np.uint8) & 7)
+                     for r in rolls])
 
 
 def uyvy_frame(width: int, height: int, pattern: int = 0) -> bytes:

@@ -22,6 +22,7 @@ from cineform_tpu.entropy import host as ehost
 from cineform_tpu.ops.pallas_merge import merge_network as pallas_merge
 from cineform_tpu.ops.pallas_pack import chunk_pack as pallas_pack
 from cineform_tpu_torch.entropy import device as tdev
+from cineform_tpu_torch.entropy import native as tnative
 from tests.test_entropy_host import CASES, CB_BY_INDEX, xorshift32_band
 
 torch.set_num_threads(1)
@@ -292,21 +293,56 @@ def test_place_concat_matches_network_on_monotone_rows(n):
     assert torch.equal(pv, v) and torch.equal(pr, r)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_band_arrays(cap):
+    return jax.jit(functools.partial(jdev.encode_band_arrays, codeset=17,
+                                     cap_bits_per_elem=cap))
+
+
 @pytest.mark.parametrize("cap", [2, 8, 27])
 def test_encode_band_arrays_matches_jax(cap):
     """One 4096-element band, as tests/test_entropy_device.py's tier-1
-    overflow case (cap 2 overflows)."""
+    overflow case (10.4 bits a coefficient).  The port packs every chunk
+    at its worst case, so at every cap its total is the band's exact
+    length, the band overflows only past `cap` bits a coefficient (caps 2
+    and 8), and its words are the exact bitstream's first words: the JAX
+    coder's at cap 27, where no JAX chunk truncates either."""
     rng = np.random.default_rng(4)
     band = rng.integers(-1023, 1024, size=4096, dtype=np.int32)
     band[band == 0] = 1
     band[rng.random(4096) < 0.6] = 0
-    jw, jn, jo = jax.jit(lambda v: jdev.encode_band_arrays(
-        v, 17, cap_bits_per_elem=cap))(jnp.asarray(band))
+    jw, jn, jo = _jax_band_arrays(cap)(jnp.asarray(band))
     w, n, o = tdev.encode_band_arrays(_t(band), 17, cap_bits_per_elem=cap)
-    assert bool(o) == bool(jo)
-    assert bool(o) == (cap != 27)    # ~5.4 bits per coefficient
     assert int(n) == int(jn)
-    np.testing.assert_array_equal(_u32(w.numpy()), _u32(jw))
+    assert bool(o) == (int(n) > cap * band.size)
+    assert bool(o) == bool(jo) == (cap != 27)
+    exact, _, _ = _jax_band_arrays(27)(jnp.asarray(band))
+    np.testing.assert_array_equal(_u32(w.numpy()),
+                                  _u32(exact)[:w.shape[-1]])
+
+
+def test_dense_chunk_in_a_sparse_band_does_not_overflow():
+    """A band of 3.3 bits a coefficient, one of whose chunks codes 26 bits
+    a coefficient: under its 8-bit capacity, so it is not flagged, and its
+    bytes are the host coder's and the JAX coder's at cap 27.  A chunk
+    capacity of 12 bits a coefficient would have flagged it."""
+    rng = np.random.default_rng(21)
+    band = rng.integers(-3, 4, 16 * 256).astype(np.int32)
+    band[rng.random(band.size) >= 0.3] = 0
+    band[5 * 256:6 * 256] = (rng.integers(500, 1024, 256)
+                             * rng.choice([-1, 1], 256)).astype(np.int32)
+    bits, sizes = tdev.chunk_codes(_t(band), tdev.encode_tables(17))
+    per_chunk = sizes.sum(dim=-1) / 256
+    assert per_chunk.max() > 12 and sizes.sum() < 8 * band.size
+    _, _, chunk_ovf = tdev.tree_pack(bits, sizes, cap_bits_per_elem=12)
+    assert chunk_ovf.any()
+    words, nbits, ovf = tdev.encode_band_arrays(_t(band), 17)
+    assert not bool(ovf)
+    mine = tdev.finish_band_bytes(words.numpy(), int(nbits), 17)
+    assert mine == tnative.encode_band_bytes(band, 17).ljust(len(mine),
+                                                             b"\0")
+    jw, jn, _ = _jax_band_arrays(27)(jnp.asarray(band))
+    assert mine == jdev.finish_band_bytes(np.asarray(jw), int(jn), 17)
 
 
 @pytest.mark.parametrize("case_idx", range(len(CASES)))

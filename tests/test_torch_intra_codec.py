@@ -18,8 +18,10 @@ from cineform_tpu.models.intra import IntraCodec as JaxIntraCodec
 from cineform_tpu.models.intra import _dither_rows as jax_dither_rows
 from cineform_tpu.spec.production import IntraParams
 from cineform_tpu.utils.testframes import yuy2_frame
+from cineform_tpu_torch.entropy import device as edev
 from cineform_tpu_torch.models.intra import IntraCodec, sample_metadata
 from cineform_tpu_torch.state import codec_tables
+from cineform_tpu_torch.testframes import plasma_noise_frames
 from tests.test_intra_host import _golden, _metadata_from
 
 torch.set_num_threads(1)
@@ -95,6 +97,33 @@ def test_forced_overflow_falls_back_byte_exact():
         noisy[0].tobytes(), w, h, 4, frame_number=7,
         metadata=intra_host.EncoderMetadata().advanced(6))
     assert got[0] == want
+
+
+def test_dense_chunks_of_plasma_noise_overflow_no_band():
+    """The plasma's wrap-around edges give the second bands of levels 2
+    and 3 chunks of over 12 bits a coefficient, in bands far under their
+    8: no band overflows, and the samples equal the host encoder's."""
+    w, h = 320, 240
+    frames = plasma_noise_frames(w, h, (72, 144), 2)
+    codec = IntraCodec(w, h, 4, device=CPU)
+    t = edev.encode_tables(17)
+    dense = False
+    for _, highs in codec.forward_levels(torch.from_numpy(frames)):
+        for bands in highs:
+            bits, sizes = edev.chunk_codes(codec.group_bands(bands), t)
+            dense |= bool(edev.tree_pack(bits, sizes,
+                                         cap_bits_per_elem=12)[2].any())
+    assert dense     # a chunk capacity of 12 bits would overflow a band
+    packed = codec.forward_packed(torch.from_numpy(frames))
+    assert not any(bool(o.any()) for _, levels in packed
+                   for _, _, o, _ in levels)
+    got = codec.write_samples(frames, packed, 3)
+    assert got == JaxIntraCodec(width=w, height=h, quality=4).encode_batch(
+        frames, 3)
+    for i in range(2):
+        assert got[i] == intra_host.encode_sample(
+            frames[i].tobytes(), w, h, 4, frame_number=3 + i,
+            metadata=intra_host.EncoderMetadata().advanced(2 + i))
 
 
 @pytest.mark.parametrize("name,w,h,q,p", GOLDENS)

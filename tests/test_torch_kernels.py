@@ -31,6 +31,7 @@ from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
 from cineform_tpu_torch.ops.merge_network import (merge_network,
                                                   merge_network_highfirst,
                                                   merge_network_tgt)
+from cineform_tpu_torch.testframes import plasma_noise_frames
 
 torch.set_num_threads(1)
 
@@ -787,6 +788,57 @@ def test_chunk_pack_kernel_prefix_and_tree_chunks(cuda, case, cap):
         (~fits).sum())
     if case == "mixed":
         assert want[2].any() and fits.any()
+
+
+def _tree_chunks(dev) -> int:
+    t = chunk_pack.tree_chunks.get(dev)
+    return 0 if t is None else int(t.item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,density", [(0, 0.2), (1, 0.9), (2, 1.0)])
+def test_chunk_pack_kernel_at_the_encoders_schedule(cuda, seed, density):
+    """At the encoder's schedule, every chunk at its worst case, even
+    chunks of the longest codes fit: the kernel packs every chunk by the
+    prefix sum, equal to the tree and to `_pack_direct`, and flags none."""
+    vals = _rand(seed, (3, 9 * 256))
+    vals[torch.from_numpy(np.random.default_rng(seed).random(
+        vals.shape)) >= density] = 0
+    t = tdev.encode_tables(17)
+    bits, sizes = (x.reshape(3, 9, 256) for x in tdev.band_codes(vals, t))
+    sched = tdev.chunk_schedule(t)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    before = _tree_chunks(dev)
+    got = chunk_pack(bits.to(cuda), sizes.to(cuda), *sched)
+    torch.cuda.synchronize()
+    for want in (tdev.tree_pack(bits, sizes, *sched),
+                 tdev._pack_direct(bits, sizes, *sched)):
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g.cpu(), w)
+    assert _tree_chunks(dev) == before and not got[2].any()
+    if density == 1.0:       # a 12-bit chunk capacity would truncate
+        assert tdev.tree_pack(bits, sizes, cap_bits_per_elem=12)[2].any()
+
+
+@pytest.mark.gpu
+def test_plasma_noise_encode_on_the_card_overflows_nothing(cuda):
+    """One batch-8 1080p encode of the benchmark's content: no band
+    overflows, no chunk takes the tree, no merge_network row fails its
+    guard, and the samples equal the host coder's."""
+    from cineform_tpu_torch.models.intra import IntraCodec
+
+    frames = plasma_noise_frames(1920, 1080,
+                                 [i * 1080 // 8 for i in range(8)], 21)
+    codec = IntraCodec(1920, 1080, 4, device=cuda)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tree, flagged = _tree_chunks(dev), _flagged(merge_network, dev)
+    packed = codec.forward_packed(codec._upload(frames))
+    torch.cuda.synchronize()
+    assert _tree_chunks(dev) == tree
+    assert _flagged(merge_network, dev) == flagged
+    assert not any(bool(o.any()) for _, levels in packed
+                   for _, _, o, _ in levels)
+    assert codec.write_samples(frames, packed) == codec.encode_batch(frames)
 
 
 @pytest.mark.gpu

@@ -5,7 +5,8 @@
 
 For every `chunk_pack` and `merge_network` call of one batch-8 1080p
 quality-4 encode (the content of `bench.py`; with `--noise`, frame 7 is
-seeded noise, as in `chip_smoke.py`'s kernel checks), on one card:
+seeded noise, as in `chip_smoke.py`'s kernel checks), each chunk packed at
+the encoder's schedule (`entropy.device.chunk_schedule`), on one card:
 
 - the wall time of a call, by the host clock over REPS calls back to back
   ended by a synchronize (the wrapper's host path and the device work
@@ -15,8 +16,8 @@ seeded noise, as in `chip_smoke.py`'s kernel checks), on one card:
 - the rows that failed the merge guard and the chunks that took the tree,
   where the wrappers count them.
 
-It runs against the package found beside it, so the same file measures a
-`git archive` of an older tree put in its place.  Needs a CUDA card.
+It runs against the package found beside it; an older tree is measured
+by that tree's own copy of this file.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -74,6 +75,10 @@ def main() -> int:
                                                        dtype=np.uint8)
     levels = codec.forward_levels(codec._upload(frames))
     codes = edev.encode_tables(17)
+    schedule = edev.chunk_schedule(codes)
+
+    def pack(bits, sizes):
+        return chunk_pack(bits, sizes, *schedule)
 
     def counter(wrapper, name):
         t = getattr(wrapper, name, {}).get(dev)
@@ -117,14 +122,13 @@ def main() -> int:
             bits, sizes = edev.chunk_codes(codec.group_bands(bands), codes)
             what = f"level {lev + 1} channels {grp}"
             w, d = measure(f"chunk_pack {what} {tuple(bits.shape)}",
-                           lambda: chunk_pack(bits, sizes), chunk_pack,
+                           lambda: pack(bits, sizes), chunk_pack,
                            "tree_chunks")
             totals["chunk_pack"][0] += w
             totals["chunk_pack"][1] += d
-            packed = chunk_pack(bits, sizes)
+            packed = pack(bits, sizes)
             val, rem, _ = edev._concat_slots(packed[0], packed[1])
-            guard = getattr(edev, "_concat_guard", None)   # older trees
-            failing = None if guard is None else int((~guard(rem)).sum())
+            failing = int((~edev._concat_guard(rem)).sum())
             w, d = measure(f"merge_network {what} {tuple(val.shape)}, "
                            f"{failing} rows fail the guard",
                            lambda: merge_network(val, rem), merge_network,
