@@ -1085,6 +1085,7 @@ class Decoder:
                         None if warp is None or detour else self._warp(*warp))
                     if detour:
                         raise self._no_warp_decode()
+                    timing.count("gop.frames_out")
                     return np.ascontiguousarray(out).view(np.uint8).reshape(
                         self.height, -1)
                 if info0 is None:
@@ -1111,6 +1112,8 @@ class Decoder:
                         f"{self.height * row_bytes}")
                 if detour and not self._takes_warp_decode(info0):
                     raise self._no_warp_decode()
+                if info0.sample_type == tags.SAMPLE_TYPE_GROUP:
+                    timing.count("gop.frames_out")
                 return out.reshape(self.height, row_bytes)
             except CFHDError:
                 raise

@@ -62,6 +62,7 @@ from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
 from cineform_tpu_torch.ref import gop as gxf
 from cineform_tpu_torch.spec import tags
 from cineform_tpu_torch.state import dither_rows
+from cineform_tpu_torch.utils import timing
 
 #: the channels by group of equal plane shape: Y, then V and U
 GROUPS = ((0,), (1, 2))
@@ -78,6 +79,14 @@ def _dither(height: int, frame_index: int, interlaced: bool,
     rows = (gxf.interlaced_dither_rows(height, frame_index) if interlaced
             else dither_rows(height, frame_index))
     return torch.from_numpy(rows.astype(np.int32)).to(device)
+
+
+def _count_groups(decoded: int, fallback: int) -> None:
+    """The tracer's GOP counters of one device-route call: the groups it
+    decoded and, of them, those `decode_batch` or `decode_batch_to`
+    decoded instead (an event even at 0, so a window reads 0.0)."""
+    timing.count("gop.group_decodes", decoded)
+    timing.count("gop.fallback_groups", fallback)
 
 
 def _raw16(band) -> np.ndarray:
@@ -474,7 +483,10 @@ class GopCodec:
 
     def _decode_rows_args(self, samples: list[bytes]):
         """`_decode_rows_host` with its tensors uploaded to the device."""
-        return self._upload_rows(self._decode_rows_host(samples))
+        with timing.span("gop.decode_rows_host", len(samples)):
+            rows = self._decode_rows_host(samples)
+        with timing.span("gop.upload_rows"):
+            return self._upload_rows(rows)
 
     def decode_coefficients(self, pays, nchs, qns, lins, lowpass, ll3):
         """Per-class band payload rows on the device -> (per-channel
@@ -513,6 +525,7 @@ class GopCodec:
         batch = len(samples)
         *rows, fallback = self._decode_rows_args(samples)
         if len(fallback) == batch:
+            _count_groups(batch, batch)
             return (*self.decode_batch(samples, reference_compatible,
                                        dither_base), tuple(range(batch)))
         coeffs, ovf = self.decode_coefficients(*rows)
@@ -525,6 +538,7 @@ class GopCodec:
                                        reference_compatible, dither_base)
             f0[list(fallback)] = h0
             f1[list(fallback)] = h1
+        _count_groups(batch, len(fallback))
         return f0, f1, fallback
 
     # --- decode to the deep and RGB outputs --------------------------------
@@ -602,16 +616,21 @@ class GopCodec:
         device route does not take, of another precision than 10 bits, or
         that overflows its device band region)."""
         batch = len(samples)
-        *rows, fallback = self._decode_rows_args(samples)
-        if len(fallback) == batch:
-            return (self.decode_batch_to(samples, output, frame, then),
-                    tuple(range(batch)))
-        coeffs, ovf = self.decode_coefficients(*rows)
-        frames = self.inverse_to(coeffs, output, frame)
-        out = _download(frames if then is None else then(frames))
-        fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
-        fallback = tuple(sorted(fallback))
-        if fallback:
-            out[list(fallback)] = self.decode_batch_to(
-                [samples[i] for i in fallback], output, frame, then)
+        with timing.span("gop.decode_batch_device_to", batch):
+            *rows, fallback = self._decode_rows_args(samples)
+            if len(fallback) == batch:
+                _count_groups(batch, batch)
+                return (self.decode_batch_to(samples, output, frame, then),
+                        tuple(range(batch)))
+            with timing.span("gop.decode_coefficients", batch):
+                coeffs, ovf = self.decode_coefficients(*rows)
+            with timing.span("gop.inverse_to", batch):
+                frames = self.inverse_to(coeffs, output, frame)
+            out = _download(frames if then is None else then(frames))
+            fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+            fallback = tuple(sorted(fallback))
+            if fallback:
+                out[list(fallback)] = self.decode_batch_to(
+                    [samples[i] for i in fallback], output, frame, then)
+            _count_groups(batch, len(fallback))
         return out, fallback

@@ -1,10 +1,12 @@
 """The port's tracer (`cineform_tpu_torch.utils.timing`) on the CPU: off by
 default and recording nothing; on, the spans of a small YUY2 batch encode
-and of BYR4 decodes through `api.Decoder`, nested by parent id under one
-request id a call; the band counters against `forward_packed`'s overflow
-flags; the ring's bound and its `dropped` count; and the same samples and
-frames with the tracer on and off."""
+and of BYR4 decodes and a GOP group's GROUP and FRAME samples through
+`api.Decoder`, nested by parent id under one request id a call; the band
+counters against `forward_packed`'s overflow flags; the GOP counters; the
+ring's bound and its `dropped` count; and the same samples and frames
+with the tracer on and off."""
 
+import os
 import subprocess
 import sys
 import threading
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from cineform_tpu_torch import api, testframes
+from cineform_tpu_torch.models import gop_host
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.utils import timing
 
@@ -251,3 +254,102 @@ def test_samples_and_frames_equal_with_the_tracer_on_and_off():
         timing.reset()
     assert on == off
     assert on_rg48 == off_rg48
+
+
+def _gop_group(w=96, h=48) -> tuple[bytes, bytes]:
+    """A GROUP sample of two rolled frames and its 24-byte FRAME sample."""
+    f = _yuy2(w, h)
+    group = api.gop_codec(w, h, 4, CPU).encode_batch(
+        f[None, 0], f[None, 1], frame_numbers=[1])[0]
+    return group, gop_host.frame_header_sample(w, h, 1)
+
+
+def _play(samples, fmt=api.PixelFormat.V210, w=96, h=48) -> list[bytes]:
+    dec = api.Decoder("cpu")
+    dec.prepare_to_decode(w, h, fmt)
+    return [dec.decode_sample(s).tobytes() for s in samples]
+
+
+def _totals(snap) -> dict:
+    out: dict = {}
+    for c in snap.counts:
+        out[c.name] = out.get(c.name, 0) + c.n
+    return out
+
+
+GOP_NESTING = {
+    "api.decode_sample": {None},
+    "api.parse": {"api.decode_sample"},
+    "gop.decode_batch_device_to": {"api.decode_sample"},
+    "gop.decode_rows_host": {"gop.decode_batch_device_to"},
+    "gop.upload_rows": {"gop.decode_batch_device_to"},
+    "gop.decode_coefficients": {"gop.decode_batch_device_to"},
+    **{f"entropy.{stage}": {"gop.decode_coefficients"}
+       for stage in ("classify", "chunk_transfers", "scan_entries_rows",
+                     "final_walk", "emit_slots", "compact_rows",
+                     "spread_rows")},
+    "gop.inverse_to": {"gop.decode_batch_device_to"},
+    "intra.download": {"gop.decode_batch_device_to"},
+}
+
+
+def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
+    """A group's GROUP then FRAME sample to v210: each call one request
+    whose `gop.decode_batch_device_to` span (a frame) holds the walk, the
+    upload, the band decoder at the 6 row classes and the inverse; each
+    call decodes the group and delivers one frame."""
+    samples = _gop_group()
+    tracer.reset()
+    _play(samples)
+    snap = tracer.snapshot()
+    assert _parents(snap) == GOP_NESTING
+    roots = [s for s in snap.spans if s.name == "api.decode_sample"]
+    assert len(roots) == 2 and len({r.request for r in roots}) == 2
+    for r in roots:
+        inside = [s for s in snap.spans if s.request == r.request]
+        assert all(r.start <= s.start <= s.end <= r.end for s in inside)
+        gop = [s for s in inside if s.name.startswith("gop.")]
+        assert sorted(s.name for s in gop) == [
+            "gop.decode_batch_device_to", "gop.decode_coefficients",
+            "gop.decode_rows_host", "gop.inverse_to", "gop.upload_rows"]
+        assert all(s.frames == 1 for s in gop
+                   if s.name != "gop.upload_rows")
+        assert sum(s.name == "entropy.chunk_transfers" for s in inside) == 6
+    assert _totals(snap) == {"gop.group_decodes": 2, "gop.frames_out": 2,
+                             "gop.fallback_groups": 0}
+    for c in snap.counts:
+        assert any(r.start <= c.time <= r.end and r.thread == c.thread
+                   for r in roots)
+
+
+def test_gop_group_that_falls_back_counts_it(tracer):
+    """The interlaced group, whose bands carry peaks, goes to the host
+    route: one group decoded, one fallen back, one frame out."""
+    path = os.path.join(os.path.dirname(__file__), "golden", "samples",
+                        "ilace_320x240_q4_p1.cfhd.f1")
+    with open(path, "rb") as f:
+        sample = f.read()
+    tracer.reset()
+    _play([sample], api.PixelFormat.YU64, 320, 240)
+    snap = tracer.snapshot()
+    assert _totals(snap) == {"gop.group_decodes": 1, "gop.frames_out": 1,
+                             "gop.fallback_groups": 1}
+    assert [s.frames for s in snap.spans
+            if s.name == "gop.decode_batch_device_to"] == [1]
+    assert not any(s.name == "gop.inverse_to" for s in snap.spans)
+
+
+def test_off_records_no_gop_span_or_counter():
+    samples = _gop_group()
+    timing.disable()
+    timing.reset()
+    off = _play(samples)
+    snap = timing.snapshot()
+    assert snap.spans == [] and snap.counts == []
+    timing.enable()
+    try:
+        on = _play(samples)
+    finally:
+        timing.disable()
+        timing.reset()
+    assert on == off
