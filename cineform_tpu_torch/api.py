@@ -683,6 +683,9 @@ class Decoder:
         self._channels_active = 1
         self._channel_blend = stereo.BLEND_STACKED_ANAMORPHIC
         self._held_group = None
+        #: (the held group, its parse, its device coefficients) after a
+        #: device-route decode of the group to a deep or RGB output
+        self._held_coeffs = None
         self._warp_mesh_cache: dict = {}
         self.fallback_frames = 0
 
@@ -732,6 +735,7 @@ class Decoder:
         self.output_format = output_format
         self.resolution = resolution
         self._prepared = True
+        self._held_coeffs = None
         return width, height, output_format
 
     # CFHD_SetActiveMetadata(TAG_CHANNELS_ACTIVE) analog
@@ -862,33 +866,66 @@ class Decoder:
                     then=None) -> np.ndarray:
         """Frame `frame` of a group to a deep or RGB output (YU64, v210,
         RG48, BGRA, b64a, r210, DPX0, RG30: `GopCodec.inverse_to`), `then`
-        on the device before the download."""
+        on the device before the download.  A group the device route
+        decoded stays held with its coefficients for its other frame."""
         out = self._PORTED["GOP"].get(self.output_format)
         if out is None:
             raise CFHDError(ErrorCode.BADFORMAT,
                             f"{what} decode to {self.output_format!r}")
         codec = gop_codec(info.width, info.height, DECODE_QUALITY,
                           self.device)
-        frames, fallback = codec.decode_batch_device_to([sample], out, frame,
-                                                        then)
+        frames, fallback, coeffs = codec.decode_group_device_to(
+            sample, out, frame, then)
         self.fallback_frames += len(fallback)
+        if coeffs is not None:
+            self._held_coeffs = (sample, info, coeffs)
         return frames[0]
 
-    def _decode_frame_sample(self, then=None) -> np.ndarray:
+    def _held_frame(self, info, coeffs, then=None) -> np.ndarray:
+        """Frame 1 of the held group from the coefficients its decode left
+        on the device, as `DecodeSampleFrame` reconstructs it from the
+        transform the decoder holds: the inverse, `then` and the download,
+        no walk, upload or band decode."""
+        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
+                          self.device)
+        with timing.span("gop.held_frame", 1):
+            try:
+                frames = codec.coefficients_to(
+                    coeffs, self._PORTED["GOP"][self.output_format], 1, then)
+            except Exception:
+                self._held_coeffs = None
+                raise
+            timing.count("gop.held_frames")
+        return frames[0]
+
+    def _held_parse(self):
+        """The held group's parse, kept with its coefficients or parsed
+        now."""
+        held = self._held_coeffs
+        if held is not None and held[0] is self._held_group:
+            return held[1]
+        return parse_sample(self._held_group)
+
+    def _decode_frame_sample(self, info, then=None) -> np.ndarray:
         """24-byte SAMPLE_TYPE_FRAME sample: emit the TRUE second frame of
         the group this decoder holds (`DecodeSampleFrame` ->
         ReconstructSampleFrameToBuffer(frame_index=1),
         decoder.c:11482/11546), with the second dither window, or scaled
-        to the prepared size.  `then`: the warp of the deep and RGB
+        to the prepared size; the deep and RGB outputs from the group's
+        coefficients where its decode left them on the device.  `info`:
+        the held group's parse; `then`: the warp of the deep and RGB
         outputs, on the device."""
         held = self._held_group
         if held is None:
             raise CFHDError(ErrorCode.BADSAMPLE,
                             "FRAME sample without a decoded group")
-        info = parse_sample(held)
         if (self.width, self.height) != (info.width, info.height):
             return self._decode_to_size(held, info, frame=1, then=then)
         if self.output_format not in (PixelFormat.YUY2, PixelFormat.UYVY):
+            kept = self._held_coeffs
+            if (kept is not None and kept[0] is held
+                    and self.output_format in self._PORTED["GOP"]):
+                return self._held_frame(info, kept[2], then)
             return self._gop_output(held, info, "FRAME sample", 1, then)
         # the rand() dither stream persists across samples in one
         # decoder instance: this frame takes the NEXT window after
@@ -907,6 +944,7 @@ class Decoder:
         0 and 1, each scaled; the deep and RGB outputs are frame 0's, and
         `then` their warp on the device."""
         self._held_group = sample
+        self._held_coeffs = None
         if self.resolution != DecodedResolution.FULL:
             raise CFHDError(ErrorCode.BADFORMAT,
                             "scaled GOP decode is not supported")
@@ -1079,9 +1117,11 @@ class Decoder:
                     # FRAME samples carry no pixel data; the held group's
                     # warp metadata applies, with no size check
                     held = self._held_group
-                    warp = None if held is None else self._lens(held)
+                    info = None if held is None else self._held_parse()
+                    warp = None if held is None else self._lens(held, info)
                     detour = warp is not None and warp[1] in ("YUY2", "WP13")
                     out = self._decode_frame_sample(
+                        info,
                         None if warp is None or detour else self._warp(*warp))
                     if detour:
                         raise self._no_warp_decode()
@@ -1152,6 +1192,7 @@ class Decoder:
     # CFHD_CloseDecoder
     def close(self) -> None:
         self._prepared = False
+        self._held_coeffs = None
 
 
 # --- C-style aliases (1:1 with the reference entry points) -------------------

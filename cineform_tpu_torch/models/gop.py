@@ -615,22 +615,49 @@ class GopCodec:
         frame indices that `decode_batch_to` decoded instead (a group the
         device route does not take, of another precision than 10 bits, or
         that overflows its device band region)."""
+        out, fallback, _ = self._decode_device_to(samples, output, frame,
+                                                  then)
+        return out, fallback
+
+    def decode_group_device_to(self, sample: bytes, output: str,
+                               frame: int = 0, then=None):
+        """`decode_batch_device_to` of one GROUP sample that also returns
+        the group's coefficients on the device: (frames, fallback, coeffs),
+        coeffs the per-channel (lowpass, bands) that `coefficients_to`
+        takes for the group's other frame, None where the group fell
+        back."""
+        out, fallback, coeffs = self._decode_device_to([sample], output,
+                                                       frame, then)
+        return out, fallback, None if fallback else coeffs
+
+    def coefficients_to(self, coeffs, output: str, frame: int = 0,
+                        then=None) -> np.ndarray:
+        """Device coefficients of groups (`decode_coefficients`' first
+        return) -> frame `frame` as `output` on the host: `inverse_to`,
+        then `then` on the device, then the download.  `coeffs` is left
+        as it was, so one decode serves both frames."""
+        with timing.span("gop.inverse_to", coeffs[0][0].shape[0]):
+            frames = self.inverse_to(coeffs, output, frame)
+        return _download(frames if then is None else then(frames))
+
+    def _decode_device_to(self, samples: list[bytes], output: str,
+                          frame: int, then):
+        """`decode_batch_device_to` and the device coefficients it decoded
+        (None where every group fell back)."""
         batch = len(samples)
         with timing.span("gop.decode_batch_device_to", batch):
             *rows, fallback = self._decode_rows_args(samples)
             if len(fallback) == batch:
                 _count_groups(batch, batch)
                 return (self.decode_batch_to(samples, output, frame, then),
-                        tuple(range(batch)))
+                        tuple(range(batch)), None)
             with timing.span("gop.decode_coefficients", batch):
                 coeffs, ovf = self.decode_coefficients(*rows)
-            with timing.span("gop.inverse_to", batch):
-                frames = self.inverse_to(coeffs, output, frame)
-            out = _download(frames if then is None else then(frames))
+            out = self.coefficients_to(coeffs, output, frame, then)
             fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
             fallback = tuple(sorted(fallback))
             if fallback:
                 out[list(fallback)] = self.decode_batch_to(
                     [samples[i] for i in fallback], output, frame, then)
             _count_groups(batch, len(fallback))
-        return out, fallback
+        return out, fallback, coeffs

@@ -1,0 +1,247 @@
+"""A group's FRAME sample served from the coefficients the GROUP sample's
+decode left on the device (`api.Decoder`'s held group), on the CPU.
+
+Frame 1 from the held coefficients equals a fresh
+`GopCodec.decode_batch_device_to` of the group, the JAX package's deep
+decode (`gop_host.decode_group_to`) and, for V210 and YU64, the
+benchmark's plain GOP reference (`cfbench/reference/gop.py`), byte for
+byte; the tracer counts one group decode for the two frames.  The held
+coefficients are dropped for another group, a host-route group, a new
+`prepare_to_decode` and `close`, and are left unchanged by the inverse of
+frame 0.  The YUY2 route keeps decoding its group again.
+
+The pairs are the GOP cell's own content (`content/plasma_pan_pairs.py`)
+at small progressive sizes; every comparison is exact."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from cfbench import plugins  # noqa: E402
+from cineform_tpu.models import gop_host as jgop_host  # noqa: E402
+from cineform_tpu_torch import api  # noqa: E402
+from cineform_tpu_torch.models import gop_host  # noqa: E402
+from cineform_tpu_torch.utils import timing  # noqa: E402
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+SEED = 2**31 + 24
+SIZES = ((96, 48), (192, 64))
+#: the api's deep and RGB outputs here, by the codec's fourcc names
+FOURCC = {"V210": "v210", "YU64": "YU64", "RG48": "RG48", "BGRA": "BGRA"}
+#: the outputs the plain GOP reference decodes
+REFERENCE = ("V210", "YU64")
+SAMPLES = os.path.join(os.path.dirname(__file__), "golden", "samples")
+
+
+@pytest.fixture
+def tracer():
+    """The tracer, on with an empty ring; off and empty afterwards."""
+    timing.enable()
+    timing.reset()
+    try:
+        yield timing
+    finally:
+        timing.disable()
+        timing.reset()
+
+
+def _cfg(w, h, groups=2) -> dict:
+    cfg = plugins.read_json(ROOT, "configs", "yuy2_1080_gop")
+    return dict(cfg, width=w, height=h, frames=2 * groups)
+
+
+def _groups(cfg):
+    """(pairs (G, 2, H, 2W), GROUP samples, FRAME samples) of the cell's
+    content, numbered as `api.Encoder` numbers them."""
+    w, h = cfg["width"], cfg["height"]
+    pairs = plugins.find(ROOT, "content", cfg["content"]).make(cfg, SEED)
+    numbers = [2 * g + 1 for g in range(len(pairs))]
+    groups = api.gop_codec(w, h, cfg["quality"], CPU).encode_batch(
+        pairs[:, 0], pairs[:, 1], frame_numbers=numbers)
+    frames = [gop_host.frame_header_sample(w, h, n) for n in numbers]
+    return pairs, groups, frames
+
+
+def _decoder(w, h, output) -> api.Decoder:
+    dec = api.Decoder("cpu")
+    dec.prepare_to_decode(w, h, api.PixelFormat[output])
+    return dec
+
+
+def _fresh(group: bytes, w, h, output, frame) -> bytes:
+    """Frame `frame` of the group by a fresh device-route decode."""
+    codec = api.gop_codec(w, h, api.DECODE_QUALITY, CPU)
+    out, fallback = codec.decode_batch_device_to([group], FOURCC[output],
+                                                 frame)
+    assert fallback == ()
+    return out[0].tobytes()
+
+
+def _totals(snap) -> dict:
+    out: dict = {}
+    for c in snap.counts:
+        out[c.name] = out.get(c.name, 0) + c.n
+    return out
+
+
+@pytest.mark.parametrize("output", tuple(FOURCC))
+@pytest.mark.parametrize("w,h", SIZES)
+def test_frame_sample_reuses_the_groups_coefficients(tracer, w, h, output):
+    """GROUP then FRAME sample through one decoder: frame 1 from the held
+    coefficients equals the fresh decode, the JAX deep decode and the
+    plain reference; one group decode for the two frames out."""
+    cfg = _cfg(w, h, groups=1)
+    pairs, (group,), (frame,) = _groups(cfg)
+    dec = _decoder(w, h, output)
+    got0 = dec.decode_sample(group).tobytes()
+    got1 = dec.decode_sample(frame).tobytes()
+    assert _totals(tracer.snapshot()) == {
+        "gop.group_decodes": 1, "gop.fallback_groups": 0,
+        "gop.frames_out": 2, "gop.held_frames": 1}
+    for k, got in enumerate((got0, got1)):
+        assert got == _fresh(group, w, h, output, k), k
+        assert got == jgop_host.decode_group_to(group, FOURCC[output], k), k
+        if output in REFERENCE:
+            ref = plugins.find(ROOT, "reference/formats", "YUY2_GOP")
+            assert got == ref.decode_output(cfg, pairs[0], output,
+                                            frame=k).tobytes(), k
+    assert dec.fallback_frames == 0
+
+
+@pytest.mark.parametrize("output", ("V210", "RG48"))
+def test_another_group_replaces_the_held_one(tracer, output):
+    """GROUP A, GROUP B, FRAME: the FRAME sample gives frame 1 of B."""
+    w, h = SIZES[0]
+    _, groups, frames = _groups(_cfg(w, h))
+    dec = _decoder(w, h, output)
+    dec.decode_sample(groups[0])
+    dec.decode_sample(groups[1])
+    got = dec.decode_sample(frames[1]).tobytes()
+    totals = _totals(tracer.snapshot())
+    assert (totals["gop.group_decodes"], totals["gop.held_frames"]) == (2, 1)
+    assert got == _fresh(groups[1], w, h, output, 1)
+    assert got != _fresh(groups[0], w, h, output, 1)
+
+
+@pytest.mark.parametrize("output", ("V210", "BGRA"))
+def test_two_frame_samples_give_frame_1_twice(tracer, output):
+    """GROUP A, FRAME, FRAME: frame 1 of A twice, byte-equal, from one
+    group decode."""
+    w, h = SIZES[0]
+    _, groups, frames = _groups(_cfg(w, h))
+    dec = _decoder(w, h, output)
+    dec.decode_sample(groups[0])
+    first = dec.decode_sample(frames[0]).tobytes()
+    second = dec.decode_sample(frames[0]).tobytes()
+    totals = _totals(tracer.snapshot())
+    assert (totals["gop.group_decodes"], totals["gop.held_frames"]) == (1, 2)
+    assert first == second == _fresh(groups[0], w, h, output, 1)
+
+
+@pytest.mark.parametrize("output", ("V210", "YU64"))
+def test_repeated_group_calls_give_frame_0(tracer, output):
+    """GROUP A, GROUP A, FRAME: frame 0 from each GROUP call, then frame
+    1 from the coefficients of the second."""
+    w, h = SIZES[0]
+    _, groups, frames = _groups(_cfg(w, h))
+    dec = _decoder(w, h, output)
+    outs = [dec.decode_sample(s).tobytes()
+            for s in (groups[0], groups[0], frames[0])]
+    totals = _totals(tracer.snapshot())
+    assert (totals["gop.group_decodes"], totals["gop.held_frames"]) == (2, 1)
+    assert outs[0] == outs[1] == _fresh(groups[0], w, h, output, 0)
+    assert outs[2] == _fresh(groups[0], w, h, output, 1)
+
+
+def test_host_route_group_holds_nothing(tracer):
+    """The interlaced group, whose bands carry peaks, goes to the host
+    route: its FRAME sample decodes the group again, as before, to the
+    bytes of that route; no frame comes from held coefficients."""
+    with open(os.path.join(SAMPLES, "ilace_320x240_q4_p1.cfhd.f1"),
+              "rb") as f:
+        group = f.read()
+    dec = _decoder(320, 240, "YU64")
+    dec.decode_sample(group)
+    got = dec.decode_sample(gop_host.frame_header_sample(320, 240, 1))
+    assert _totals(tracer.snapshot()) == {
+        "gop.group_decodes": 2, "gop.fallback_groups": 2,
+        "gop.frames_out": 2}
+    assert dec.fallback_frames == 2
+    codec = api.gop_codec(320, 240, api.DECODE_QUALITY, CPU)
+    want, fallback = codec.decode_batch_device_to([group], "YU64", 1)
+    assert fallback == (0,)
+    assert got.tobytes() == want[0].tobytes()
+
+
+@pytest.mark.parametrize("first,then,close", (("V210", "YU64", False),
+                                              ("YU64", "RG48", False),
+                                              ("RG48", "BGRA", False),
+                                              ("V210", "V210", True)))
+def test_prepare_between_group_and_frame(tracer, first, then, close):
+    """GROUP to one output, (`close`,) `prepare_to_decode` to another, then
+    FRAME: the fresh decode's frame 1 in the new output."""
+    w, h = SIZES[1]
+    _, groups, frames = _groups(_cfg(w, h))
+    dec = _decoder(w, h, first)
+    dec.decode_sample(groups[0])
+    if close:
+        dec.close()
+    dec.prepare_to_decode(w, h, api.PixelFormat[then])
+    got = dec.decode_sample(frames[0]).tobytes()
+    assert "gop.held_frames" not in _totals(tracer.snapshot())
+    assert got == _fresh(groups[0], w, h, then, 1)
+
+
+def test_frame_sample_on_a_fresh_decoder_raises():
+    """A FRAME sample with no decoded group: BADSAMPLE."""
+    dec = _decoder(*SIZES[0], "V210")
+    with pytest.raises(api.CFHDError) as err:
+        dec.decode_sample(gop_host.frame_header_sample(*SIZES[0], 1))
+    assert err.value.code == api.ErrorCode.BADSAMPLE
+
+
+def test_yuy2_route_decodes_its_group_again(tracer):
+    """The YUY2 output's FRAME sample, with its dither window, still
+    decodes the group again: two group decodes, no held frame."""
+    w, h = SIZES[0]
+    _, groups, frames = _groups(_cfg(w, h))
+    dec = _decoder(w, h, "YUY2")
+    dec.decode_sample(groups[0])
+    dec.decode_sample(frames[0])
+    totals = _totals(tracer.snapshot())
+    assert totals["gop.group_decodes"] == 2
+    assert "gop.held_frames" not in totals
+
+
+@pytest.mark.parametrize("output", tuple(FOURCC.values()))
+def test_inverse_leaves_the_coefficients_unchanged(output):
+    """`decode_group_device_to`'s coefficients after its frame-0 inverse
+    equal a copy taken before it, and give frame 1 as a fresh decode."""
+    w, h = SIZES[1]
+    _, groups, _ = _groups(_cfg(w, h))
+    codec = api.gop_codec(w, h, api.DECODE_QUALITY, CPU)
+    out, fallback, coeffs = codec.decode_group_device_to(groups[0], output)
+    assert fallback == () and coeffs is not None
+    before = [(lp.clone(), {k: [b.clone() for b in bs]
+                            for k, bs in bands.items()})
+              for lp, bands in coeffs]
+    codec.coefficients_to(coeffs, output, 0)
+    for (lp, bands), (lp0, bands0) in zip(coeffs, before, strict=True):
+        assert torch.equal(lp, lp0)
+        for k, bs in bands.items():
+            assert all(torch.equal(b, b0)
+                       for b, b0 in zip(bs, bands0[k], strict=True))
+    frame1 = codec.coefficients_to(coeffs, output, 1)
+    want, _ = codec.decode_batch_device_to([groups[0]], output, 1)
+    assert np.array_equal(frame1, want)
+    assert out.tobytes() == codec.decode_batch_device_to(
+        [groups[0]], output, 0)[0].tobytes()

@@ -281,6 +281,7 @@ GOP_NESTING = {
     "api.decode_sample": {None},
     "api.parse": {"api.decode_sample"},
     "gop.decode_batch_device_to": {"api.decode_sample"},
+    "gop.held_frame": {"api.decode_sample"},
     "gop.decode_rows_host": {"gop.decode_batch_device_to"},
     "gop.upload_rows": {"gop.decode_batch_device_to"},
     "gop.decode_coefficients": {"gop.decode_batch_device_to"},
@@ -288,16 +289,18 @@ GOP_NESTING = {
        for stage in ("classify", "chunk_transfers", "scan_entries_rows",
                      "final_walk", "emit_slots", "compact_rows",
                      "spread_rows")},
-    "gop.inverse_to": {"gop.decode_batch_device_to"},
-    "intra.download": {"gop.decode_batch_device_to"},
+    "gop.inverse_to": {"gop.decode_batch_device_to", "gop.held_frame"},
+    "intra.download": {"gop.decode_batch_device_to", "gop.held_frame"},
 }
 
 
 def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
-    """A group's GROUP then FRAME sample to v210: each call one request
-    whose `gop.decode_batch_device_to` span (a frame) holds the walk, the
-    upload, the band decoder at the 6 row classes and the inverse; each
-    call decodes the group and delivers one frame."""
+    """A group's GROUP then FRAME sample to v210: each call one request.
+    The GROUP call's `gop.decode_batch_device_to` span (a frame) holds the
+    walk, the upload, the band decoder at the 6 row classes and the
+    inverse; the FRAME call's `gop.held_frame` span (a frame) holds only
+    the inverse of the held coefficients and the download.  One group
+    decode, two frames out, one of them from the held coefficients."""
     samples = _gop_group()
     tracer.reset()
     _play(samples)
@@ -305,18 +308,22 @@ def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
     assert _parents(snap) == GOP_NESTING
     roots = [s for s in snap.spans if s.name == "api.decode_sample"]
     assert len(roots) == 2 and len({r.request for r in roots}) == 2
-    for r in roots:
-        inside = [s for s in snap.spans if s.request == r.request]
+    group, frame = ([s for s in snap.spans if s.request == r.request]
+                    for r in roots)
+    for r, inside in zip(roots, (group, frame)):
         assert all(r.start <= s.start <= s.end <= r.end for s in inside)
-        gop = [s for s in inside if s.name.startswith("gop.")]
-        assert sorted(s.name for s in gop) == [
-            "gop.decode_batch_device_to", "gop.decode_coefficients",
-            "gop.decode_rows_host", "gop.inverse_to", "gop.upload_rows"]
-        assert all(s.frames == 1 for s in gop
-                   if s.name != "gop.upload_rows")
-        assert sum(s.name == "entropy.chunk_transfers" for s in inside) == 6
-    assert _totals(snap) == {"gop.group_decodes": 2, "gop.frames_out": 2,
-                             "gop.fallback_groups": 0}
+    gop = [s for s in group if s.name.startswith("gop.")]
+    assert sorted(s.name for s in gop) == [
+        "gop.decode_batch_device_to", "gop.decode_coefficients",
+        "gop.decode_rows_host", "gop.inverse_to", "gop.upload_rows"]
+    assert all(s.frames == 1 for s in gop if s.name != "gop.upload_rows")
+    assert sum(s.name == "entropy.chunk_transfers" for s in group) == 6
+    assert sorted(s.name for s in frame) == [
+        "api.decode_sample", "api.parse", "gop.held_frame", "gop.inverse_to",
+        "intra.download"]
+    assert all(s.frames == 1 for s in frame if s.name.startswith("gop."))
+    assert _totals(snap) == {"gop.group_decodes": 1, "gop.frames_out": 2,
+                             "gop.held_frames": 1, "gop.fallback_groups": 0}
     for c in snap.counts:
         assert any(r.start <= c.time <= r.end and r.thread == c.thread
                    for r in roots)
