@@ -157,7 +157,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
     (`models.lens`, `ops.warp`), with ms/frame, each mesh's host build
     time, the apply's device time against its bound and the fill
     recurrences' device times and dispatched ops apart; the GOP phase's
-    groups to YU64, v210, RG48 and BGRA (`GopCodec.decode_batch_device_to`)
+    groups to YU64, v210, RG48 and BGRA (`GopCodec.decode`)
     and through `api.Decoder` to 1280x720; `ops.scaler.scale_image` of an
     (8, 1080, 1920, 3) float32 batch to 720p (TF32 off in its products)
     and `ops.warp.warp_bilinear` by `mesh_gopro_preset`, against their
@@ -1155,7 +1155,8 @@ def main() -> int:
         host_rows = codec._decode_rows_host(samples)
         dev_parts["header walk and fill"].append(
             (time.perf_counter() - t0) * 1e3)
-        dev_rows, ms = host_ms(torch, lambda: codec._upload_rows(host_rows))
+        dev_rows, ms = host_ms(torch, lambda: ddec.upload_rows(host_rows,
+                                                               dev))
         dev_parts["upload"].append(ms)
         (co, ovf), ms = host_ms(torch, lambda: codec.decode_coefficients(
             *dev_rows[:5]))
@@ -1841,6 +1842,22 @@ def main() -> int:
     del got, want
 
     # --- 8. the two-frame GOP: the main path --------------------------------
+    def gop_pairs(c, samples_, rc, host):
+        """Frames 0 and 1 of GROUP samples to YUY2, frame 1 the
+        reference decoder's (`rc`: frame 0 with the next dither window)
+        or the true second frame, from the host route's coefficients
+        (`host`) or from `decode`'s: (frames 0, frames 1, fallback)."""
+        second = 0 if rc else 1
+        if not host:
+            f0, fallback, co = c.decode(samples_)
+            return f0, c.output_frame(co, "YUY2", second, 1), fallback
+        pair = [[None] * len(samples_) for _ in range(2)]
+        for idx, co in c.host_coefficients(samples_):
+            for f, frame in enumerate((0, second)):
+                for i, a in zip(idx, c.output_frame(co, "YUY2", frame, f)):
+                    pair[f][i] = a
+        return np.stack(pair[0]), np.stack(pair[1]), ()
+
     reset_counts()
     encodes = dev_decodes = 0
     for name, p0, p1 in GOP_GOLDENS:
@@ -1851,8 +1868,8 @@ def main() -> int:
         if c.encode_batch(f0, f1, 1, sample_metadata(gold)) != [gold]:
             raise AssertionError(f"GOP encode differs from {name}.cfhd.f1")
         want = [golden(f"f{f}.yuy2", name) for f in (0, 1)]
-        host = [f.tobytes() for f in c.decode_batch([gold])]
-        *dev_out, fallback = c.decode_batch_device([gold])
+        host = [f.tobytes() for f in gop_pairs(c, [gold], True, True)[:2]]
+        *dev_out, fallback = gop_pairs(c, [gold], True, False)
         if host != want or fallback or [f.tobytes() for f in dev_out] \
                 != want:
             raise AssertionError(f"{name} decoded differs from its .f0/.f1 "
@@ -1861,8 +1878,8 @@ def main() -> int:
         encodes += 1
         dev_decodes += 1
         log(f"golden GOP {name}: encode_batch byte-equal to .cfhd.f1 "
-            f"({len(gold)} bytes); decode_batch and decode_batch_device "
-            "byte-equal to .f0.yuy2 and .f1.yuy2")
+            f"({len(gold)} bytes); the host route and decode byte-equal to "
+            ".f0.yuy2 and .f1.yuy2")
     enc_dev, enc_host, enc_down = [], [], []
     for it in range(4):
         lv, ms = host_ms(torch, lambda: gop.forward_levels(
@@ -1884,21 +1901,23 @@ def main() -> int:
     for rc in (True, False):
         host_t, dev_t = [], []
         for it in range(4):
-            host, ms = host_ms(torch, lambda: gop.decode_batch(samples, rc))
+            (*host, _), ms = host_ms(
+                torch, lambda: gop_pairs(gop, samples, rc, True))
             host_t.append(ms)
             (*dev_out, fallback), ms = host_ms(
-                torch, lambda: gop.decode_batch_device(samples, rc))
+                torch, lambda: gop_pairs(gop, samples, rc, False))
             dev_t.append(ms)
             dev_decodes += 1
             if fallback or any(a.tobytes() != b.tobytes()
                                for a, b in zip(host, dev_out, strict=True)):
                 raise AssertionError(
-                    f"GOP batch (reference_compatible={rc}): "
-                    "decode_batch_device differs from decode_batch (host "
-                    f"fallback frames {fallback})")
-        dec_ms.append(f"reference_compatible={rc}: decode_batch "
-                      f"{med(host_t[1:]) / BATCH:.4f} ms, decode_batch_device "
-                      f"{med(dev_t[1:]) / BATCH:.4f} ms")
+                    f"GOP batch (reference_compatible={rc}): decode "
+                    "differs from the host route (host fallback frames "
+                    f"{fallback})")
+        dec_ms.append(f"reference_compatible={rc}: host route "
+                      f"{med(host_t[1:]) / BATCH:.4f} ms, decode and frame 1 "
+                      f"from its coefficients {med(dev_t[1:]) / BATCH:.4f} "
+                      "ms")
         if rc:
             rc_frames = host
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1911,12 +1930,14 @@ def main() -> int:
         host_rows = gop._decode_rows_host(samples)
         gop_parts["header walk and fill"].append(
             (time.perf_counter() - t0) * 1e3)
-        dev_rows, ms = host_ms(torch, lambda: gop._upload_rows(host_rows))
+        dev_rows, ms = host_ms(torch, lambda: ddec.upload_rows(host_rows,
+                                                               dev))
         gop_parts["upload"].append(ms)
         (co, ovf), ms = host_ms(torch, lambda: gop.decode_coefficients(
             *dev_rows[:-1]))
         gop_parts["device entropy decode"].append(ms)
-        pair, ms = host_ms(torch, lambda: gop.inverse(co))
+        pair, ms = host_ms(torch, lambda: [gop.inverse(co, "YUY2", 0, f)
+                                           for f in (0, 1)])
         gop_parts["inverse with pack"].append(ms)
         got, ms = host_ms(torch, lambda: [f.cpu().numpy() for f in pair])
         gop_parts["download"].append(ms)
@@ -1942,15 +1963,15 @@ def main() -> int:
     log(f"GOP batch {BATCH} groups at {WIDTH}x{HEIGHT} q4: "
         f"{sum(len(x) for x in samples)} bytes, ratio "
         f"{(gop_f0.nbytes + gop_f1.nbytes) / sum(len(x) for x in samples):.4f}"
-        f"; frame 0's round-trip PSNR {gop_psnr:.4f} dB; decode_batch_device "
-        f"equal to decode_batch on all {2 * BATCH} frames in both reference "
+        f"; frame 0's round-trip PSNR {gop_psnr:.4f} dB; decode equal to "
+        f"the host route on all {2 * BATCH} frames in both reference "
         "modes, 0 fallback frames. Per group, medians of 3 batches after a "
         f"warm-up: encode device {med(enc_dev[1:]) / BATCH:.4f} ms (upload + "
         "5 DWT launches + temporal pair), encode host tail "
         f"{med(enc_host[1:]) / BATCH:.4f} ms (download + C++ band coding + "
         f"GROUP writer; the download alone {med(enc_down[1:]) / BATCH:.4f} "
         "ms); " + "; ".join(dec_ms)
-        + "; decode_batch_device's parts: " + ", ".join(
+        + "; the device route's parts: " + ", ".join(
             f"{p} {med(v[1:]) / BATCH:.4f} ms" for p, v in gop_parts.items())
         + f"; peak device memory over the decodes {peak_bytes} bytes "
         f"({peak_bytes / 2**30:.3f} GiB; {base_bytes} allocated before)")
@@ -2442,8 +2463,8 @@ def main() -> int:
                                                 resolution=res)
             parts["header walk and fill"].append(
                 (time.perf_counter() - t0) * 1e3)
-            dev_rows, t = host_ms(torch, lambda: codec._upload_rows(
-                host_rows))
+            dev_rows, t = host_ms(torch, lambda: ddec.upload_rows(
+                host_rows, dev))
             parts["upload"].append(t)
             (co, _), t = host_ms(torch, lambda: codec.decode_coefficients(
                 *dev_rows[:5], res))
@@ -2706,28 +2727,29 @@ def main() -> int:
                           ("BGRA", 0), ("RG48", 1)):
         times = []
         for it in range(3):
-            (got, fallback), ms = host_ms(
-                torch, lambda: gop.decode_batch_device_to(gop_samples,
-                                                          output, frame))
+            (got, fallback, _), ms = host_ms(
+                torch, lambda: gop.decode(gop_samples, output, frame))
             geo_decodes[0] += 1
             if fallback:
                 raise AssertionError(f"GOP to {output}: fallback {fallback}")
             times.append(ms / BATCH)
-        want = gop_cpu.decode_batch_to(gop_picks, output, frame)
+        ((_, co),) = gop_cpu.host_coefficients(gop_picks, output)
+        want = gop_cpu.output_frame(co, output, frame)
         for j, i in enumerate(picks):
             equal_frames(f"GOP frame {frame} to {output}, group {i}",
                          got[i], want[j])
         gops.append(f"frame {frame} to {output} {med(times[1:]):.4f}")
     got, ms, peak = api_decodes(gop_samples, "YUY2", (1280, 720),
                                 "GOP to 1280x720", warm=gop_samples[0])
-    want = scaler_ops.scale_yu64_to(as_i32(gop_cpu.decode_batch_to(
-        gop_picks, "YU64")), WIDTH, HEIGHT, 1280, 720, "YUY2")
+    ((_, co),) = gop_cpu.host_coefficients(gop_picks, "YU64")
+    want = scaler_ops.scale_yu64_to(as_i32(gop_cpu.output_frame(
+        co, "YU64")), WIDTH, HEIGHT, 1280, 720, "YUY2")
     for j, i in enumerate(picks):
         equal_frames(f"GOP to 1280x720, group {i}", got[i], want[j].numpy())
-    del gop_cpu, want
-    geo_log(f"GOP outputs, the {BATCH} 1080p groups: decode_batch_device_to "
-            "ms a group (median of 2 after a warm-up, 0 fallback; groups 0 "
-            "and 7 byte-equal to the CPU path's host-entropy route): "
+    del gop_cpu, co, want
+    geo_log(f"GOP outputs, the {BATCH} 1080p groups: decode ms a group "
+            "(median of 2 after a warm-up, 0 fallback; groups 0 and 7 "
+            "byte-equal to the CPU path's host-entropy route): "
             + "; ".join(gops) + f"; api.Decoder to YUY2 at 1280x720 "
             f"{ms:.4f} ms a group (median of 8), peak {peak} B")
 
@@ -2828,7 +2850,7 @@ def main() -> int:
                                      f"apply_{name}_{fmt}_{w}x{h}_f{fill}")
     small_gop = GopCodec(320, 240, 4, device=dev)
     for output, ext in (("RG48", "rg48out"), ("YU64", "yu64out")):
-        got, fallback = small_gop.decode_batch_device_to(
+        got, fallback, _ = small_gop.decode(
             [golden("s1", "gopstream_320x240_q4")], output, 1)
         geo_decodes[0] += 1
         if fallback or got.tobytes() != golden(f"f1true.{ext}",

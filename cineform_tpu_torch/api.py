@@ -45,7 +45,7 @@ from cineform_tpu_torch.bitstream import parse_sample
 from cineform_tpu_torch.models import active_metadata as am
 from cineform_tpu_torch.models import (gop_host, intra_host, lens, stereo,
                                        thumbnail)
-from cineform_tpu_torch.models.gop import GopCodec
+from cineform_tpu_torch.models.gop import Coefficients, GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.models.intra_host import EncoderMetadata
 from cineform_tpu_torch.ops import demosaic as dmops
@@ -591,6 +591,18 @@ def _to_uyvy(out: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(-1, 4)[:, [1, 0, 3, 2]])
 
 
+@dataclass
+class _HeldGroup:
+    """The group a decoder holds: the GROUP sample, its parse, and the
+    coefficients of its last decode (None once dropped) with whether the
+    host route made them."""
+
+    sample: bytes
+    info: object
+    coeffs: Coefficients | None = None
+    host: bool = False
+
+
 class Decoder:
     """Sample decoder (`DecoderSDK/SampleDecoder.cpp:387-1936`) on
     `device`.  `fallback_frames` counts the frames the device decoders
@@ -682,10 +694,13 @@ class Decoder:
         self._prepared = False
         self._channels_active = 1
         self._channel_blend = stereo.BLEND_STACKED_ANAMORPHIC
-        self._held_group = None
-        #: (the held group, its parse, its device coefficients) after a
-        #: device-route decode of the group to a deep or RGB output
-        self._held_coeffs = None
+        #: the group a FRAME sample takes its frame from
+        self._group: _HeldGroup | None = None
+        #: the YUY2 GOP frames emitted, each with the next dither window
+        self._gop_dithers = 0
+        #: (the group's digest, the frame its next call takes) at another
+        #: size than the group's
+        self._gop_scale: tuple[bytes, int] | None = None
         self._warp_mesh_cache: dict = {}
         self.fallback_frames = 0
 
@@ -735,7 +750,7 @@ class Decoder:
         self.output_format = output_format
         self.resolution = resolution
         self._prepared = True
-        self._held_coeffs = None
+        self._drop_coefficients()
         return width, height, output_format
 
     # CFHD_SetActiveMetadata(TAG_CHANNELS_ACTIVE) analog
@@ -852,114 +867,70 @@ class Decoder:
         self.fallback_frames += len(fb_left) + len(fb_right)
         return np.ascontiguousarray(out[0]).reshape(-1)
 
-    def _gop_frames(self, sample: bytes, reference_compatible: bool,
-                    dither_base: int):
-        info = parse_sample(sample)
-        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
-                          self.device)
-        f0, f1, fallback = codec.decode_batch_device(
-            [sample], reference_compatible, dither_base)
-        self.fallback_frames += len(fallback)
-        return f0[0], f1[0]
-
-    def _gop_output(self, sample: bytes, info, what: str, frame: int,
-                    then=None) -> np.ndarray:
-        """Frame `frame` of a group to a deep or RGB output (YU64, v210,
-        RG48, BGRA, b64a, r210, DPX0, RG30: `GopCodec.inverse_to`), `then`
-        on the device before the download.  A group the device route
-        decoded stays held with its coefficients for its other frame."""
-        out = self._PORTED["GOP"].get(self.output_format)
-        if out is None:
-            raise CFHDError(ErrorCode.BADFORMAT,
-                            f"{what} decode to {self.output_format!r}")
-        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
-                          self.device)
-        frames, fallback, coeffs = codec.decode_group_device_to(
-            sample, out, frame, then)
-        self.fallback_frames += len(fallback)
-        if coeffs is not None:
-            self._held_coeffs = (sample, info, coeffs)
-        return frames[0]
-
-    def _held_frame(self, info, coeffs, then=None) -> np.ndarray:
-        """Frame 1 of the held group from the coefficients its decode left
-        on the device, as `DecodeSampleFrame` reconstructs it from the
-        transform the decoder holds: the inverse, `then` and the download,
-        no walk, upload or band decode."""
-        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
-                          self.device)
-        with timing.span("gop.held_frame", 1):
-            try:
-                frames = codec.coefficients_to(
-                    coeffs, self._PORTED["GOP"][self.output_format], 1, then)
-            except Exception:
-                self._held_coeffs = None
-                raise
-            timing.count("gop.held_frames")
-        return frames[0]
-
-    def _held_parse(self):
-        """The held group's parse, kept with its coefficients or parsed
-        now."""
-        held = self._held_coeffs
-        if held is not None and held[0] is self._held_group:
-            return held[1]
-        return parse_sample(self._held_group)
-
-    def _decode_frame_sample(self, info, then=None) -> np.ndarray:
-        """24-byte SAMPLE_TYPE_FRAME sample: emit the TRUE second frame of
-        the group this decoder holds (`DecodeSampleFrame` ->
-        ReconstructSampleFrameToBuffer(frame_index=1),
-        decoder.c:11482/11546), with the second dither window, or scaled
-        to the prepared size; the deep and RGB outputs from the group's
-        coefficients where its decode left them on the device.  `info`:
-        the held group's parse; `then`: the warp of the deep and RGB
-        outputs, on the device."""
-        held = self._held_group
-        if held is None:
-            raise CFHDError(ErrorCode.BADSAMPLE,
-                            "FRAME sample without a decoded group")
-        if (self.width, self.height) != (info.width, info.height):
-            return self._decode_to_size(held, info, frame=1, then=then)
-        if self.output_format not in (PixelFormat.YUY2, PixelFormat.UYVY):
-            kept = self._held_coeffs
-            if (kept is not None and kept[0] is held
-                    and self.output_format in self._PORTED["GOP"]):
-                return self._held_frame(info, kept[2], then)
-            return self._gop_output(held, info, "FRAME sample", 1, then)
-        # the rand() dither stream persists across samples in one
-        # decoder instance: this frame takes the NEXT window after
-        # everything already emitted
-        base = getattr(self, "_gop_dither_count", 1) - 1
-        self._gop_dither_count = base + 2
-        _, out = self._gop_frames(held, False, base)
-        return self._yuy2_or_uyvy(out)
+    def _drop_coefficients(self) -> None:
+        if self._group is not None:
+            self._group.coeffs = None
 
     def _decode_group(self, sample: bytes, info0, then=None) -> np.ndarray:
-        """GROUP (2-frame GOP) sample: decode frame 1 and hold the group
-        for a following SAMPLE_TYPE_FRAME sample; consecutive calls on the
-        same group return frame 1 then frame 1 with the next dither
-        window, like the reference decoder.  At another size than the
-        group's, consecutive calls on the same group alternate its frames
-        0 and 1, each scaled; the deep and RGB outputs are frame 0's, and
-        `then` their warp on the device."""
-        self._held_group = sample
-        self._held_coeffs = None
+        """GROUP (2-frame GOP) sample: hold the group for the
+        SAMPLE_TYPE_FRAME samples that follow, and make its frame 0
+        (`_group_frame`); consecutive calls on the same group decode it
+        again, frame 0 with the next dither window, like the reference
+        decoder.  At another size than the group's, consecutive calls on
+        the same group alternate its frames 0 and 1, each scaled."""
+        self._group = _HeldGroup(sample, info0)
         if self.resolution != DecodedResolution.FULL:
             raise CFHDError(ErrorCode.BADFORMAT,
                             "scaled GOP decode is not supported")
+        frame = 0
         if (self.width, self.height) != (info0.width, info0.height):
             key = hashlib.sha256(sample).digest()
-            cache = getattr(self, "_gop_scale_cache", None)
-            idx = cache[1] if cache is not None and cache[0] == key else 0
-            self._gop_scale_cache = (key, 1 - idx)
-            return self._decode_to_size(sample, info0, frame=idx, then=then)
-        if self.output_format not in (PixelFormat.YUY2, PixelFormat.UYVY):
-            return self._gop_output(sample, info0, "GOP", 0, then)
-        base = getattr(self, "_gop_dither_count", 0)
-        self._gop_dither_count = base + 1
-        out, _ = self._gop_frames(sample, True, base)
-        return self._yuy2_or_uyvy(out)
+            if self._gop_scale is not None and self._gop_scale[0] == key:
+                frame = self._gop_scale[1]
+            self._gop_scale = (key, 1 - frame)
+        return self._group_frame(frame, then)
+
+    def _group_frame(self, frame: int, then=None) -> np.ndarray:
+        """Frame `frame` of the held group in the prepared output and size
+        from the coefficients the decoder holds for it, decoded first
+        (`GopCodec.decode`) where it holds none: YUY2 (UYVY its pair swap)
+        with the dither window after those already emitted, a deep or RGB
+        output, or at another size the YU64 frame Lanczos-scaled
+        (`_scaler`); `then` (the warp) on the device before the
+        download."""
+        group = self._group
+        info = group.info
+        codec = gop_codec(info.width, info.height, DECODE_QUALITY,
+                          self.device)
+        dither = 0
+        if (self.width, self.height) != (info.width, info.height):
+            output, then = "YU64", self._scaler(info, then)
+        else:
+            output = self._PORTED["GOP"].get(self.output_format)
+            if output is None:
+                raise CFHDError(ErrorCode.BADFORMAT,
+                                f"GOP decode to {self.output_format!r}")
+            if output == "YUY2":
+                # the rand() dither stream persists across samples in one
+                # decoder instance; a group's frame 1 takes window 1 at
+                # least
+                dither = max(self._gop_dithers, frame)
+                self._gop_dithers = dither + 1
+        if group.coeffs is None:
+            out, fallback, group.coeffs = codec.decode(
+                [group.sample], output, frame, dither, then)
+            group.host = bool(fallback)
+        else:
+            with timing.span("gop.held_frame", 1):
+                try:
+                    out = codec.output_frame(group.coeffs, output, frame,
+                                             dither, then)
+                except Exception:
+                    group.coeffs = None
+                    raise
+                timing.count("gop.held_frames")
+        self.fallback_frames += group.host
+        return self._yuy2_or_uyvy(out[0]) if output == "YUY2" else out[0]
 
     def _decode_intra(self, sample: bytes, info0, kind: str, fmt: str,
                       scale: int = 1, develop=None,
@@ -990,13 +961,12 @@ class Decoder:
         return self._yuy2_or_uyvy(self._decode_intra(
             sample, info0, "YUV", "YUY2", then=then))
 
-    def _decode_to_size(self, sample: bytes, info, frame: int = 0,
-                        then=None) -> np.ndarray:
-        """A 4:2:2 intra sample, or frame `frame` of a group, decoded to YU64
-        on the device and Lanczos-scaled there to the prepared size
-        (`ops.scaler.scale_yu64_to`: the reference's 8.8 fixed-point
-        CLanczosScaler, ConvertLib/ImageScaler.cpp, which the JAX API
-        applies to its byte-exact YU64 reconstruction), then `then`."""
+    def _scaler(self, info, then=None):
+        """The Lanczos scale of a YU64 decode at `info`'s size to the
+        prepared size on the device (`ops.scaler.scale_yu64_to`: the
+        reference's 8.8 fixed-point CLanczosScaler,
+        ConvertLib/ImageScaler.cpp, which the JAX API applies to its
+        byte-exact YU64 reconstruction), then `then`."""
         fourcc = self._SIZED.get(self.output_format)
         if fourcc is None:
             raise CFHDError(ErrorCode.BADFORMAT,
@@ -1007,18 +977,16 @@ class Decoder:
                 yu64.to(torch.int32) & 0xFFFF, info.width, info.height,
                 self.width, self.height, fourcc)
             return out if then is None else then(out)
+        return scale
 
-        if info.sample_type == tags.SAMPLE_TYPE_GROUP:
-            codec = gop_codec(info.width, info.height, DECODE_QUALITY,
-                              self.device)
-            out, fallback = codec.decode_batch_device_to(
-                [sample], "YU64", frame, scale)
-        else:
-            codec = intra_codec(info.width, info.height, DECODE_QUALITY,
-                                "YUY2", self.device, precision=info.precision)
-            out, fallback = codec.decode_batch_device(
-                [sample], output="YU64", then=scale,
-                host=screen(codec, info))
+    def _decode_to_size(self, sample: bytes, info, then=None) -> np.ndarray:
+        """A 4:2:2 intra sample decoded to YU64 on the device and scaled
+        there to the prepared size (`_scaler`), then `then`."""
+        scale = self._scaler(info, then)
+        codec = intra_codec(info.width, info.height, DECODE_QUALITY, "YUY2",
+                            self.device, precision=info.precision)
+        out, fallback = codec.decode_batch_device(
+            [sample], output="YU64", then=scale, host=screen(codec, info))
         self.fallback_frames += len(fallback)
         return out[0]
 
@@ -1114,14 +1082,21 @@ class Decoder:
                     # decoder.c:11023-11026)
                     return None
                 if sample[:4] == b"\x00\x01\x00\x01":
-                    # FRAME samples carry no pixel data; the held group's
-                    # warp metadata applies, with no size check
-                    held = self._held_group
-                    info = None if held is None else self._held_parse()
-                    warp = None if held is None else self._lens(held, info)
+                    # FRAME samples carry no pixel data: the TRUE second
+                    # frame of the held group (`DecodeSampleFrame` ->
+                    # ReconstructSampleFrameToBuffer(frame_index=1),
+                    # decoder.c:11482/11546), as the transform the decoder
+                    # holds gives it; the group's warp metadata applies,
+                    # with no size check
+                    group = self._group
+                    if group is None:
+                        raise CFHDError(ErrorCode.BADSAMPLE,
+                                        "FRAME sample without a decoded "
+                                        "group")
+                    warp = self._lens(group.sample, group.info)
                     detour = warp is not None and warp[1] in ("YUY2", "WP13")
-                    out = self._decode_frame_sample(
-                        info,
+                    out = self._group_frame(
+                        1,
                         None if warp is None or detour else self._warp(*warp))
                     if detour:
                         raise self._no_warp_decode()
@@ -1192,7 +1167,7 @@ class Decoder:
     # CFHD_CloseDecoder
     def close(self) -> None:
         self._prepared = False
-        self._held_coeffs = None
+        self._drop_coefficients()
 
 
 # --- C-style aliases (1:1 with the reference entry points) -------------------

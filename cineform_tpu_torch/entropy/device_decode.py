@@ -398,3 +398,40 @@ def decode_band_rows(payload: torch.Tensor, nchunks: torch.Tensor,
     with timing.span("entropy.spread_rows"):
         out = spread_rows(tgt, val, nout)
     return out, covf.any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Band row buffers: `decode_band_rows`' input, filled on the host
+# ---------------------------------------------------------------------------
+
+#: floor of a class's row capacity in 32-bit chunks; capacities double
+#: from here to fit the class's longest band payload
+MIN_ROW_CHUNKS = 256
+
+
+def row_buffers(rows, pin: bool):
+    """The host buffers of one class of band rows, each row a band's
+    (payload bytes, quantization, linear flag) -> (payload, nchunks,
+    quant, linear) as `decode_band_rows` takes them: the payload (R, cap *
+    4) uint8 zeros for the caller to fill, cap the least doubling of
+    MIN_ROW_CHUNKS that holds the longest payload, and the (R,) int32
+    attributes; pinned where `pin`, for an asynchronous upload."""
+    cap = MIN_ROW_CHUNKS
+    while cap < max(n for n, _, _ in rows) // 4:
+        cap *= 2
+    payload = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
+                          pin_memory=pin)
+    meta = torch.tensor([(n // 4, q, lin) for n, q, lin in rows],
+                        dtype=torch.int32).t().contiguous()
+    if pin:
+        meta = meta.pin_memory()
+    return payload, meta[0], meta[1], meta[2]
+
+
+def upload_rows(rows, device: torch.device):
+    """A host walk's groups of row buffers and planes, then its fallback
+    set -> the same on `device` (asynchronous copies from pinned memory on
+    CUDA); the fallback set passes through."""
+    *groups, fallback = rows
+    return (*(tuple(t.to(device, non_blocking=True) for t in g)
+              for g in groups), fallback)

@@ -16,28 +16,29 @@ host is the JAX package's, but for the decode of the temporal-high LL:
   horizontal 2-6, the delta-coded HL), with the interlaced quantizers;
   three DWT launches a batch.  The host codes the bands with the C++
   coder and writes the GROUP samples (`gop_host.write_group`).
-- decode on the device (`decode_batch_device`): the host walks the sample
-  headers and copies the band payloads into row buffers, and reads the
-  temporal-high LL (subband 7, a raw 16-bit band) as it reads the
-  lowpass; on the device the band entropy decoder
-  (`entropy.device_decode.decode_band_rows`, kernels
-  `merge_network_tgt` and `merge_network_highfirst`) decodes the other
-  fifteen bands in six row classes, then the FIELDPLUS pyramid (w5 and w3
-  with the stale bottom taps, w4 with descale 2), the temporal combine
-  and the 8-bit output with the reference's glibc dither, and the YUY2
-  pack.  The JAX function sends every frame that holds a 16-bit band to
-  the host, so none of the reference's groups decodes on its device.
-- decode with host entropy (`decode_batch`): the host C++ entropy decoder
-  (codesets 17 and 18), the peaks substitution and the raw 16-bit bands,
-  then the same inverse on the device; interlaced groups take this route
-  and end in the HORZTEMP frame-wavelet inverse.
+- decode (`decode`): a group's coefficients, then each frame and output
+  from them.  The device route: the host walks the sample headers and
+  copies the band payloads into row buffers, and reads the temporal-high
+  LL (subband 7, a raw 16-bit band) as it reads the lowpass; on the
+  device the band entropy decoder (`entropy.device_decode.
+  decode_band_rows`, kernels `merge_network_tgt` and
+  `merge_network_highfirst`) decodes the other fifteen bands in six row
+  classes.  The JAX function sends every frame that holds a 16-bit band
+  to the host, so none of the reference's groups decodes on its device.
+  The host route (`host_coefficients`): the host C++ entropy decoder
+  (codesets 17 and 18), the peaks substitution and the raw 16-bit bands.
+  From either, `inverse` makes frame 0 or 1: the FIELDPLUS pyramid (w5
+  and w3 with the stale bottom taps, w4 with descale 2) and the temporal
+  combine, then the 8-bit YUY2 output with the reference's glibc dither
+  (an interlaced group's through the HORZTEMP frame-wavelet inverse) or
+  a deep or RGB output.
 
-A frame the device route does not take (wrong dimensions, interlaced, a
-band with peaks or an unaligned payload, a 16-bit band in a subband other
-than 7, a device overflow flag) is decoded by `decode_batch` and listed in
-the fallback the route returns.  Each output equals the JAX package's
-`gop_host.decode_group` byte for byte, and the samples equal the
-reference encoder's.
+A group the device route does not take (wrong dimensions, interlaced, not
+10-bit, a band with peaks or an unaligned payload, a 16-bit band in a
+subband other than 7, a device overflow flag) takes the host route and is
+listed in the fallback `decode` returns.  Each output equals the JAX
+package's `gop_host.decode_group` or `decode_group_to` byte for byte, and
+the samples equal the reference encoder's.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ from cineform_tpu_torch.utils import timing
 #: the channels by group of equal plane shape: Y, then V and U
 GROUPS = ((0,), (1, 2))
 #: a group's deep and RGB outputs (`gop_host.decode_group_to`), by the
-#: JAX package's fourcc names; YUY2 and UYVY are `inverse`'s
+#: JAX package's fourcc names; `inverse` also makes YUY2
 OUTPUTS = ("YU64", "v210", "RG48", "BGRA", "b64a", "r210", "DPX0", "RG30")
 
 
@@ -81,19 +82,23 @@ def _dither(height: int, frame_index: int, interlaced: bool,
     return torch.from_numpy(rows.astype(np.int32)).to(device)
 
 
-def _count_groups(decoded: int, fallback: int) -> None:
-    """The tracer's GOP counters of one device-route call: the groups it
-    decoded and, of them, those `decode_batch` or `decode_batch_to`
-    decoded instead (an event even at 0, so a window reads 0.0)."""
-    timing.count("gop.group_decodes", decoded)
-    timing.count("gop.fallback_groups", fallback)
-
-
 def _raw16(band) -> np.ndarray:
     """A raw 16-bit band's big-endian values times its quantization."""
     raw = np.frombuffer(band.data[:band.width * band.height * 2], ">i2")
     return raw.reshape(band.height, band.width).astype(np.int32) \
         * band.quantization
+
+
+@dataclass(frozen=True)
+class Coefficients:
+    """A batch of groups' coefficients on the device, as `GopCodec.inverse`
+    takes them: per channel (lowpass with the progressive load bias,
+    {wavelet k: bands by slot}, w3's LL first among its bands), and the
+    groups' scan and precision."""
+
+    channels: list
+    progressive: bool = True
+    precision: int = tags.PRECISION_10BIT
 
 
 @dataclass(frozen=True)
@@ -229,49 +234,7 @@ class GopCodec:
                                 self._upload(frames1)),
             first_frame_number, metadata, frame_numbers)
 
-    # --- decode: the inverse on the device ---------------------------------
-
-    def inverse(self, coeffs, reference_compatible: bool = True,
-                dither_base: int = 0, progressive: bool = True):
-        """Per-channel (lowpass, bands) on the device, the bands
-        dequantized, w3's LL included -> ((B, H, 2W) uint8 YUY2 frame 0,
-        frame 1): the w5/w4/w3 pyramid, the temporal combine and the 8-bit
-        output with the dither windows `dither_base` and `dither_base +
-        1` (`Codec/decoder.c:11180` DecodeSampleGroup).
-
-        reference_compatible replicates the reference decoder, whose frame
-        1 is frame 0's reconstruction with the next dither window; False
-        reconstructs frame 1 from its own temporal field and w1's bands,
-        as the reference's SAMPLE_TYPE_FRAME path does."""
-        dithers = [_dither(self.height, dither_base + f, not progressive,
-                           self.device) for f in (0, 1)]
-        frames = ([], [])
-        for ch, (lowpass, b) in enumerate(coeffs):
-            # w5 and w3 invert with the stale bottom taps
-            # (InvertSpatialQuantOverflowProtected16s), w4 with the standard
-            # ones and descale 2; the temporal combine saturates before its
-            # >> 1 (InvertTemporalQuant16s, temporal.c:9676)
-            ll4 = ops.dwt2d_inverse(lowpass, *b[5], descale=1,
-                                    bottom_shift=True)
-            tlow = ops.dwt2d_inverse(ll4, *b[4], descale=2)
-            thigh = ops.dwt2d_inverse(*b[3], descale=1, bottom_shift=True)
-            fields = [(ops.sat16(tlow - thigh) >> 1, b[0])]
-            fields.append(fields[0] if reference_compatible
-                          else (ops.sat16(tlow + thigh) >> 1, b[1]))
-            for f, ((ll, (lh, hl, hh)), dither) in enumerate(zip(fields,
-                                                                 dithers)):
-                if not progressive:
-                    frames[f].append(ops.frame_wavelet_inverse(
-                        ll, lh, hl, hh, dither, ch))
-                    continue
-                width = 2 * ll.shape[-1]
-                group = 16 if ch == 0 else 8
-                frames[f].append(ops.h26_inverse_to_output(
-                    ops.v26_inverse(ll, hl), ops.v26_inverse(lh, hh), 2,
-                    ops.expand_dither_rows(dither, width, group),
-                    scalar_tail=group if width % (2 * group) == group
-                    else 0))
-        return ops.pack_yuy2(*frames[0]), ops.pack_yuy2(*frames[1])
+    # --- decode: the coefficients, then the frames from them --------------
 
     def _is_group(self, s) -> bool:
         """Whether a parsed sample is a GROUP sample of the codec's size."""
@@ -287,18 +250,14 @@ class GopCodec:
         return s
 
     @staticmethod
-    def _lowpass(c, progressive: bool) -> np.ndarray:
-        """A channel's lowpass with the decoder's load bias: relative to
-        the progressive 8-bit models, absolute for the interlaced frame
-        inverse (+48, +10 at odd widths)."""
-        w = c.lowpass.shape[1]
-        off = (intra_host.lowpass_channel_offset(w, num_frames=2)
-               if progressive else
-               intra_host.lowpass_offset_absolute(w, False, num_frames=2))
-        return c.lowpass.astype(np.int32) + off
+    def _lowpass(c) -> np.ndarray:
+        """A channel's lowpass with the decoder's load bias of the
+        progressive 8-bit models (`inverse` adds the other outputs')."""
+        return c.lowpass.astype(np.int32) + intra_host.lowpass_channel_offset(
+            c.lowpass.shape[1], num_frames=2)
 
     @staticmethod
-    def _host_bands(c, peaks: bool = True) -> dict:
+    def _host_bands(c, peaks: bool) -> dict:
         """A channel's bands, entropy-decoded and dequantized on the host
         (C++ decoder, codesets 17 and 18), the peaks substituted where
         `peaks` (the deep outputs' decode, as the JAX package's, leaves
@@ -334,38 +293,35 @@ class GopCodec:
             bands[widx][slot] = vals
         return {k: tuple(v[i] for i in sorted(v)) for k, v in bands.items()}
 
-    def decode_batch(self, samples: list[bytes],
-                     reference_compatible: bool = True,
-                     dither_base: int = 0):
-        """Decode GROUP samples with the host C++ entropy decoder, then the
-        inverse on the device -> ((B, H, 2W) uint8 frame 0, frame 1).
-        Progressive and interlaced groups may share a batch."""
+    def host_coefficients(self, samples: list[bytes], output: str = "YUY2"):
+        """GROUP samples -> their coefficients on the device by the host
+        route: the C++ entropy decoder, the raw 16-bit bands, the peaks
+        substituted for YUY2 (the reference's 8-bit decode) and left for
+        the deep and RGB outputs (as the JAX package's deep decode leaves
+        them).  Returns [(indices, Coefficients)], one entry for each scan
+        and precision among the samples, in the order of their first
+        sample."""
         parsed = [self._parse(x) for x in samples]
-        shape = (len(samples), self.height, 2 * self.width)
-        out = (np.empty(shape, np.uint8), np.empty(shape, np.uint8))
-        for progressive in (True, False):
+        parts = []
+        for key in dict.fromkeys((s.progressive, s.precision)
+                                 for s in parsed):
             idx = [i for i, s in enumerate(parsed)
-                   if s.progressive == progressive]
-            if not idx:
-                continue
-            per_frame = [[(self._lowpass(c, progressive), self._host_bands(c))
-                          for c in parsed[i].channels] for i in idx]
+                   if (s.progressive, s.precision) == key]
+            per_group = [[(self._lowpass(c), self._host_bands(
+                c, output == "YUY2")) for c in parsed[i].channels]
+                for i in idx]
 
             def batched(arrays):
                 return torch.from_numpy(np.stack(arrays)).to(self.device)
 
-            coeffs = [(batched([f[ch][0] for f in per_frame]),
-                       {k: tuple(batched([f[ch][1][k][s] for f in per_frame])
-                                 for s in range(len(bs)))
-                        for k, bs in per_frame[0][ch][1].items()})
-                      for ch in range(3)]
-            frames = self.inverse(coeffs, reference_compatible, dither_base,
-                                  progressive)
-            for o, f in zip(out, frames):
-                o[idx] = f.cpu().numpy()
-        return out
-
-    # --- decode on the device: entropy + FIELDPLUS inverse -----------------
+            channels = [(batched([g[ch][0] for g in per_group]),
+                         {k: tuple(batched([g[ch][1][k][s]
+                                            for g in per_group])
+                                   for s in range(len(bs)))
+                          for k, bs in per_group[0][ch][1].items()})
+                        for ch in range(3)]
+            parts.append((idx, Coefficients(channels, *key)))
+        return parts
 
     #: band-row classes of the 17-subband map (`Codec/decoder.c:11191`):
     #: entries (wavelet index, slot) as gop_host.SUBBAND_MAP gives them,
@@ -378,10 +334,6 @@ class GopCodec:
     }
     _DECODE_CLASSES = tuple((lvl, planes) for lvl in (1, 2, 3)
                             for planes in GROUPS)
-
-    #: floor of a class's row capacity in 32-bit chunks; capacities double
-    #: from here to fit the class's longest band payload
-    MIN_ROW_CHUNKS = 256
 
     def _class_dims(self, lvl: int, planes: tuple[int, ...]):
         plane_w = self.width if planes == (0,) else self.width // 2
@@ -413,7 +365,7 @@ class GopCodec:
                 fallback.add(i)
                 continue
             for ch, c in enumerate(s.channels):
-                lowpass[ch][i] = self._lowpass(c, True)
+                lowpass[ch][i] = self._lowpass(c)
                 for b in c.bands:
                     if b.subband in (0, 255):
                         continue
@@ -436,28 +388,18 @@ class GopCodec:
                 fallback.add(i)
         live = [i for i in range(batch) if i not in fallback]
 
-        pays, nchs, qns, lins = [], [], [], []
+        classes = []
         for lvl, planes in self._DECODE_CLASSES:
             rows = [(b"", 1, 0) if i in fallback
                     else parts[(ch, widx, slot, i)]
                     for i in range(batch) for ch in planes
                     for widx, slot in self._LEVEL_ENTRIES[lvl]]
-            cap = self.MIN_ROW_CHUNKS
-            while cap < max(len(d) for d, _, _ in rows) // 4:
-                cap *= 2
-            pay = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
-                              pin_memory=pin)
-            buf = pay.numpy()
+            bufs = ddec.row_buffers([(len(d), q, li) for d, q, li in rows],
+                                    pin)
+            buf = bufs[0].numpy()
             for r, (d, _, _) in enumerate(rows):
                 buf[r, :len(d)] = np.frombuffer(d, np.uint8)
-            meta = torch.tensor([(len(d) // 4, q, li) for d, q, li in rows],
-                                dtype=torch.int32).t().contiguous()
-            if pin:
-                meta = meta.pin_memory()
-            pays.append(pay)
-            nchs.append(meta[0])
-            qns.append(meta[1])
-            lins.append(meta[2])
+            classes.append(bufs)
 
         def planes_of(arrays, h, w):
             t = torch.zeros((batch, h, w), dtype=torch.int32, pin_memory=pin)
@@ -471,193 +413,162 @@ class GopCodec:
         w3 = tuple(planes_of(ll3[ch], self.height >> 2,
                              (self.width >> 2) if ch == 0
                              else (self.width >> 3)) for ch in range(3))
-        return (tuple(pays), tuple(nchs), tuple(qns), tuple(lins), lp, w3,
-                fallback)
-
-    def _upload_rows(self, rows):
-        """`_decode_rows_host`'s tensors -> the device (asynchronous copies
-        from pinned memory on CUDA); the fallback set passes through."""
-        *groups, fallback = rows
-        return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
-                  for g in groups), fallback)
+        return (*zip(*classes), lp, w3, fallback)
 
     def _decode_rows_args(self, samples: list[bytes]):
         """`_decode_rows_host` with its tensors uploaded to the device."""
         with timing.span("gop.decode_rows_host", len(samples)):
             rows = self._decode_rows_host(samples)
         with timing.span("gop.upload_rows"):
-            return self._upload_rows(rows)
+            return ddec.upload_rows(rows, self.device)
 
     def decode_coefficients(self, pays, nchs, qns, lins, lowpass, ll3):
-        """Per-class band payload rows on the device -> (per-channel
-        (lowpass, bands) as `inverse` takes them, (B,) overflow flags)."""
+        """Per-class band payload rows on the device -> (the groups'
+        Coefficients, (B,) overflow flags)."""
         bands_by = {}
         ovfs = []
-        for ci, (lvl, planes) in enumerate(self._DECODE_CLASSES):
-            entries = self._LEVEL_ENTRIES[lvl]
-            bh, bw, pitch = self._class_dims(lvl, planes)
-            co, ovf = ddec.decode_band_rows(pays[ci], nchs[ci], qns[ci],
-                                            lins[ci], nout=bh * pitch)
-            batch = pays[ci].shape[0] // (len(planes) * len(entries))
-            co = co.reshape(batch, len(planes), len(entries), bh,
-                            pitch)[..., :bw]
-            for pi, ch in enumerate(planes):
-                for ei, (widx, slot) in enumerate(entries):
-                    bands_by[(ch, widx, slot)] = co[:, pi, ei]
-            ovfs.append(ovf.reshape(batch, -1).any(dim=1))
-        coeffs = []
+        batch = lowpass[0].shape[0]
+        with timing.span("gop.decode_coefficients", batch):
+            for ci, (lvl, planes) in enumerate(self._DECODE_CLASSES):
+                entries = self._LEVEL_ENTRIES[lvl]
+                bh, bw, pitch = self._class_dims(lvl, planes)
+                co, ovf = ddec.decode_band_rows(pays[ci], nchs[ci], qns[ci],
+                                                lins[ci], nout=bh * pitch)
+                co = co.reshape(batch, len(planes), len(entries), bh,
+                                pitch)[..., :bw]
+                for pi, ch in enumerate(planes):
+                    for ei, (widx, slot) in enumerate(entries):
+                        bands_by[(ch, widx, slot)] = co[:, pi, ei]
+                ovfs.append(ovf.reshape(batch, -1).any(dim=1))
+        channels = []
         for ch in range(3):
             b = {k: tuple(bands_by[(ch, k, s)] for s in range(3))
                  for k in (0, 1, 4, 5)}
             b[3] = (ll3[ch],) + tuple(bands_by[(ch, 3, s)] for s in (1, 2, 3))
-            coeffs.append((lowpass[ch], b))
-        return coeffs, torch.stack(ovfs).any(dim=0)
+            channels.append((lowpass[ch], b))
+        return Coefficients(channels), torch.stack(ovfs).any(dim=0)
 
-    def decode_batch_device(self, samples: list[bytes],
-                            reference_compatible: bool = True,
-                            dither_base: int = 0):
-        """Decode GROUP samples with the band entropy decode, the FIELDPLUS
-        inverse and the output on the device; the host only walks sample
-        headers and copies payloads.  The output is `decode_batch`'s.
+    @staticmethod
+    def _pyramid(lowpass, b, frame: int):
+        """One channel's lowpass and bands -> frame `frame`'s level-1 (LL,
+        (LH, HL, HH)): w5 and w3 invert with the stale bottom taps
+        (InvertSpatialQuantOverflowProtected16s), w4 with the standard
+        ones and descale 2; the temporal combine saturates before its >> 1
+        (InvertTemporalQuant16s, temporal.c:9676): frame 0 the temporal
+        low minus the high with w0's bands, frame 1 the sum with w1's."""
+        ll4 = ops.dwt2d_inverse(lowpass, *b[5], descale=1, bottom_shift=True)
+        tlow = ops.dwt2d_inverse(ll4, *b[4], descale=2)
+        thigh = ops.dwt2d_inverse(*b[3], descale=1, bottom_shift=True)
+        return ops.sat16(tlow + thigh if frame else tlow - thigh) >> 1, \
+            b[frame]
 
-        Returns (frames 0, frames 1, fallback): fallback is the sorted
-        tuple of the frame indices that `decode_batch` decoded instead."""
-        batch = len(samples)
-        *rows, fallback = self._decode_rows_args(samples)
-        if len(fallback) == batch:
-            _count_groups(batch, batch)
-            return (*self.decode_batch(samples, reference_compatible,
-                                       dither_base), tuple(range(batch)))
-        coeffs, ovf = self.decode_coefficients(*rows)
-        f0, f1 = (f.cpu().numpy() for f in self.inverse(
-            coeffs, reference_compatible, dither_base))
-        fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
-        fallback = tuple(sorted(fallback))
-        if fallback:
-            h0, h1 = self.decode_batch([samples[i] for i in fallback],
-                                       reference_compatible, dither_base)
-            f0[list(fallback)] = h0
-            f1[list(fallback)] = h1
-        _count_groups(batch, len(fallback))
-        return f0, f1, fallback
+    def inverse(self, coeffs: Coefficients, output: str = "YUY2",
+                frame: int = 0, dither: int = 0) -> torch.Tensor:
+        """Groups' coefficients on the device -> frame `frame` (0 or 1) of
+        each as `output`, on the device: the GOP pyramid (`_pyramid`),
+        then
 
-    # --- decode to the deep and RGB outputs --------------------------------
+        - YUY2: the 8-bit output with the reference's glibc dither, the
+          decoder's `dither`-th window (`Codec/decoder.c:11180`
+          DecodeSampleGroup), through the final v26 strips and the 2-6
+          horizontal inverse of a progressive group or the HORZTEMP frame
+          wavelet's inverse of an interlaced one, packed (B, H, 2W) uint8;
+        - `OUTPUTS` (`gop_host.decode_group_deep16`): every group through
+          the progressive pyramid, the lowpass with the absolute offset
+          (+14 for YU64 and v210, +48 for the others, +10 at odd widths),
+          the v26 strips' Row16u rows (`h26_inverse_to_row16u`) at the
+          groups' precision packed as `ops.yuv_output.pack` packs a 4:2:2
+          intra frame's, or BGRA through `ops.bgra.strip_to_bgra`
+          (`gop_host.decode_group_bgra`), rows bottom-up.  The 16-bit
+          outputs as int16 bit patterns (B, H, row_bytes / 2), the others
+          as uint8 rows, BGRA (B, H, W, 4).
 
-    def inverse_to(self, coeffs, output: str, frame: int = 0,
-                   precision: int = tags.PRECISION_10BIT) -> torch.Tensor:
-        """Per-channel (lowpass with the progressive load bias, bands) on
-        the device -> frame `frame` of the groups as `output` (one of
-        `OUTPUTS`): the GOP pyramid down to the final v26 strips
-        (`gop_host.decode_group_deep16`: frame 0 the temporal low minus
-        the high with w0's bands, frame 1 the sum with w1's; the lowpass
-        with the absolute offset, +14 for YU64 and v210, +48 for the
-        others, +10 at odd widths), then the Row16u rows
-        (`h26_inverse_to_row16u`) packed as `ops.yuv_output.pack` packs a
-        4:2:2 intra frame's, or BGRA through `ops.bgra.strip_to_bgra`
-        (`gop_host.decode_group_bgra`), rows bottom-up.  Returns the
-        16-bit outputs as int16 bit patterns (B, H, row_bytes / 2), the
-        others as uint8 rows, BGRA (B, H, W, 4)."""
-        if output not in OUTPUTS:
-            raise ValueError(f"a group decodes to {', '.join(OUTPUTS)}, "
-                             f"not {output!r}")
-        deep_yuv = output in yout.DEEP_YUV
-        strips = []
-        for lowpass, b in coeffs:
-            w = lowpass.shape[-1]
-            lowpass = lowpass + (
-                intra_host.lowpass_offset_absolute(w, deep_yuv, num_frames=2)
-                - intra_host.lowpass_channel_offset(w, num_frames=2))
-            ll4 = ops.dwt2d_inverse(lowpass, *b[5], descale=1,
-                                    bottom_shift=True)
-            tlow = ops.dwt2d_inverse(ll4, *b[4], descale=2)
-            thigh = ops.dwt2d_inverse(*b[3], descale=1, bottom_shift=True)
-            if frame == 0:
-                ll, (lh, hl, hh) = ops.sat16(tlow - thigh) >> 1, b[0]
+        `coeffs` is left as it was."""
+        yuy2 = output == "YUY2"
+        if not yuy2 and output not in OUTPUTS:
+            raise ValueError(f"a group decodes to YUY2, {', '.join(OUTPUTS)}"
+                             f", not {output!r}")
+        interlaced = yuy2 and not coeffs.progressive
+        if yuy2:
+            rows = _dither(self.height, dither, interlaced, self.device)
+        planes = []
+        for ch, (lowpass, b) in enumerate(coeffs.channels):
+            if not yuy2 or interlaced:
+                w = lowpass.shape[-1]
+                lowpass = lowpass + (
+                    intra_host.lowpass_offset_absolute(
+                        w, output in yout.DEEP_YUV, num_frames=2)
+                    - intra_host.lowpass_channel_offset(w, num_frames=2))
+            ll, (lh, hl, hh) = self._pyramid(lowpass, b, frame)
+            if interlaced:
+                planes.append(ops.frame_wavelet_inverse(ll, lh, hl, hh, rows,
+                                                        ch))
+                continue
+            low, high = ops.v26_inverse(ll, hl), ops.v26_inverse(lh, hh)
+            if yuy2:
+                width = 2 * ll.shape[-1]
+                group = 16 if ch == 0 else 8
+                planes.append(ops.h26_inverse_to_output(
+                    low, high, 2, ops.expand_dither_rows(rows, width, group),
+                    scalar_tail=group if width % (2 * group) == group
+                    else 0))
+            elif output == "BGRA":
+                planes.append((low, high))
             else:
-                ll, (lh, hl, hh) = ops.sat16(tlow + thigh) >> 1, b[1]
-            strips.append((ops.v26_inverse(ll, hl), ops.v26_inverse(lh, hh)))
+                planes.append(ops.h26_inverse_to_row16u(low, high,
+                                                        coeffs.precision))
+        if yuy2:
+            return ops.pack_yuy2(*planes)
         if output == "BGRA":
-            (yl, yh), (c1l, c1h), (c2l, c2h) = strips
+            (yl, yh), (c1l, c1h), (c2l, c2h) = planes
             return bgra.strip_to_bgra(yl, yh, c2l, c2h, c1l, c1h,
-                                      precision).flip(-3)
-        planes = [ops.h26_inverse_to_row16u(low, high, precision)
-                  for low, high in strips]
+                                      coeffs.precision).flip(-3)
         return yout.pack(output, *planes)
 
-    def decode_batch_to(self, samples: list[bytes], output: str,
-                        frame: int = 0, then=None) -> np.ndarray:
-        """Decode GROUP samples to frame `frame` as `output` with the host
-        C++ entropy decoder (the peaks not substituted, as the JAX
-        package's deep decode leaves them; every group through the
-        progressive pyramid, at its own precision), a group at a time,
-        then `inverse_to` on the device, and `then` (a function of the
-        frames on the device, or None) before the download."""
-        out = []
-        for sample in samples:
-            s = self._parse(sample)
-            coeffs = [(torch.from_numpy(self._lowpass(c, True)[None])
-                       .to(self.device),
-                       {k: tuple(torch.from_numpy(b[None]).to(self.device)
-                                 for b in bs)
-                        for k, bs in self._host_bands(c, False).items()})
-                      for c in s.channels]
-            frames = self.inverse_to(coeffs, output, frame, s.precision)
-            out.append(_download(frames if then is None else then(frames)))
-        return np.concatenate(out)
-
-    def decode_batch_device_to(self, samples: list[bytes], output: str,
-                               frame: int = 0, then=None):
-        """Decode GROUP samples to frame `frame` as `output` with the band
-        entropy decode, the pyramid and the packing on the device, and
-        `then` before the download, as `decode_batch_to` does.
-
-        Returns (frames, fallback): fallback is the sorted tuple of the
-        frame indices that `decode_batch_to` decoded instead (a group the
-        device route does not take, of another precision than 10 bits, or
-        that overflows its device band region)."""
-        out, fallback, _ = self._decode_device_to(samples, output, frame,
-                                                  then)
-        return out, fallback
-
-    def decode_group_device_to(self, sample: bytes, output: str,
-                               frame: int = 0, then=None):
-        """`decode_batch_device_to` of one GROUP sample that also returns
-        the group's coefficients on the device: (frames, fallback, coeffs),
-        coeffs the per-channel (lowpass, bands) that `coefficients_to`
-        takes for the group's other frame, None where the group fell
-        back."""
-        out, fallback, coeffs = self._decode_device_to([sample], output,
-                                                       frame, then)
-        return out, fallback, None if fallback else coeffs
-
-    def coefficients_to(self, coeffs, output: str, frame: int = 0,
-                        then=None) -> np.ndarray:
-        """Device coefficients of groups (`decode_coefficients`' first
-        return) -> frame `frame` as `output` on the host: `inverse_to`,
-        then `then` on the device, then the download.  `coeffs` is left
-        as it was, so one decode serves both frames."""
-        with timing.span("gop.inverse_to", coeffs[0][0].shape[0]):
-            frames = self.inverse_to(coeffs, output, frame)
+    def output_frame(self, coeffs: Coefficients, output: str = "YUY2",
+                     frame: int = 0, dither: int = 0,
+                     then=None) -> np.ndarray:
+        """`inverse`, then `then` (a function of the frames on the device,
+        or None) there, then the download.  `coeffs` is left as it was, so
+        one decode serves both frames of its groups."""
+        with timing.span("gop.inverse_to", coeffs.channels[0][0].shape[0]):
+            frames = self.inverse(coeffs, output, frame, dither)
         return _download(frames if then is None else then(frames))
 
-    def _decode_device_to(self, samples: list[bytes], output: str,
-                          frame: int, then):
-        """`decode_batch_device_to` and the device coefficients it decoded
-        (None where every group fell back)."""
+    def decode(self, samples: list[bytes], output: str = "YUY2",
+               frame: int = 0, dither: int = 0, then=None):
+        """Decode GROUP samples to frame `frame` as `output`, as
+        `output_frame` makes it.  The groups the device route takes have
+        their bands entropy-decoded on the device (the host only walks
+        sample headers and copies payloads); the others, and those that
+        overflow their device band region, take `host_coefficients`.
+
+        Returns (frames, fallback, coeffs): fallback the sorted tuple of
+        the indices of the groups that took the host route, coeffs the
+        Coefficients the frames were made from where one route's made them
+        all (always so for one group), else None."""
         batch = len(samples)
-        with timing.span("gop.decode_batch_device_to", batch):
+        out = held = None
+        with timing.span("gop.decode", batch):
             *rows, fallback = self._decode_rows_args(samples)
-            if len(fallback) == batch:
-                _count_groups(batch, batch)
-                return (self.decode_batch_to(samples, output, frame, then),
-                        tuple(range(batch)), None)
-            with timing.span("gop.decode_coefficients", batch):
-                coeffs, ovf = self.decode_coefficients(*rows)
-            out = self.coefficients_to(coeffs, output, frame, then)
-            fallback |= {int(i) for i in torch.nonzero(ovf.cpu()).flatten()}
+            if len(fallback) < batch:
+                held, ovf = self.decode_coefficients(*rows)
+                out = self.output_frame(held, output, frame, dither, then)
+                # read after the output's launches: no sync comes first
+                fallback |= set(torch.nonzero(ovf.cpu()).flatten().tolist())
             fallback = tuple(sorted(fallback))
+            parts = self.host_coefficients([samples[i] for i in fallback],
+                                           output)
+            for idx, coeffs in parts:
+                frames = self.output_frame(coeffs, output, frame, dither,
+                                           then)
+                if out is None:
+                    out = np.empty((batch, *frames.shape[1:]), frames.dtype)
+                out[[fallback[i] for i in idx]] = frames
             if fallback:
-                out[list(fallback)] = self.decode_batch_to(
-                    [samples[i] for i in fallback], output, frame, then)
-            _count_groups(batch, len(fallback))
-        return out, fallback, coeffs
+                held = parts[0][1] if len(parts) == 1 and \
+                    len(fallback) == batch else None
+            # an event even at 0, so that a window reads 0.0
+            timing.count("gop.group_decodes", batch)
+            timing.count("gop.fallback_groups", len(fallback))
+        return out, fallback, held

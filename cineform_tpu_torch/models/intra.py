@@ -1022,10 +1022,6 @@ class IntraCodec:
                 for ci, (k, planes) in enumerate(self._DECODE_CLASSES)
                 if k >= resolution - 1]
 
-    #: floor of a class's row capacity in 32-bit chunks; capacities double
-    #: from here to fit the class's longest band payload
-    MIN_ROW_CHUNKS = 256
-
     def _class_dims(self, k: int, planes: tuple[int, ...]):
         bh = self.params.height >> (k + 1)
         bw = self.plane_width(planes[0]) >> (k + 1)
@@ -1122,34 +1118,23 @@ class IntraCodec:
                     fallback.add(i)
             live = [i for i in range(batch) if i not in fallback]
 
-            pays, nchs, qns, lins = [], [], [], []
+            classes = []
             for _, k, planes in self.decode_classes(resolution):
                 rows = [(0, 0, 1, 0) if i in fallback
                         else parts[(ch, k, band, i)]
                         for i in range(batch) for ch in planes
                         for band in (1, 2, 3)]
-                cap = self.MIN_ROW_CHUNKS
-                while cap < max(ln for _, ln, _, _ in rows) // 4:
-                    cap *= 2
-                meta = torch.tensor(
-                    [(ln // 4, q, lin) for _, ln, q, lin in rows],
-                    dtype=torch.int32).t().contiguous()
-                if pin:
-                    meta = meta.pin_memory()
-                pay = torch.zeros((len(rows), cap * 4), dtype=torch.uint8,
-                                  pin_memory=pin)
+                bufs = ddec.row_buffers([r[1:] for r in rows], pin)
                 per_frame = len(rows) // batch
                 for i in live:
                     sl = rows[i * per_frame:(i + 1) * per_frame]
                     fastwalk.fill_rows(
-                        pay.numpy(), samples[i],
+                        bufs[0].numpy(), samples[i],
                         np.asarray([o for o, _, _, _ in sl], np.int64),
                         np.asarray([ln for _, ln, _, _ in sl], np.int64),
                         np.arange(i * per_frame, (i + 1) * per_frame))
-                pays.append(pay)
-                nchs.append(meta[0])
-                qns.append(meta[1])
-                lins.append(meta[2])
+                classes.append(bufs)
+            pays, nchs, qns, lins = zip(*classes) if classes else ((),) * 4
 
             lowpass = []
             for ch in range(nch):
@@ -1164,22 +1149,15 @@ class IntraCodec:
                     fastwalk.lowpass_i32(samples[i], walks[i].lowpass_off[ch],
                                          lh, w, bias, arr[i].numpy())
                 lowpass.append(arr)
-            return (tuple(pays), tuple(nchs), tuple(qns), tuple(lins),
-                    tuple(lowpass), fallback)
-
-    def _upload_rows(self, rows):
-        """`_decode_rows_host`'s tensors -> the device (asynchronous copies
-        from pinned memory on CUDA); the fallback set passes through."""
-        with timing.span("intra.upload_rows"):
-            *groups, fallback = rows
-            return (*(tuple(t.to(self.device, non_blocking=True) for t in g)
-                      for g in groups), fallback)
+            return pays, nchs, qns, lins, tuple(lowpass), fallback
 
     def _decode_rows_args(self, samples: list[bytes], resolution: int = 1,
                           host=()):
         """`_decode_rows_host` with its tensors uploaded to the device."""
-        return self._upload_rows(self._decode_rows_host(
-            samples, resolution=resolution, host=host))
+        rows = self._decode_rows_host(samples, resolution=resolution,
+                                      host=host)
+        with timing.span("intra.upload_rows"):
+            return ddec.upload_rows(rows, self.device)
 
     def decode_checked(self, samples: list[bytes], finish, rows=None,
                        resolution: int = 1, host=(), errors=None):

@@ -36,6 +36,7 @@ import torch
 
 from cineform_tpu_torch import api
 from cineform_tpu_torch.bitstream import fastwalk, parse_sample
+from cineform_tpu_torch.entropy import device_decode as ddec
 from cineform_tpu_torch.models import gop_host
 from cineform_tpu_torch.parallel import mesh as frame_meshes
 from cineform_tpu_torch.utils import timing
@@ -523,8 +524,9 @@ class DecoderPool(_Batches):
                     samples = [j.frames[0] for j in jobs]
                     rows = self._codec._decode_rows_host(samples, walks,
                                                          host=host)
-                    item = (jobs, samples, rows,
-                            self._codec._upload_rows(rows))
+                    with timing.span("intra.upload_rows"):
+                        item = (jobs, samples, rows, ddec.upload_rows(
+                            rows, self._codec.device))
             except BaseException as exc:
                 self._fail(jobs, exc)
                 continue

@@ -65,18 +65,32 @@ def _groups(w, h, patterns, **kw):
                                    w, h, 4, **kw) for p0, p1 in patterns]
 
 
+def _host(codec, samples, frame=0, dither=0, output="YUY2"):
+    """The host route's frames of `samples`: `host_coefficients`, then
+    `output_frame` of each part, in the samples' order."""
+    out = [None] * len(samples)
+    for idx, coeffs in codec.host_coefficients(samples, output):
+        for i, f in zip(idx, codec.output_frame(coeffs, output, frame,
+                                                dither), strict=True):
+            out[i] = f
+    return np.stack(out)
+
+
 def _assert_decodes(codec, samples, rc, base, want_fallback):
-    """Both routes of `codec` on `samples` equal `decode_group`; the
-    device route's fallback is `want_fallback`."""
-    host = codec.decode_batch(samples, rc, base)
-    *dev, fallback = codec.decode_batch_device(samples, rc, base)
-    assert fallback == want_fallback
-    for i, sample in enumerate(samples):
-        want = jgop_host.decode_group(sample, reference_compatible=rc,
-                                      dither_base=base)
-        for f in (0, 1):
-            assert host[f][i].tobytes() == want[f], ("host", i, f)
-            assert dev[f][i].tobytes() == want[f], ("device", i, f)
+    """Both routes of `codec` on `samples` equal `decode_group`: frame f
+    with dither window base + f, frame 1 the true second frame or, with
+    `rc` (the reference decoder's GROUP decode), frame 0's reconstruction;
+    the device route's fallback is `want_fallback`."""
+    want = [jgop_host.decode_group(sample, reference_compatible=rc,
+                                   dither_base=base) for sample in samples]
+    for f in (0, 1):
+        frame = 0 if rc else f
+        host = _host(codec, samples, frame, base + f)
+        dev, fallback, _ = codec.decode(samples, "YUY2", frame, base + f)
+        assert fallback == want_fallback
+        for i in range(len(samples)):
+            assert host[i].tobytes() == want[i][f], ("host", i, f)
+            assert dev[i].tobytes() == want[i][f], ("device", i, f)
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +207,11 @@ def test_decode_routes_match_golden(name):
     gold = _golden(name + ".cfhd.f1")
     codec = GopCodec(320, 240, 4, device=CPU)
     want = [_golden(f"{name}.f{f}.yuy2") for f in (0, 1)]
-    host = codec.decode_batch([gold])
-    *dev, fallback = codec.decode_batch_device([gold])
-    assert fallback == ()
-    assert [f[0].tobytes() for f in host] == want
-    assert [f[0].tobytes() for f in dev] == want
+    host = [_host(codec, [gold], 0, f)[0].tobytes() for f in (0, 1)]
+    dev = [codec.decode([gold], "YUY2", 0, f) for f in (0, 1)]
+    assert [fallback for _, fallback, _ in dev] == [(), ()]
+    assert host == want
+    assert [out[0].tobytes() for out, _, _ in dev] == want
     assert JaxGopCodec(320, 240, 4)._decode_rows_args([gold])[-1] == {0}
     _assert_decodes(codec, [gold], False, 3, ())
 
@@ -241,7 +255,7 @@ def _with_peaks() -> bytes:
 
 
 def test_peaks_and_interlaced_groups_take_the_host_route():
-    """A group with a peaks band and an interlaced group: `decode_batch`
+    """A group with a peaks band and an interlaced group: the host route
     equals `decode_group` (the peaks substituted; the HORZTEMP frame
     inverse with its pair dither), and the device route lists them in its
     fallback, between groups it decodes itself."""
@@ -258,18 +272,19 @@ def test_peaks_and_interlaced_groups_take_the_host_route():
 
 def test_interlaced_golden_decodes_byte_exact():
     gold = _golden("ilace_320x240_q4_p1.cfhd.f1")
-    f0, f1 = GopCodec(320, 240, 4, device=CPU).decode_batch([gold])
-    assert f0[0].tobytes() == _golden("ilace_320x240_q4_p1.f0.yuy2")
-    assert f1[0].tobytes() == _golden("ilace_320x240_q4_p1.f1.yuy2")
+    codec = GopCodec(320, 240, 4, device=CPU)
+    for f in (0, 1):
+        assert _host(codec, [gold], 0, f)[0].tobytes() == \
+            _golden(f"ilace_320x240_q4_p1.f{f}.yuy2")
 
 
 def test_decode_rejects_a_sample_of_another_size():
     gold = _golden("gop_320x240_q4_p1.cfhd.f1")
     codec = GopCodec(64, 48, 4, device=CPU)
     with pytest.raises(ValueError):
-        codec.decode_batch([gold])
+        codec.host_coefficients([gold])
     with pytest.raises(ValueError):
-        codec.decode_batch_device([gold])
+        codec.decode([gold])
 
 
 # ---------------------------------------------------------------------------

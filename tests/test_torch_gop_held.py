@@ -1,14 +1,14 @@
 """A group's FRAME sample served from the coefficients the GROUP sample's
 decode left on the device (`api.Decoder`'s held group), on the CPU.
 
-Frame 1 from the held coefficients equals a fresh
-`GopCodec.decode_batch_device_to` of the group, the JAX package's deep
-decode (`gop_host.decode_group_to`) and, for V210 and YU64, the
-benchmark's plain GOP reference (`cfbench/reference/gop.py`), byte for
-byte; the tracer counts one group decode for the two frames.  The held
-coefficients are dropped for another group, a host-route group, a new
-`prepare_to_decode` and `close`, and are left unchanged by the inverse of
-frame 0.  The YUY2 route keeps decoding its group again.
+Frame 1 from the held coefficients equals a fresh `GopCodec.decode` of
+the group, the JAX package's deep decode (`gop_host.decode_group_to`) and,
+for V210 and YU64, the benchmark's plain GOP reference
+(`cfbench/reference/gop.py`), byte for byte; the tracer counts one group
+decode for the two frames.  The held coefficients are replaced by another
+group's, dropped by a new `prepare_to_decode` and `close`, and left
+unchanged by the inverse of frame 0.  A host-route group, the YUY2 and
+UYVY outputs and a decode to another size hold theirs too.
 
 The pairs are the GOP cell's own content (`content/plasma_pan_pairs.py`)
 at small progressive sizes; every comparison is exact."""
@@ -80,8 +80,7 @@ def _decoder(w, h, output) -> api.Decoder:
 def _fresh(group: bytes, w, h, output, frame) -> bytes:
     """Frame `frame` of the group by a fresh device-route decode."""
     codec = api.gop_codec(w, h, api.DECODE_QUALITY, CPU)
-    out, fallback = codec.decode_batch_device_to([group], FOURCC[output],
-                                                 frame)
+    out, fallback, _ = codec.decode([group], FOURCC[output], frame)
     assert fallback == ()
     return out[0].tobytes()
 
@@ -164,8 +163,9 @@ def test_repeated_group_calls_give_frame_0(tracer, output):
 
 def test_host_route_group_holds_nothing(tracer):
     """The interlaced group, whose bands carry peaks, goes to the host
-    route: its FRAME sample decodes the group again, as before, to the
-    bytes of that route; no frame comes from held coefficients."""
+    route: the decoder holds that route's coefficients, and its FRAME
+    sample makes frame 1 from them, to the bytes of that route; both
+    frames count as fallback frames."""
     with open(os.path.join(SAMPLES, "ilace_320x240_q4_p1.cfhd.f1"),
               "rb") as f:
         group = f.read()
@@ -173,11 +173,11 @@ def test_host_route_group_holds_nothing(tracer):
     dec.decode_sample(group)
     got = dec.decode_sample(gop_host.frame_header_sample(320, 240, 1))
     assert _totals(tracer.snapshot()) == {
-        "gop.group_decodes": 2, "gop.fallback_groups": 2,
-        "gop.frames_out": 2}
+        "gop.group_decodes": 1, "gop.fallback_groups": 1,
+        "gop.frames_out": 2, "gop.held_frames": 1}
     assert dec.fallback_frames == 2
     codec = api.gop_codec(320, 240, api.DECODE_QUALITY, CPU)
-    want, fallback = codec.decode_batch_device_to([group], "YU64", 1)
+    want, fallback, _ = codec.decode([group], "YU64", 1)
     assert fallback == (0,)
     assert got.tobytes() == want[0].tobytes()
 
@@ -209,39 +209,57 @@ def test_frame_sample_on_a_fresh_decoder_raises():
     assert err.value.code == api.ErrorCode.BADSAMPLE
 
 
-def test_yuy2_route_decodes_its_group_again(tracer):
-    """The YUY2 output's FRAME sample, with its dither window, still
-    decodes the group again: two group decodes, no held frame."""
+@pytest.fixture
+def jax_host(monkeypatch):
+    monkeypatch.setenv("CINEFORM_API_DEVICE", "0")
+
+
+@pytest.mark.parametrize("output,size", (("YUY2", SIZES[0]),
+                                         ("UYVY", SIZES[0]),
+                                         ("YUY2", (80, 40))))
+def test_yuy2_route_decodes_its_group_again(tracer, jax_host, output, size):
+    """The YUY2 and UYVY outputs, each frame with its dither window, and a
+    decode to another size: each FRAME sample's frame comes from its
+    group's held coefficients, one group decode for two frames, and the
+    bytes equal the JAX API's."""
+    from cineform_tpu import api as japi
+
     w, h = SIZES[0]
     _, groups, frames = _groups(_cfg(w, h))
-    dec = _decoder(w, h, "YUY2")
-    dec.decode_sample(groups[0])
-    dec.decode_sample(frames[0])
-    totals = _totals(tracer.snapshot())
-    assert totals["gop.group_decodes"] == 2
-    assert "gop.held_frames" not in totals
+    samples = [groups[0], frames[0], groups[1], frames[1]]
+    got = []
+    for mod, kw in ((api, {"device": "cpu"}), (japi, {})):
+        dec = mod.Decoder(**kw)
+        dec.prepare_to_decode(*size, mod.PixelFormat[output])
+        got.append([dec.decode_sample(s).tobytes() for s in samples])
+        if mod is api:
+            assert _totals(tracer.snapshot()) == {
+                "gop.group_decodes": 2, "gop.fallback_groups": 0,
+                "gop.frames_out": 4, "gop.held_frames": 2}
+    assert got[0] == got[1]
 
 
 @pytest.mark.parametrize("output", tuple(FOURCC.values()))
 def test_inverse_leaves_the_coefficients_unchanged(output):
-    """`decode_group_device_to`'s coefficients after its frame-0 inverse
-    equal a copy taken before it, and give frame 1 as a fresh decode."""
+    """`decode`'s coefficients after its frame-0 inverse equal a copy
+    taken before it, and give frame 1 as a fresh decode."""
     w, h = SIZES[1]
     _, groups, _ = _groups(_cfg(w, h))
     codec = api.gop_codec(w, h, api.DECODE_QUALITY, CPU)
-    out, fallback, coeffs = codec.decode_group_device_to(groups[0], output)
+    out, fallback, coeffs = codec.decode(groups[:1], output)
     assert fallback == () and coeffs is not None
     before = [(lp.clone(), {k: [b.clone() for b in bs]
                             for k, bs in bands.items()})
-              for lp, bands in coeffs]
-    codec.coefficients_to(coeffs, output, 0)
-    for (lp, bands), (lp0, bands0) in zip(coeffs, before, strict=True):
+              for lp, bands in coeffs.channels]
+    codec.output_frame(coeffs, output, 0)
+    for (lp, bands), (lp0, bands0) in zip(coeffs.channels, before,
+                                          strict=True):
         assert torch.equal(lp, lp0)
         for k, bs in bands.items():
             assert all(torch.equal(b, b0)
                        for b, b0 in zip(bs, bands0[k], strict=True))
-    frame1 = codec.coefficients_to(coeffs, output, 1)
-    want, _ = codec.decode_batch_device_to([groups[0]], output, 1)
+    frame1 = codec.output_frame(coeffs, output, 1)
+    want, _, _ = codec.decode(groups[:1], output, 1)
     assert np.array_equal(frame1, want)
-    assert out.tobytes() == codec.decode_batch_device_to(
-        [groups[0]], output, 0)[0].tobytes()
+    assert out.tobytes() == codec.decode(groups[:1], output,
+                                         0)[0].tobytes()

@@ -1,5 +1,5 @@
-"""The port's GOP outputs (`GopCodec.inverse_to`, `decode_batch_to`,
-`decode_batch_device_to`) and the API's GOP geometry routes on the CPU,
+"""The port's GOP outputs (`GopCodec.inverse`, on the device route's and
+the host route's coefficients) and the API's GOP geometry routes on the CPU,
 against the JAX package's `gop_host.decode_group_to` and `api.Decoder`
 and the reference's GOP output goldens.
 
@@ -37,6 +37,17 @@ def codec():
     return GopCodec(320, 240, 4, device="cpu")
 
 
+def _host(codec, samples, output, frame):
+    """The host route's frames of `samples`: `host_coefficients`, then
+    `output_frame` of each part, in the samples' order."""
+    out = [None] * len(samples)
+    for idx, coeffs in codec.host_coefficients(samples, output):
+        for i, f in zip(idx, codec.output_frame(coeffs, output, frame),
+                        strict=True):
+            out[i] = f
+    return out
+
+
 @pytest.mark.parametrize("frame", (0, 1))
 @pytest.mark.parametrize("output", OUTPUTS)
 def test_decode_group_to_matches_jax(codec, output, frame):
@@ -44,9 +55,9 @@ def test_decode_group_to_matches_jax(codec, output, frame):
     fallback) and the host-entropy route, equal to `decode_group_to`."""
     samples = [_golden(n) for n in GROUPS]
     want = [gop_host.decode_group_to(s, output, frame) for s in samples]
-    got, fallback = codec.decode_batch_device_to(samples, output, frame)
+    got, fallback, _ = codec.decode(samples, output, frame)
     assert fallback == ()
-    host = codec.decode_batch_to(samples, output, frame)
+    host = _host(codec, samples, output, frame)
     for i, w in enumerate(want):
         assert got[i].tobytes() == w
         assert host[i].tobytes() == w
@@ -58,8 +69,8 @@ def test_interlaced_group_with_peaks_falls_back_as_jax(codec, output):
     sends it to the host-entropy route, which (as the JAX deep decode)
     runs the progressive pyramid and leaves the peaks unsubstituted."""
     sample = _golden("ilace_320x240_q4_p1.cfhd.f1")
-    got, fallback = codec.decode_batch_device_to(
-        [_golden(GROUPS[0]), sample], output, 1)
+    got, fallback, _ = codec.decode([_golden(GROUPS[0]), sample], output,
+                                    1)
     assert fallback == (1,)
     assert got[1].tobytes() == gop_host.decode_group_to(sample, output, 1)
     assert got[0].tobytes() == gop_host.decode_group_to(_golden(GROUPS[0]),
@@ -75,8 +86,7 @@ def test_interlaced_group_with_peaks_falls_back_as_jax(codec, output):
     ("gopstream_320x240_q4.s1", 1, "RG48",
      "gopstream_320x240_q4.f1true.rg48out")])
 def test_gop_output_goldens(codec, sample, frame, output, ext):
-    got, fallback = codec.decode_batch_device_to([_golden(sample)], output,
-                                                 frame)
+    got, fallback, _ = codec.decode([_golden(sample)], output, frame)
     assert fallback == ()
     assert got[0].tobytes() == _golden(ext)
 
@@ -89,15 +99,14 @@ def test_then_runs_on_the_decoded_batch(codec):
         seen.append(tuple(frames.shape))
         return frames
 
-    got, _ = codec.decode_batch_device_to([_golden(GROUPS[0])], "RG48", 0,
-                                          then)
+    got, _, _ = codec.decode([_golden(GROUPS[0])], "RG48", 0, then=then)
     assert seen == [(1, 240, 960)]
     assert got[0].tobytes() == _golden("gop_320x240_q4_p1.rg48out")
 
 
 def test_inverse_to_refuses_other_outputs(codec):
     with pytest.raises(ValueError, match="a group decodes to"):
-        codec.decode_batch_to([_golden(GROUPS[0])], "NV12")
+        _host(codec, [_golden(GROUPS[0])], "NV12", 0)
 
 
 # ---------------------------------------------------------------------------

@@ -184,8 +184,7 @@ out, fallback = c.decode_batch_device([gold])
 assert fallback == () and out.tobytes() == want
 from cineform_tpu_torch.models.gop import GopCodec
 group = open(os.path.join(samples, "gop_320x240_q4_p1.cfhd.f1"), "rb").read()
-f0, f1, fallback = GopCodec(320, 240, 4, device="cpu").decode_batch_device(
-    [group])
+f0, fallback, _ = GopCodec(320, 240, 4, device="cpu").decode([group])
 assert fallback == () and f0.tobytes() == open(os.path.join(
     samples, "gop_320x240_q4_p1.f0.yuy2"), "rb").read()
 for name in ("gop", "gop_host", "stereo", "lens", "thumbnail",

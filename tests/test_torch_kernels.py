@@ -468,11 +468,14 @@ def test_gop_codec_on_the_card_matches_goldens(cuda):
             1, 240, 640) for p in (p0, p1))
         assert codec.encode_batch(f0, f1, 1, sample_metadata(gold)) == [gold]
         want = [golden(f"{name}.f{f}.yuy2") for f in (0, 1)]
-        assert [f.tobytes() for f in codec.decode_batch([gold])] == want
+        ((_, host),) = codec.host_coefficients([gold])
+        assert [codec.output_frame(host, "YUY2", 0, f).tobytes()
+                for f in (0, 1)] == want
         launches = [merge_network_tgt.launches,
                     merge_network_highfirst.launches]
-        *dev, fallback = codec.decode_batch_device([gold])
-        assert fallback == () and [f.tobytes() for f in dev] == want
+        dev, fallback, coeffs = codec.decode([gold])
+        assert fallback == () and [dev.tobytes(), codec.output_frame(
+            coeffs, "YUY2", 0, 1).tobytes()] == want
         assert [merge_network_tgt.launches,
                 merge_network_highfirst.launches] == [n + 6 for n in launches]
 

@@ -280,23 +280,23 @@ def _totals(snap) -> dict:
 GOP_NESTING = {
     "api.decode_sample": {None},
     "api.parse": {"api.decode_sample"},
-    "gop.decode_batch_device_to": {"api.decode_sample"},
+    "gop.decode": {"api.decode_sample"},
     "gop.held_frame": {"api.decode_sample"},
-    "gop.decode_rows_host": {"gop.decode_batch_device_to"},
-    "gop.upload_rows": {"gop.decode_batch_device_to"},
-    "gop.decode_coefficients": {"gop.decode_batch_device_to"},
+    "gop.decode_rows_host": {"gop.decode"},
+    "gop.upload_rows": {"gop.decode"},
+    "gop.decode_coefficients": {"gop.decode"},
     **{f"entropy.{stage}": {"gop.decode_coefficients"}
        for stage in ("classify", "chunk_transfers", "scan_entries_rows",
                      "final_walk", "emit_slots", "compact_rows",
                      "spread_rows")},
-    "gop.inverse_to": {"gop.decode_batch_device_to", "gop.held_frame"},
-    "intra.download": {"gop.decode_batch_device_to", "gop.held_frame"},
+    "gop.inverse_to": {"gop.decode", "gop.held_frame"},
+    "intra.download": {"gop.decode", "gop.held_frame"},
 }
 
 
 def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
     """A group's GROUP then FRAME sample to v210: each call one request.
-    The GROUP call's `gop.decode_batch_device_to` span (a frame) holds the
+    The GROUP call's `gop.decode` span (a frame) holds the
     walk, the upload, the band decoder at the 6 row classes and the
     inverse; the FRAME call's `gop.held_frame` span (a frame) holds only
     the inverse of the held coefficients and the download.  One group
@@ -314,7 +314,7 @@ def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
         assert all(r.start <= s.start <= s.end <= r.end for s in inside)
     gop = [s for s in group if s.name.startswith("gop.")]
     assert sorted(s.name for s in gop) == [
-        "gop.decode_batch_device_to", "gop.decode_coefficients",
+        "gop.decode", "gop.decode_coefficients",
         "gop.decode_rows_host", "gop.inverse_to", "gop.upload_rows"]
     assert all(s.frames == 1 for s in gop if s.name != "gop.upload_rows")
     assert sum(s.name == "entropy.chunk_transfers" for s in group) == 6
@@ -331,7 +331,8 @@ def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
 
 def test_gop_group_that_falls_back_counts_it(tracer):
     """The interlaced group, whose bands carry peaks, goes to the host
-    route: one group decoded, one fallen back, one frame out."""
+    route: one group decoded, one fallen back, one frame out, made by the
+    inverse of the host route's coefficients."""
     path = os.path.join(os.path.dirname(__file__), "golden", "samples",
                         "ilace_320x240_q4_p1.cfhd.f1")
     with open(path, "rb") as f:
@@ -342,8 +343,9 @@ def test_gop_group_that_falls_back_counts_it(tracer):
     assert _totals(snap) == {"gop.group_decodes": 1, "gop.frames_out": 1,
                              "gop.fallback_groups": 1}
     assert [s.frames for s in snap.spans
-            if s.name == "gop.decode_batch_device_to"] == [1]
-    assert not any(s.name == "gop.inverse_to" for s in snap.spans)
+            if s.name == "gop.decode"] == [1]
+    assert [s.frames for s in snap.spans
+            if s.name == "gop.inverse_to"] == [1]
 
 
 def test_off_records_no_gop_span_or_counter():

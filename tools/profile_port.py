@@ -88,6 +88,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: needs a CUDA card")
     sys.path.insert(0, ROOT)
+    from cineform_tpu_torch.entropy import device_decode as ddec
     from cineform_tpu_torch.models import intra as port_intra
     from cineform_tpu_torch.testframes import yuy2_frame
     from cineform_tpu_torch.utils import timing
@@ -111,7 +112,7 @@ def main() -> int:
         return codec.inverse(co).cpu().numpy()
 
     rows = codec._decode_rows_host(samples)
-    dev_rows = codec._upload_rows(rows)
+    dev_rows = ddec.upload_rows(rows, dev)
     dev_co = codec.decode_coefficients(*dev_rows[:5])[0]
     dev_out = codec.inverse(dev_co)
 
@@ -127,8 +128,8 @@ def main() -> int:
         "decode device (inverse + download)": dec_dev,
         "device decode route: header walk and fill (_decode_rows_host)":
             lambda: codec._decode_rows_host(samples),
-        "device decode route: upload (_upload_rows)":
-            lambda: codec._upload_rows(rows),
+        "device decode route: upload (upload_rows)":
+            lambda: ddec.upload_rows(rows, dev),
         "device decode route: entropy decode (decode_coefficients)":
             lambda: codec.decode_coefficients(*dev_rows[:5]),
         "device decode route: inverse with pack (inverse)":
