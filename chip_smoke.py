@@ -7,7 +7,14 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 (sm_90a) and the CUDA toolkit.  It
 
 1. builds the CUDA kernels from `cineform_tpu_torch/csrc/`, one nvcc per
-   source, all at once;
+   source, all at once; then holds the band decoder's three kernels
+   (`ops.band_decode.band_kernels`, which `entropy.device_decode.
+   band_slots` launches on the card) against the plain stages 1-5 on every
+   row class of a 4K BYR4 frame and of a 1080p GOP group: equal, three
+   launches and no synchronizing call a class, with their device times,
+   the plain stages' and the bound, listed in the kernels line; each
+   later path that decodes on the card must launch them 3 times for each
+   band row class it decodes, and those that only encode not at all;
 2. holds each kernel against its plain PyTorch version, on the card, at
    the shapes of a batch-8 1080p encode (the forward DWT's three launches:
    level 1 from the YUY2 bytes and the two three-channel levels, on that
@@ -631,6 +638,7 @@ def main() -> int:
         dwt_forward_groups, dwt_forward_level, dwt_forward_planes,
         dwt_forward_yuy2)
     from cineform_tpu_torch.ops import merge_network as merges
+    from cineform_tpu_torch.ops.band_decode import band_kernels
     from cineform_tpu_torch.ops.merge_network import (
         merge_network, merge_network_highfirst, merge_network_tgt)
     from cineform_tpu_torch.testframes import (b64a_frame, byr4_frame,
@@ -662,7 +670,11 @@ def main() -> int:
                    "prescale rounding, int16 saturation and dead-zone "
                    "quantization")
     # paths: the main paths that launch the kernel: YUY2, the RGB formats,
-    # the 10-bit 4:2:2 formats (UYVY, YU64, V210) and Bayer (BYR4, BYR5)
+    # the 10-bit 4:2:2 formats (UYVY, YU64, V210) and Bayer (BYR4, BYR5);
+    # the decoder's kernels run on every path that decodes on the card
+    decode_paths = ALL_PATHS + ("bayer_rgb", "outputs", "scaled", "geometry",
+                                "encoder_inputs", "bayer_develop",
+                                "stereo_composite", "robustness")
     kernels = {
         "dwt_forward_yuy2": dict(
             wrapper=dwt_forward_yuy2, route="cuda", source=dwt_src,
@@ -720,19 +732,29 @@ def main() -> int:
             mode="low-bit-first with tgt merged by max (decoder "
                  "compact_rows): guarded one-pass placement, network on "
                  "flagged rows", ms_covers=decode_calls, ops_per_elem=16,
-            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry", "encoder_inputs", "bayer_develop",
-                               "stereo_composite", "robustness")),
+            paths=decode_paths),
         "merge_network_highfirst": dict(
             wrapper=merge_network_highfirst, route="cuda", source=merge_src,
             replaces=merge_tpu,
             mode="high-bit-first (decoder spread_rows, on mirrored rows): "
                  "guarded one-pass placement, network on flagged rows",
             ms_covers=decode_calls, ops_per_elem=12,
-            paths=ALL_PATHS + ("bayer_rgb", "outputs", "scaled",
-                               "geometry", "encoder_inputs", "bayer_develop",
-                               "stereo_composite", "robustness")),
+            paths=decode_paths),
+        "band_kernels": dict(
+            wrapper=band_kernels, route="cuda",
+            source="cineform_tpu_torch/csrc/band_decode.cu",
+            replaces="none: the JAX band decoder's stages 1-5 are XLA "
+                     "(cineform_tpu/entropy/device_decode.py)",
+            mode="stages 1-5 of decode_band_rows in three launches: "
+                 "classify and transfers a warp a chunk, the row scan of "
+                 "tile functions, the final walk with the slot emission",
+            ms_covers="every band row class of a 4K BYR4 frame and of a "
+                      "1080p GOP group", paths=decode_paths,
+            device_ms=0.0, bytes=0, by_rows={}),
     }
+    for k in kernels.values():
+        k.update(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=None)
     t0 = time.perf_counter()
     sources = sorted({os.path.splitext(os.path.basename(k["source"]))[0]
                       for k in kernels.values()})
@@ -746,6 +768,68 @@ def main() -> int:
         log(f"built {src}: {os.path.relpath(path, ROOT)}; ptxas: {ptxas}")
     log(f"build seconds: {time.perf_counter() - t0:.3f}")
 
+    # --- 1b. the band decoder's stages 1-5 at the decode cells' rows -------
+    # band_kernels against the plain stages on every row class of a 4K
+    # BYR4 mosaic (the export cell's frame) and of a 1080p GOP group (the
+    # playback cell's 6 classes): equal, three launches and no
+    # synchronizing call a class; the kernels' times beside the plain
+    # stages' and the bound (the payload rows in once, the slots out once)
+    t_phase = time.perf_counter()
+    band = kernels["band_kernels"]
+    byr4_4k = IntraCodec(3840, 2160, 4, device=dev, input_format="BYR4")
+    gop_1080 = GopCodec(WIDTH, HEIGHT, 4, device=dev)
+    f0 = np.frombuffer(yuy2_frame(WIDTH, HEIGHT, 1), np.uint8).reshape(
+        1, HEIGHT, 2 * WIDTH)
+    band_cases = {
+        "export 4K BYR4 frame": (byr4_4k, byr4_4k.encode_batch_device(
+            np.frombuffer(byr4_frame(3840, 2160, 1), np.uint8).reshape(
+                1, 2160, -1))),
+        "playback 1080p GOP group": (gop_1080, gop_1080.encode_batch(
+            f0, np.roll(f0, 4, axis=1), frame_numbers=[1]))}
+    for what, (c, band_samples) in band_cases.items():
+        rows = c._decode_rows_args(band_samples)
+        if rows[-1]:
+            raise AssertionError(f"band_kernels, {what}: frames left the "
+                                 "device route")
+        sums = dict(classes=0, device_ms=0.0, plain_ms=0.0, bytes=0)
+        for ci, (lev, planes) in enumerate(c._DECODE_CLASSES):
+            bh, _, pitch = c._class_dims(lev, planes)
+            args = tuple(rows[i][ci] for i in range(4))
+            nout = bh * pitch
+            before = band_kernels.launches
+            got = ddec.band_slots(*args, nout)
+            want = ddec.plain_band_slots(*args, nout)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, flat(got), flat(want))
+            if err or band_kernels.launches != before + 3:
+                raise AssertionError(
+                    f"band_kernels, {what} class {ci}: max abs err {err}, "
+                    f"{band_kernels.launches - before} launches")
+            syncs = sync_calls(torch, lambda: ddec.band_slots(*args, nout))
+            if syncs:
+                raise AssertionError(f"band_kernels, {what} class {ci}: "
+                                     f"{syncs} synchronizing calls")
+            sums["classes"] += 1
+            sums["device_ms"] += device_ms(torch, lambda: ddec.band_slots(
+                *args, nout))
+            sums["plain_ms"] += cuda_ms(torch, lambda: ddec.plain_band_slots(
+                *args, nout))
+            band["ms"] += cuda_ms(torch, lambda: ddec.band_slots(*args,
+                                                                 nout))
+            sums["bytes"] += nbytes((args[0],)) + nbytes(got)
+        sums["bound_ms"], sums["bound_by"] = bound_ms(sums["bytes"], 0)
+        band["by_rows"][what] = sums
+        for key in ("device_ms", "plain_ms", "bytes", "bound_ms"):
+            band[key] += sums[key]
+        band["bound_by"] = sums["bound_by"]
+        log(f"band_kernels, {what}: {sums['classes']} row classes equal to "
+            f"the plain stages, 3 launches and no synchronizing call each; "
+            f"device {sums['device_ms']:.4f} ms (plain stages "
+            f"{sums['plain_ms']:.4f} ms), bound {sums['bound_ms']:.4f} ms "
+            f"({sums['bytes']} bytes)")
+    log(f"phase 1b {time.perf_counter() - t_phase:.3f} s ({card()})")
+    del band_cases, byr4_4k, gop_1080, rows, got, want
+
     # --- 2. each kernel against its plain version at the main path's shapes -
     codec = IntraCodec(WIDTH, HEIGHT, 4, device=dev)
     base = np.frombuffer(yuy2_frame(WIDTH, HEIGHT, 1), np.uint8).reshape(
@@ -755,9 +839,6 @@ def main() -> int:
     check[-1] = np.random.default_rng(0).integers(0, 256, base.shape,
                                                   dtype=np.uint8)
     tables = codec.tables()
-    for k in kernels.values():
-        k.update(max_abs_err=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                 library_ms=None)
     for name in ("dwt_forward_yuy2", "dwt_forward_groups",
                  "dwt_forward_planes", "chunk_pack", "merge_network"):
         kernels[name].update(device_ms=0.0, bytes=0)
@@ -1952,7 +2033,8 @@ def main() -> int:
     want_gop.update(dwt_forward_yuy2=2 * encodes,
                     dwt_forward_groups=3 * encodes,
                     merge_network_tgt=6 * dev_decodes,
-                    merge_network_highfirst=6 * dev_decodes)
+                    merge_network_highfirst=6 * dev_decodes,
+                    band_kernels=18 * dev_decodes)
     if launches_gop != want_gop or dwt_forward_level.launches:
         raise AssertionError(f"the GOP path's {encodes} encodes and "
                              f"{dev_decodes} device decodes launched "
@@ -1991,7 +2073,8 @@ def main() -> int:
     launches_stereo = {n: kk["wrapper"].launches
                        for n, kk in kernels.items()}
     if not (launches_stereo["merge_network_tgt"]
-            and launches_stereo["merge_network_highfirst"]):
+            and launches_stereo["merge_network_highfirst"]
+            and launches_stereo["band_kernels"]):
         raise AssertionError(f"the stereo decode launched {launches_stereo}")
     log(f"stereo batch: {BATCH} 3D samples of {WIDTH}x{HEIGHT} eyes (the GOP "
         "batch's frames 0 and 1 as left and right); both "
@@ -2282,7 +2365,8 @@ def main() -> int:
                 f", or {p.fallback_frames} fell back")
         dec_batches[pf.name] = p.batches
         pool_counts(f"DecoderPool {pf.name}", p, 4 * BATCH, {
-            "merge_network_tgt": 6, "merge_network_highfirst": 6})
+            "merge_network_tgt": 6, "merge_network_highfirst": 6,
+            "band_kernels": 18})
     pool_peak = torch.cuda.max_memory_allocated()
     log(f"EncoderPool at {WIDTH}x{HEIGHT} q4: {4 * BATCH} YUY2 frames in "
         f"batches {enc_batches}, {4 * BATCH / enc_window:.4f} frames/s "
@@ -2395,10 +2479,13 @@ def main() -> int:
                  + sum(n_rgb if name.startswith("rg48") else n_yuv
                        for name, _, _ in OUTPUT_GOLDENS))
     if (launches_outputs["merge_network_tgt"],
-            launches_outputs["merge_network_highfirst"]) != (want_each,) * 2:
+            launches_outputs["merge_network_highfirst"],
+            launches_outputs["band_kernels"]) != (want_each,) * 2 + (
+                3 * want_each,):
         raise AssertionError(f"the outputs path launched {launches_outputs}:"
                              f" expected each decoder merge form {want_each}"
-                             " times, once a band row class")
+                             " times, once a band row class, and the band "
+                             "kernels 3 times as often")
 
     # each packer on the first frame's planes
     co1, _ = codec.decode_coefficients(*codec._decode_rows_args(
@@ -2451,8 +2538,8 @@ def main() -> int:
                                  "differs from the host-entropy route")
         against_cpu(yuy2_cpu, yuy2_samples, out, "YUY2", res)
         kept = len(codec.decode_classes(res))
-        if (ran["merge_network_tgt"], ran["merge_network_highfirst"]) != \
-                (4 * kept, 4 * kept):
+        if (ran["merge_network_tgt"], ran["merge_network_highfirst"],
+                ran["band_kernels"]) != (4 * kept, 4 * kept, 12 * kept):
             raise AssertionError(f"resolution {res}: launches {ran} for 4 "
                                  f"decodes of {kept} band row classes")
         parts = {p: [] for p in ("header walk and fill", "upload",
@@ -2861,11 +2948,14 @@ def main() -> int:
     book(launches_geometry)
     want_each = 6 * geo_decodes[0]
     if (launches_geometry["merge_network_tgt"],
-            launches_geometry["merge_network_highfirst"]) != (want_each,) * 2:
+            launches_geometry["merge_network_highfirst"],
+            launches_geometry["band_kernels"]) != (want_each,) * 2 + (
+                3 * want_each,):
         raise AssertionError(f"the geometry path launched {launches_geometry}:"
                              f" expected each decoder merge form {want_each} "
                              f"times, 6 for each of {geo_decodes[0]} device "
-                             "decodes")
+                             "decodes, and the band kernels 3 times as "
+                             "often")
     geo_log(f"geometry goldens on the card: {len(checks)} scaler, "
             f"{len(WARP_APPLY)} warp apply and the 2 gopstream frame-1 deep "
             f"outputs byte-equal; launches {launches_geometry} "
@@ -3391,14 +3481,16 @@ def main() -> int:
     develop_classes = classes[0]
     merges_each = {n: launches_develop[n] for n in merge_forms}
     if merges_each != dict.fromkeys(merge_forms, develop_classes) \
+            or launches_develop["band_kernels"] != 3 * develop_classes \
             or launches_develop["dwt_forward_planes"] != 3 * encodes_4k \
             or not all(launches_develop[n] for n, k in kernels.items()
                        if "bayer_develop" in k["paths"]):
         raise AssertionError(
             f"the develop path launched {launches_develop}: expected each "
             f"decoder merge form {develop_classes} times (once a band row "
-            f"class decoded), dwt_forward_planes {3 * encodes_4k}, and every "
-            "kernel of the path")
+            f"class decoded), the band kernels 3 times as often, "
+            f"dwt_forward_planes {3 * encodes_4k}, and every kernel of the "
+            "path")
     # the CPU path, outside the counted window
     for fmt, got in full_outs.items():
         if got != api_bayer(full, fmt, cpu)[0]:
@@ -3451,11 +3543,13 @@ def main() -> int:
                                      "from the CPU path")
     book(launches_composite)
     if {n: launches_composite[n] for n in merge_forms} != \
-            dict.fromkeys(merge_forms, classes[0]):
+            dict.fromkeys(merge_forms, classes[0]) \
+            or launches_composite["band_kernels"] != 3 * classes[0]:
         raise AssertionError(f"the composite path launched "
                              f"{launches_composite}: expected each decoder "
                              f"merge form {classes[0]} times, once a band "
-                             "row class of each eye decoded")
+                             "row class of each eye decoded, and the band "
+                             "kernels 3 times as often")
     d = api.Decoder(cpu)
     d.prepare_to_decode(WIDTH, HEIGHT, api.PixelFormat.YUY2)
     d.set_channels_active(3)
@@ -3967,7 +4061,7 @@ def main() -> int:
          "replaces": k["replaces"],
          **{key: k[key] for key in ("also_replaces", "mode", "device_ms",
                                     "bytes", "library_note", "gop",
-                                    "chunk_cap_12") if key in k},
+                                    "chunk_cap_12", "by_rows") if key in k},
          "launches": sum(by[n] for by in by_path.values()),
          "launches_by_path": {path: by[n] for path, by in by_path.items()},
          "max_abs_err": k["max_abs_err"],

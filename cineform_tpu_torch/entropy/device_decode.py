@@ -22,13 +22,18 @@ stage by stage.  The stages of `decode_band_rows`, each row one band:
    `merge_network_highfirst` on mirrored rows): the slots of a row
    compacted across chunks, then spread to their target indices.
 
-Stages 1-5 are plain PyTorch.  Phase masks use bits 0-26 and are carried
-in int32; the 27-bit windows of stage 1 are built in int64.  Where the JAX
-code ORs disjoint masks it sums them, and so does this port, by
-`scatter_add_` where the JAX code compares against every target index.
-The JAX `lax.associative_scan` becomes a log-step (Hillis-Steele) scan
-over transfers held as functions from entry phase to exit phase (a gather
-per composition), which the JAX module's disjoint exit masks encode.
+On the card stages 1-5 are the three kernels of `csrc/band_decode.cu`
+(`ops.band_decode.band_kernels`: the transfers with the classification,
+the row scan, the final walk with the emission), which `band_slots`
+launches.  Their plain PyTorch version, `plain_band_slots`, runs on the
+CPU and is the tests' reference.  There
+phase masks use bits 0-26 and are carried in int32; the 27-bit windows of
+stage 1 are built in int64.  Where the JAX code ORs disjoint masks it sums
+them, and so does this port, by `scatter_add_` where the JAX code compares
+against every target index.  The JAX `lax.associative_scan` becomes a
+log-step (Hillis-Steele) scan over transfers held as functions from entry
+phase to exit phase (a gather per composition), which the JAX module's
+disjoint exit masks encode.
 
 Legacy codeset cs9 (an incomplete prefix code) is decoded on the host, as
 in the JAX package.
@@ -41,7 +46,9 @@ from functools import lru_cache
 import torch
 import torch.nn.functional as F
 
+from cineform_tpu_torch import _build
 from cineform_tpu_torch.spec import codebooks as cb
+from cineform_tpu_torch.ops import band_decode
 from cineform_tpu_torch.ops.merge_network import (merge_network_highfirst,
                                                   merge_network_tgt)
 from cineform_tpu_torch.utils import timing
@@ -357,11 +364,11 @@ def spread_rows(tgt, val, nout: int):
     return (out << 16) >> 16                            # reinterpret int16
 
 
-def band_slots(payload: torch.Tensor, nchunks: torch.Tensor,
-               quant: torch.Tensor, linear: torch.Tensor, nout: int):
-    """Stages 1-5 of `decode_band_rows` (same arguments): the per-chunk
-    slots (ctgt, cval, nval, ovf) of `emit_slots`, activity masked to each
-    row's real chunks."""
+def plain_band_slots(payload: torch.Tensor, nchunks: torch.Tensor,
+                     quant: torch.Tensor, linear: torch.Tensor, nout: int):
+    """Stages 1-5 of `decode_band_rows` (same arguments) in plain PyTorch:
+    the per-chunk slots (ctgt, cval, nval, ovf) of `emit_slots`, activity
+    masked to each row's real chunks.  `band_slots` runs it on the CPU."""
     *lead, nb = payload.shape
     s = nb // 4
     with timing.span("entropy.classify"):
@@ -383,6 +390,22 @@ def band_slots(payload: torch.Tensor, nchunks: torch.Tensor,
             quant[..., None].expand(shape), linear[..., None].expand(shape))
 
 
+def band_slots(payload: torch.Tensor, nchunks: torch.Tensor,
+               quant: torch.Tensor, linear: torch.Tensor, nout: int):
+    """Stages 1-5 of `decode_band_rows` (same arguments): the per-chunk
+    slots of `plain_band_slots`.  For CUDA tensors it launches the
+    kernels of `ops.band_decode`, which count the rows they decoded in
+    `entropy.band_rows_kernel`, or raises; for tensors on the CPU it runs
+    the plain stages, and counts 0 there."""
+    if _build.uses_kernel("band_slots", payload):
+        bounds, leaves = _interval_lut(17, payload.device)
+        return band_decode.band_kernels(payload, nchunks, quant, linear,
+                                        nout, bounds, leaves)
+    band_decode.check(payload, nchunks, quant, linear, nout)
+    timing.count("entropy.band_rows_kernel", 0)
+    return plain_band_slots(payload, nchunks, quant, linear, nout)
+
+
 def decode_band_rows(payload: torch.Tensor, nchunks: torch.Tensor,
                      quant: torch.Tensor, linear: torch.Tensor, nout: int):
     """Decode R independent band bitstreams of one size class.
@@ -391,7 +414,11 @@ def decode_band_rows(payload: torch.Tensor, nchunks: torch.Tensor,
     aligned, band-end terminated), zero-padded to S chunks.  nchunks,
     quant, linear: (R,) int32 chunk count and band attributes.  nout: the
     dense region size (band h * pitch) shared by the class.  Returns
-    (coeffs (R, nout) int32, ovf (R,) bool)."""
+    (coeffs (R, nout) int32, ovf (R,) bool).
+
+    Counts the call's rows in `entropy.band_rows`; `band_slots` counts
+    those that the kernels decoded in `entropy.band_rows_kernel`."""
+    timing.count("entropy.band_rows", payload.shape[0])
     ctgt, cval, nval, covf = band_slots(payload, nchunks, quant, linear, nout)
     with timing.span("entropy.compact_rows"):
         tgt, val = compact_rows(ctgt, cval, nval)

@@ -26,6 +26,8 @@ from cineform_tpu.utils.testframes import yuy2_frame
 from cineform_tpu_torch.entropy import device as tdev
 from cineform_tpu_torch.entropy import device_decode as tdd
 from cineform_tpu_torch.models.intra import IntraCodec
+from cineform_tpu_torch.ops import band_decode
+from cineform_tpu_torch.utils import timing
 from tests.test_intra_host import _golden
 from tests.test_torch_kernels import _guarded_rows
 
@@ -164,6 +166,41 @@ def test_emit_slots_matches_jax(jax_stages):
     for g, w in zip(got, jax_stages["emit"], strict=True):
         _eq(g, w)
     assert jax_stages["emit"][2].max() > 1             # several slots a chunk
+
+
+def _row_args(jax_stages):
+    """`decode_band_rows`' tensor arguments on the JAX fixture's rows."""
+    return tuple(_t(jax_stages[k]) for k in ("pay", "nch", "quant", "lin"))
+
+
+def test_band_slots_dispatch_matches_the_plain_stages_and_jax(jax_stages):
+    """On CPU tensors the wrapper runs the plain stages 1-5, launching
+    nothing: the slots of the JAX `emit_slots` on the same rows."""
+    launches = band_decode.band_kernels.launches
+    args = _row_args(jax_stages)
+    got = tdd.band_slots(*args, NOUT)
+    for g, p, w in zip(got, tdd.plain_band_slots(*args, NOUT),
+                       jax_stages["emit"], strict=True):
+        assert g.dtype == p.dtype and torch.equal(g, p)
+        _eq(g, w)
+    assert band_decode.band_kernels.launches == launches
+
+
+def test_decode_band_rows_counts_its_rows_once_a_call(jax_stages):
+    """One event of each counter a call: its rows, and no kernel rows on
+    the CPU."""
+    args = _row_args(jax_stages)
+    timing.enable()
+    try:
+        for _ in range(2):
+            tdd.decode_band_rows(*args, NOUT)
+        snap = timing.snapshot()
+    finally:
+        timing.disable()
+        timing.reset()
+    assert [(c.name, c.n) for c in snap.counts] == [
+        ("entropy.band_rows", len(BANDS)),
+        ("entropy.band_rows_kernel", 0)] * 2
 
 
 def test_compact_rows_matches_jax(jax_stages):

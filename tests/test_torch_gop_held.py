@@ -28,6 +28,7 @@ from cfbench import plugins  # noqa: E402
 from cineform_tpu.models import gop_host as jgop_host  # noqa: E402
 from cineform_tpu_torch import api  # noqa: E402
 from cineform_tpu_torch.models import gop_host  # noqa: E402
+from cineform_tpu_torch.models.gop import GopCodec  # noqa: E402
 from cineform_tpu_torch.utils import timing  # noqa: E402
 
 torch.set_num_threads(1)
@@ -37,6 +38,10 @@ SEED = 2**31 + 24
 SIZES = ((96, 48), (192, 64))
 #: the api's deep and RGB outputs here, by the codec's fourcc names
 FOURCC = {"V210": "v210", "YU64": "YU64", "RG48": "RG48", "BGRA": "BGRA"}
+#: a device-route group decode's band rows (`entropy.band_rows`; none of
+#: them by the kernels on the CPU)
+GROUP_ROWS = sum(len(planes) * len(GopCodec._LEVEL_ENTRIES[lvl])
+                 for lvl, planes in GopCodec._DECODE_CLASSES)
 #: the outputs the plain GOP reference decodes
 REFERENCE = ("V210", "YU64")
 SAMPLES = os.path.join(os.path.dirname(__file__), "golden", "samples")
@@ -105,7 +110,8 @@ def test_frame_sample_reuses_the_groups_coefficients(tracer, w, h, output):
     got1 = dec.decode_sample(frame).tobytes()
     assert _totals(tracer.snapshot()) == {
         "gop.group_decodes": 1, "gop.fallback_groups": 0,
-        "gop.frames_out": 2, "gop.held_frames": 1}
+        "gop.frames_out": 2, "gop.held_frames": 1,
+        "entropy.band_rows": GROUP_ROWS, "entropy.band_rows_kernel": 0}
     for k, got in enumerate((got0, got1)):
         assert got == _fresh(group, w, h, output, k), k
         assert got == jgop_host.decode_group_to(group, FOURCC[output], k), k
@@ -235,7 +241,9 @@ def test_yuy2_route_decodes_its_group_again(tracer, jax_host, output, size):
         if mod is api:
             assert _totals(tracer.snapshot()) == {
                 "gop.group_decodes": 2, "gop.fallback_groups": 0,
-                "gop.frames_out": 4, "gop.held_frames": 2}
+                "gop.frames_out": 4, "gop.held_frames": 2,
+                "entropy.band_rows": 2 * GROUP_ROWS,
+                "entropy.band_rows_kernel": 0}
     assert got[0] == got[1]
 
 

@@ -22,6 +22,7 @@ import torch
 from cineform_tpu_torch.entropy import device as tdev
 from cineform_tpu_torch.entropy import device_decode as tdd
 from cineform_tpu_torch.ops import intra_transform
+from cineform_tpu_torch.ops.band_decode import band_kernels
 from cineform_tpu_torch.ops.chunk_pack import chunk_pack
 from cineform_tpu_torch.ops import dwt_forward as dwt
 from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
@@ -31,6 +32,7 @@ from cineform_tpu_torch.ops.dwt_forward import (dwt_forward_groups,
 from cineform_tpu_torch.ops.merge_network import (merge_network,
                                                   merge_network_highfirst,
                                                   merge_network_tgt)
+from cineform_tpu_torch.spec import codebooks as cb
 from cineform_tpu_torch.testframes import plasma_noise_frames
 
 torch.set_num_threads(1)
@@ -38,7 +40,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = (dwt_forward_yuy2, dwt_forward_groups, dwt_forward_planes,
             dwt_forward_level, chunk_pack, merge_network, merge_network_tgt,
-            merge_network_highfirst)
+            merge_network_highfirst, band_kernels)
 DWTS = ("dwt", "yuy2", "groups", "planes")
 #: (LH, HL, HH) quantizers of Y, V, U at each level (quality 4's, then
 #: others that reach q <= 1 and large q)
@@ -195,6 +197,11 @@ def test_wrappers_run_the_plain_versions_on_cpu():
     for which in MERGES:
         got, want = _merge(which, val, rem, rem * 3)
         assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+    rows = _band_inputs(3, 2, 40)
+    got = tdd.band_slots(*rows, 2000)
+    want = tdd.plain_band_slots(*rows, 2000)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
     assert [w.launches for w in WRAPPERS] == counts
 
 
@@ -219,7 +226,48 @@ def _lows(b, h, w, dtype=torch.int32, device=None):
             torch.zeros((b, 2, h, w // 2), dtype=dtype, device=device))
 
 
-@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES])
+def _band_inputs(seed, rows, chunks, device=None):
+    """Band rows of seeded random bytes, a corrupt stream with band-end
+    codewords strewn in it, their first half thinned so that walks run long:
+    (payload (rows, 4 chunks) uint8, nchunks, quant, linear (rows,) int32),
+    nchunks from below 0 to past the rows' chunks, quantizers that wrap
+    int16, linear flags 0, 1 and 2."""
+    rng = np.random.default_rng(seed)
+    pay = rng.integers(0, 256, (rows, 4 * chunks), dtype=np.uint8)
+    pay[:, :2 * chunks] &= rng.integers(0, 256, (rows, 1), dtype=np.uint8)
+    # 8 band-end codewords a row, byte-aligned, where walks may reach them
+    end = cb.get_codeset(17).bandend_bits << 6
+    for r in range(rows):
+        for at in rng.integers(0, 4 * chunks - 3, 8):
+            word = int(end | rng.integers(0, 64)).to_bytes(4, "big")
+            pay[r, at:at + 4] = np.frombuffer(word, np.uint8)
+    nch = rng.integers(-2, chunks + 3, rows)
+    quant = rng.integers(-70000, 70000, rows)
+    linear = rng.integers(0, 3, rows)
+    return (torch.from_numpy(pay).to(device),
+            *(torch.from_numpy(a.astype(np.int32)).to(device)
+              for a in (nch, quant, linear)))
+
+
+def test_band_kernels_take_cuda_tensors_only():
+    """The launcher has no plain path: CPU tensors raise, launch nothing
+    and count no kernel rows."""
+    from cineform_tpu_torch.utils import timing
+
+    before = band_kernels.launches
+    bounds, leaves = tdd._interval_lut(17, torch.device("cpu"))
+    timing.enable()
+    try:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            band_kernels(*_band_inputs(0, 2, 8), 100, bounds, leaves)
+        counts = timing.snapshot().counts
+    finally:
+        timing.disable()
+        timing.reset()
+    assert counts == [] and band_kernels.launches == before
+
+
+@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES, "band"])
 def test_wrappers_raise_on_wrong_dtype(which):
     with pytest.raises(TypeError):
         if which == "dwt":
@@ -236,12 +284,15 @@ def test_wrappers_raise_on_wrong_dtype(which):
         elif which == "pack":
             chunk_pack(torch.zeros((1, 256), dtype=torch.int64),
                        torch.zeros((1, 256), dtype=torch.int32))
+        elif which == "band":
+            pay, nch, quant, linear = _band_inputs(0, 2, 8)
+            tdd.band_slots(pay, nch, quant.to(torch.int64), linear, 100)
         else:
             z = torch.zeros(64, dtype=torch.int32)
             _merge(which, torch.zeros(64, dtype=torch.float32), z, z)
 
 
-@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES])
+@pytest.mark.parametrize("which", [*DWTS, "pack", *MERGES, "band"])
 def test_wrappers_do_not_fall_back_off_the_cpu(which):
     """A tensor on a device without a kernel raises instead of taking the
     plain version."""
@@ -263,6 +314,8 @@ def test_wrappers_do_not_fall_back_off_the_cpu(which):
         elif which == "pack":
             z = torch.zeros((1, 256), dtype=torch.int32, device=meta)
             chunk_pack(z, z)
+        elif which == "band":
+            tdd.band_slots(*(t.to(meta) for t in _band_inputs(0, 2, 8)), 100)
         else:
             z = torch.zeros(64, dtype=torch.int32, device=meta)
             _merge(which, z, z, z)
@@ -300,6 +353,15 @@ def test_wrappers_reject_bad_shapes():
         merge_network_tgt(z64, z64, z32)
     with pytest.raises(ValueError):
         merge_network_highfirst(z32, z64)
+    pay, nch, quant, linear = _band_inputs(0, 2, 8)
+    for args in ((pay[:, :30], nch, quant, linear),     # not whole chunks
+                 (pay[0], nch, quant, linear),          # not (rows, bytes)
+                 (pay, nch[:1], quant, linear),         # a row missing
+                 (pay, nch, quant, linear[None])):
+        with pytest.raises(ValueError):
+            tdd.band_slots(*args, 100)
+    with pytest.raises(ValueError):
+        tdd.band_slots(pay, nch, quant, linear, 1 << 31)
 
 
 def _carries(seed, b, which):
@@ -1019,6 +1081,104 @@ def test_device_decode_on_the_card_matches_golden(cuda):
     # every decoder row took the placement
     assert flagged == [_flagged(w, torch.device("cuda", 0))
                        for w in (merge_network_tgt, merge_network_highfirst)]
+
+
+def _band_kernels_match_plain(args, nout):
+    """`band_slots` on the card: three launches, and the slots of the plain
+    stages 1-5 on the same tensors, bit for bit."""
+    before = band_kernels.launches
+    got = tdd.band_slots(*args, nout)
+    torch.cuda.synchronize()
+    assert band_kernels.launches == before + 3
+    want = tdd.plain_band_slots(*args, nout)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return got
+
+
+def _plain_decode(pay, nch, quant, linear, nout):
+    """`decode_band_rows` with the plain stages 1-5."""
+    ctgt, cval, nval, ovf = tdd.plain_band_slots(pay, nch, quant, linear,
+                                                 nout)
+    tgt, val = tdd.compact_rows(ctgt, cval, nval)
+    return tdd.spread_rows(tgt, val, nout), ovf.any(dim=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,rows,chunks,nout", [
+    (0, 1, 1, 40), (1, 5, 2, 100), (2, 3, 63, 3000), (3, 1, 64, 1),
+    (4, 4, 65, 5000), (5, 7, 1000, 2000), (6, 1, 2049, 9000),
+    (7, 30, 4096, 15000), (8, 2, 1 << 17, 200000), (9, 1, 1 << 17, 7000)])
+def test_band_kernels_match_plain_on_corrupt_rows(cuda, seed, rows, chunks,
+                                                  nout):
+    """Seeded random rows, 1 to 2^17 chunks: band ends anywhere or none,
+    entries past a band end, targets past the region, nchunks below 0,
+    inside and past the rows, the linear flag 0, 1 and 2."""
+    args = _band_inputs(seed, rows, chunks, cuda)
+    _, _, nval, ovf = _band_kernels_match_plain(args, nout)
+    got = tdd.decode_band_rows(*args, nout)
+    for g, w in zip(got, _plain_decode(*args, nout), strict=True):
+        assert torch.equal(g, w)
+    if chunks >= 1000:          # the corrupt cases occur
+        packed = tdd.classify(args[0]).reshape(rows, chunks, 32)
+        entry, _ = tdd.scan_entries_rows(*tdd.chunk_transfers(packed))
+        live = torch.arange(chunks, device=cuda) < args[1][:, None]
+        assert ((entry == tdd.DONE) & live).any()
+        assert ovf.any() and nval.max() > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["golden_1080", "byr4_4k", "gop_1080"])
+def test_band_kernels_match_plain_on_the_main_paths_rows(cuda, what):
+    """Every band row class of the 1080p golden, of a 4K BYR4 mosaic (the
+    export cell's size, 11 bits of noise) and of a 1080p GOP group (the 6
+    classes): the slots and `decode_band_rows` equal the plain stages'."""
+    from cineform_tpu_torch import api, testframes
+    from cineform_tpu_torch.models.intra import IntraCodec
+    from test_intra_host import _golden
+
+    if what == "golden_1080":
+        codec = IntraCodec(1920, 1080, 6, device=cuda)
+        samples = [_golden("s_1920x1080_q6_p1", "cfhd")]
+    elif what == "byr4_4k":
+        codec = api.intra_codec(3840, 2160, 4, "BYR4", cuda)
+        samples = codec.encode_batch_device(np.frombuffer(
+            testframes.byr4_frame(3840, 2160, 1), np.uint8).reshape(
+                1, 2160, -1))
+    else:
+        codec = api.gop_codec(1920, 1080, 4, cuda)
+        base = np.frombuffer(testframes.yuy2_frame(1920, 1080, 1),
+                             np.uint8).reshape(1, 1080, 3840)
+        samples = codec.encode_batch(base, np.roll(base, 4, axis=1),
+                                     frame_numbers=[1])
+    rows = codec._decode_rows_args(samples)
+    assert not rows[-1]
+    for ci, (lev, planes) in enumerate(codec._DECODE_CLASSES):
+        bh, _, pitch = codec._class_dims(lev, planes)
+        args = tuple(rows[i][ci] for i in range(4))
+        _, _, nval, ovf = _band_kernels_match_plain(args, bh * pitch)
+        assert not ovf.any() and nval.sum() > 0
+        got = tdd.decode_band_rows(*args, bh * pitch)
+        for g, w in zip(got, _plain_decode(*args, bh * pitch), strict=True):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_band_rows_counted_as_the_kernels_on_the_card(cuda):
+    """On the card every row of a `decode_band_rows` call is a kernel row."""
+    from cineform_tpu_torch.utils import timing
+
+    args = _band_inputs(3, 4, 300, cuda)
+    timing.enable()
+    try:
+        tdd.decode_band_rows(*args, 5000)
+        counts = [(c.name, c.n) for c in timing.snapshot().counts]
+    finally:
+        timing.disable()
+        timing.reset()
+    assert counts == [("entropy.band_rows", 4),
+                      ("entropy.band_rows_kernel", 4)]
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ import torch
 
 from cineform_tpu_torch import api, testframes
 from cineform_tpu_torch.models import gop_host
+from cineform_tpu_torch.models.gop import GopCodec
 from cineform_tpu_torch.models.intra import IntraCodec
 from cineform_tpu_torch.utils import timing
 
@@ -322,8 +323,15 @@ def test_gop_playback_spans_nest_and_count_a_group_a_frame(tracer):
         "api.decode_sample", "api.parse", "gop.held_frame", "gop.inverse_to",
         "intra.download"]
     assert all(s.frames == 1 for s in frame if s.name.startswith("gop."))
+    # the band decoder's rows, one event each a row class, none by the
+    # kernels on the CPU
+    rows = sum(len(planes) * len(GopCodec._LEVEL_ENTRIES[lvl])
+               for lvl, planes in GopCodec._DECODE_CLASSES)
     assert _totals(snap) == {"gop.group_decodes": 1, "gop.frames_out": 2,
-                             "gop.held_frames": 1, "gop.fallback_groups": 0}
+                             "gop.held_frames": 1, "gop.fallback_groups": 0,
+                             "entropy.band_rows": rows,
+                             "entropy.band_rows_kernel": 0}
+    assert [c.name for c in snap.counts].count("entropy.band_rows") == 6
     for c in snap.counts:
         assert any(r.start <= c.time <= r.end and r.thread == c.thread
                    for r in roots)
